@@ -5,14 +5,20 @@ The layout mirrors nefes_tpu so that each module's counterpart is found by
 name; the JAX package is the reference every module is tested against.
 This package imports torch, numpy and the standard library only.
 
-  geometry/   SE(3) exp-map pose deltas, pinhole rays, world setup
+  geometry/   SE(3) exp-map pose deltas, SVD re-orthogonalisation,
+              pinhole rays, world setup
   fields/     frequency embedding, NeRFH-NFF field, exposure MLP, FusionNet
+  features/   DFNet (VGG16 hypercolumn features + pose regressor)
   render/     stratified + inverse-CDF sampling, compositor, renderer
   kernels/    hand-written Hopper kernels (csrc/) with their plain PyTorch
-              versions: the pre-embedded fused field and the
-              composite-fused fine render
-  train/      ModelConfig and the NeFeSModel bundle
-  refine/     mode-3 pose refinement (explicit SE(3) delta + Adam)
+              versions: the fused field and the composite-fused fine
+              render, each on pre-embedded inputs (K1-K4) and on raw
+              points and directions embedded in the kernel (K5-K8)
+  train/      ModelConfig, the NeFeSModel bundle, mse / psnr
+  refine/     mode-3 pose refinement (explicit SE(3) delta + Adam) and
+              mode-2 APR refinement (Adam on DFNet's weights, with the
+              PSNR/SSIM verification fail-safe)
+  utils/      torch-semantics bicubic / bilinear resizes, SSIM
   data/       look_at_pose for synthetic cameras
 
 Entry points run on the card unless the caller passes device="cpu".

@@ -1,9 +1,16 @@
-// Composite-fused fine render on pre-embedded inputs, on Hopper: K3
-// (forward) and K4 (frozen-field recompute backward).
+// Composite-fused fine render on Hopper: K3 (forward) and K4 (frozen-field
+// recompute backward) on pre-embedded inputs, K7 and K8 on raw points and
+// directions that each tile embeds itself.
 //
 // K3 replaces run_fwd / _render_fwd_kernel_pre of make_fused_render_pre
 // (nefes_tpu/kernels/fused_render.py:363-378, 276-295); K4 replaces
 // run_bwd / _render_bwd_kernel_pre (fused_render.py:380-399, 298-351).
+// K7 replaces run_fwd / _render_fwd_kernel of make_fused_render
+// (fused_render.py:208-223, 116-133) and K8 its run_bwd /
+// _render_bwd_kernel (fused_render.py:225-244, 136-195): the same two
+// kernels with tower.cuh's embedding prologue in place of the row loads
+// and, in K8, its chain-rule epilogue giving d_pts and d_dirs per sample
+// (the phases recomputed, not kept: shared memory is as in K3/K4).
 //
 // One block renders one ray: the tower (tower.cuh) runs over the ray's S
 // samples in tiles of TR = 64, and the volume composite runs inside the
@@ -54,15 +61,14 @@ __host__ __device__ inline size_t carve_ray(const Dims& d, bool backward, int S,
 
 // Run the forward tower over the ray's samples, tile by tile, keeping
 // sigma and the first rf_cols columns of the rgb/feature head per sample.
-template <typename T>
+// x, dirs: the (R*S, E) / (R*S, Ed) embeddings in T, or RAW the (R*S, 3)
+// f32 points and directions.
+template <typename T, bool RAW>
 __device__ void ray_forward(const Tower<T>& tw, const Smem& s, const RaySmem& rs, int S,
-                            int sample0, const T* __restrict__ emb, const T* __restrict__ embd,
-                            int rf_cols) {
+                            size_t sample0, const void* x, const void* dirs, int rf_cols) {
   for (int t0 = 0; t0 < S; t0 += TR) {
     const int valid = S - t0 < TR ? S - t0 : TR;
-    load_tile<T>(s.emb, emb, sample0 + t0, valid, tw.d.E);
-    load_tile<T>(s.embd, embd, sample0 + t0, valid, tw.d.Ed);
-    __syncthreads();
+    tile_inputs<T, RAW>(tw.d, s, x, dirs, true, sample0 + t0, valid);
     float* rf = rs.rf;
     tower_forward<T>(tw, s, true, false, rf_cols, [=](int r, int c, float v) {
       if (r < valid) rf[(t0 + r) * rf_cols + c] = v;
@@ -88,9 +94,9 @@ __device__ inline void composite_weights(const RaySmem& rs, int S, float* trans)
 }
 
 // out (R, C + 2) f32: [sum_s w_s * rgbfeat_s | depth | acc]
-template <typename T>
+template <typename T, bool RAW>
 __global__ void __launch_bounds__(NT)
-render_fwd_kernel(Tower<T> tw, int S, const T* __restrict__ emb, const T* __restrict__ embd,
+render_fwd_kernel(Tower<T> tw, int S, const void* __restrict__ x, const void* __restrict__ dirs,
                   const float* __restrict__ z, float* __restrict__ out) {
   extern __shared__ __align__(16) char nefes_smem[];
   Smem s;
@@ -99,7 +105,7 @@ render_fwd_kernel(Tower<T> tw, int S, const T* __restrict__ emb, const T* __rest
   const int ray = blockIdx.x;
   const int C = 3 + tw.d.F;
   for (int i = threadIdx.x; i < S; i += blockDim.x) rs.z[i] = z[(size_t)ray * S + i];
-  ray_forward<T>(tw, s, rs, S, ray * S, emb, embd, C);
+  ray_forward<T, RAW>(tw, s, rs, S, (size_t)ray * S, x, dirs, C);
 
   if (threadIdx.x == 0) composite_weights(rs, S, nullptr);
   __syncthreads();
@@ -114,25 +120,26 @@ render_fwd_kernel(Tower<T> tw, int S, const T* __restrict__ emb, const T* __rest
   }
 }
 
-// g (R, C + 2) f32 cotangent of the forward output; writes d_emb
-// (R*S, E), d_embd (R*S, Ed) in T and d_z (R, S) f32. Stop-gradient rule:
-// only the rgb channels, depth and acc feed the cotangent of the composite
-// weights; the features reach only the head.
-template <typename T>
+// g (R, C + 2) f32 cotangent of the forward output; writes dx, ddirs:
+// d_emb (R*S, E), d_embd (R*S, Ed) in T or, RAW, d_pts and d_dirs
+// (R*S, 3) f32; and d_z (R, S) f32. Stop-gradient rule: only the rgb
+// channels, depth and acc feed the cotangent of the composite weights;
+// the features reach only the head.
+template <typename T, bool RAW>
 __global__ void __launch_bounds__(NT)
-render_bwd_kernel(Tower<T> tw, int S, const T* __restrict__ emb, const T* __restrict__ embd,
+render_bwd_kernel(Tower<T> tw, int S, const void* __restrict__ x, const void* __restrict__ dirs,
                   const float* __restrict__ z, const float* __restrict__ g,
-                  T* __restrict__ d_emb, T* __restrict__ d_embd, float* __restrict__ d_z) {
+                  void* __restrict__ dx, void* __restrict__ ddirs, float* __restrict__ d_z) {
   extern __shared__ __align__(16) char nefes_smem[];
   Smem s;
   RaySmem rs;
   carve_ray(tw.d, true, S, nefes_smem, &s, &rs);
   const int ray = blockIdx.x;
-  const int C = 3 + tw.d.F, E = tw.d.E, Ed = tw.d.Ed;
-  const int sample0 = ray * S;
+  const int C = 3 + tw.d.F;
+  const size_t sample0 = (size_t)ray * S;
   const float* gr = g + (size_t)ray * (C + 2);
   for (int i = threadIdx.x; i < S; i += blockDim.x) rs.z[i] = z[sample0 + i];
-  ray_forward<T>(tw, s, rs, S, sample0, emb, embd, 3);
+  ray_forward<T, RAW>(tw, s, rs, S, sample0, x, dirs, 3);
 
   if (threadIdx.x == 0) {
     composite_weights(rs, S, rs.tmp);
@@ -160,49 +167,63 @@ render_bwd_kernel(Tower<T> tw, int S, const T* __restrict__ emb, const T* __rest
 
   for (int t0 = 0; t0 < S; t0 += TR) {
     const int valid = S - t0 < TR ? S - t0 : TR;
-    const size_t row0 = (size_t)sample0 + t0;
-    load_tile<T>(s.emb, emb, sample0 + t0, valid, E);
-    load_tile<T>(s.embd, embd, sample0 + t0, valid, Ed);
-    __syncthreads();
+    const size_t row0 = sample0 + t0;
+    tile_inputs<T, RAW>(tw.d, s, x, dirs, true, row0, valid);
     tower_forward<T>(tw, s, true, true, 0, [](int, int, float) {});
     const float* dsig = rs.dsig + t0;
     const float* wgt = rs.wgt + t0;
     tower_backward<T>(
         tw, s, true, [=](int r) { return r < valid ? dsig[r] : 0.f; },
-        [=](int r, int c) { return r < valid ? wgt[r] * gr[c] : 0.f; },
-        [=](int r, int k, float v) {
-          if (r < valid) d_emb[(row0 + r) * E + k] = from_f<T>(v);
-        },
-        [=](int r, int k, float v) {
-          if (r < valid) d_embd[(row0 + r) * Ed + k] = from_f<T>(v);
-        });
+        [=](int r, int c) { return r < valid ? wgt[r] * gr[c] : 0.f; });
+    tile_input_grads<T, RAW>(tw.d, s, x, dirs, true, dx, ddirs, row0, valid);
   }
 }
 
-template <typename T>
-int launch_fwd(int R, int S, const void* emb, const void* embd, const float* z, const void* w,
+template <typename T, bool RAW>
+int launch_fwd(int R, int S, const void* x, const void* dirs, const float* z, const void* w,
                const float* b, Dims d, float* out, void* stream) {
   const size_t smem = carve_ray(d, false, S, nullptr, nullptr, nullptr);
-  cudaError_t err = cudaFuncSetAttribute(render_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto* kern = &render_fwd_kernel<T, RAW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  NEFES_LAUNCH(render_fwd_kernel<T>, R, smem, stream, make_tower<T>(w, nullptr, b, d), S,
-               static_cast<const T*>(emb), static_cast<const T*>(embd), z, out);
+  NEFES_LAUNCH(kern, R, smem, stream, make_tower<T>(w, nullptr, b, d), S, x, dirs, z, out);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(int R, int S, const void* emb, const void* embd, const float* z, const void* w,
-               const void* wt, const float* b, Dims d, const float* g, void* d_emb,
-               void* d_embd, float* d_z, void* stream) {
+template <typename T, bool RAW>
+int launch_bwd(int R, int S, const void* x, const void* dirs, const float* z, const void* w,
+               const void* wt, const float* b, Dims d, const float* g, void* dx, void* ddirs,
+               float* d_z, void* stream) {
   const size_t smem = carve_ray(d, true, S, nullptr, nullptr, nullptr);
-  cudaError_t err = cudaFuncSetAttribute(render_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto* kern = &render_bwd_kernel<T, RAW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  NEFES_LAUNCH(render_bwd_kernel<T>, R, smem, stream, make_tower<T>(w, wt, b, d), S,
-               static_cast<const T*>(emb), static_cast<const T*>(embd), z, g,
-               static_cast<T*>(d_emb), static_cast<T*>(d_embd), d_z);
+  NEFES_LAUNCH(kern, R, smem, stream, make_tower<T>(w, wt, b, d), S, x, dirs, z, g, dx, ddirs,
+               d_z);
   return (int)cudaGetLastError();
+}
+
+template <bool RAW>
+int render_fwd(int dtype, int R, int S, const void* x, const void* dirs, const float* z,
+               const void* w, const float* b, Dims d, float* out, void* stream) {
+  if (R <= 0) return 0;
+  if (dtype == 1 && !HAS_BF16) return -1;
+  return dtype == 1 ? launch_fwd<__nv_bfloat16, RAW>(R, S, x, dirs, z, w, b, d, out, stream)
+                    : launch_fwd<float, RAW>(R, S, x, dirs, z, w, b, d, out, stream);
+}
+
+template <bool RAW>
+int render_bwd(int dtype, int R, int S, const void* x, const void* dirs, const float* z,
+               const void* w, const void* wt, const float* b, Dims d, const float* g, void* dx,
+               void* ddirs, float* d_z, void* stream) {
+  if (R <= 0) return 0;
+  if (dtype == 1 && !HAS_BF16) return -1;
+  return dtype == 1 ? launch_bwd<__nv_bfloat16, RAW>(R, S, x, dirs, z, w, wt, b, d, g, dx,
+                                                     ddirs, d_z, stream)
+                    : launch_bwd<float, RAW>(R, S, x, dirs, z, w, wt, b, d, g, dx, ddirs, d_z,
+                                             stream);
 }
 
 }  // namespace nefes
@@ -215,12 +236,8 @@ extern "C" int nefes_render_fwd_pre(int dtype, int R, int S, const void* emb, co
                                     const float* z, const void* w, const float* b, int depth,
                                     int width, int skipmask, int E, int Ed, int F, float* out,
                                     void* stream) {
-  const Dims d{depth, width, skipmask, E, Ed, F};
-  if (R <= 0) return 0;
-  if (dtype == 1 && !nefes::HAS_BF16) return -1;
-  return dtype == 1
-             ? nefes::launch_fwd<__nv_bfloat16>(R, S, emb, embd, z, w, b, d, out, stream)
-             : nefes::launch_fwd<float>(R, S, emb, embd, z, w, b, d, out, stream);
+  return nefes::render_fwd<false>(dtype, R, S, emb, embd, z, w, b,
+                                  Dims{depth, width, skipmask, E, Ed, F}, out, stream);
 }
 
 extern "C" int nefes_render_bwd_pre(int dtype, int R, int S, const void* emb, const void* embd,
@@ -228,13 +245,29 @@ extern "C" int nefes_render_bwd_pre(int dtype, int R, int S, const void* emb, co
                                     const float* b, int depth, int width, int skipmask, int E,
                                     int Ed, int F, const float* g, void* d_emb, void* d_embd,
                                     float* d_z, void* stream) {
-  const Dims d{depth, width, skipmask, E, Ed, F};
-  if (R <= 0) return 0;
-  if (dtype == 1 && !nefes::HAS_BF16) return -1;
-  return dtype == 1 ? nefes::launch_bwd<__nv_bfloat16>(R, S, emb, embd, z, w, wt, b, d, g,
-                                                       d_emb, d_embd, d_z, stream)
-                    : nefes::launch_bwd<float>(R, S, emb, embd, z, w, wt, b, d, g, d_emb,
-                                               d_embd, d_z, stream);
+  return nefes::render_bwd<false>(dtype, R, S, emb, embd, z, w, wt, b,
+                                  Dims{depth, width, skipmask, E, Ed, F}, g, d_emb, d_embd, d_z,
+                                  stream);
+}
+
+// The raw-input kernels: pts, dirs (R*S, 3) f32 (dirs per sample), and
+// d_pts, d_dirs (R*S, 3) f32, whatever the pack dtype.
+extern "C" int nefes_render_fwd_raw(int dtype, int R, int S, const float* pts,
+                                    const float* dirs, const float* z, const void* w,
+                                    const float* b, int depth, int width, int skipmask, int E,
+                                    int Ed, int F, float* out, void* stream) {
+  return nefes::render_fwd<true>(dtype, R, S, pts, dirs, z, w, b,
+                                 Dims{depth, width, skipmask, E, Ed, F}, out, stream);
+}
+
+extern "C" int nefes_render_bwd_raw(int dtype, int R, int S, const float* pts,
+                                    const float* dirs, const float* z, const void* w,
+                                    const void* wt, const float* b, int depth, int width,
+                                    int skipmask, int E, int Ed, int F, const float* g,
+                                    float* d_pts, float* d_dirs, float* d_z, void* stream) {
+  return nefes::render_bwd<true>(dtype, R, S, pts, dirs, z, w, wt, b,
+                                 Dims{depth, width, skipmask, E, Ed, F}, g, d_pts, d_dirs, d_z,
+                                 stream);
 }
 
 // Shared-memory bytes one block of each kernel asks for.

@@ -1,12 +1,15 @@
 // Shared device code of the NeRFH-NFF tower kernels (fused_field.cu,
-// fused_render.cu): the pre-embedded MLP tower with its heads, and its
-// frozen-field recompute backward, over one tile of TR samples per block.
+// fused_render.cu): the MLP tower with its heads, and its frozen-field
+// recompute backward, over one tile of TR samples per block, fed either
+// pre-embedded rows or raw f32 points and directions that the tile embeds
+// itself (the raw-input kernels K5-K8).
 //
 // Replaces the per-tile bodies of the Pallas kernels in
-// nefes_tpu/kernels/fused_field.py (_tower_tile, _mlp_backward with
-// pre=True and need_dw=False). Same arithmetic and the same rounding
-// points: hidden layers accumulate in f32 and round to the pack dtype T,
-// then take the bias and the ReLU in T; heads accumulate in f32.
+// nefes_tpu/kernels/fused_field.py (_embed_block, _tower_tile,
+// _mlp_backward with need_dw=False, pre=True or False). Same arithmetic
+// and the same rounding points: hidden layers accumulate in f32 and round
+// to the pack dtype T, then take the bias and the ReLU in T; heads
+// accumulate in f32.
 //
 // Design on Hopper (H100): the TPU kernel keeps the whole tower resident
 // in VMEM. Here the weights (about 167k values for the fine tower, 333 KB
@@ -35,6 +38,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #ifdef NEFES_EMULATE
 #include "host_emulation.h"
 namespace nefes { constexpr bool HAS_BF16 = false; }
@@ -42,7 +47,6 @@ namespace nefes { constexpr bool HAS_BF16 = false; }
 namespace nefes { constexpr bool HAS_BF16 = true; }
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <type_traits>
 #define NEFES_LAUNCH(kern, grid, smem, stream, ...) \
   kern<<<(grid), nefes::NT, (smem), static_cast<cudaStream_t>(stream)>>>(__VA_ARGS__)
 #endif
@@ -145,13 +149,13 @@ Tower<T> make_tower(const void* w, const void* wt, const float* b, Dims d) {
 // values that hold numbers already rounded to the pack dtype.
 struct Smem {
   float* emb;       // TR x E
-  float* embd;      // TR x Ed
+  float* embd;      // TR x Ed (its cotangent after tower_backward)
   float* h0;        // TR x W
   float* h1;        // TR x W
   float* de;        // TR x H  (dir-layer output; its cotangent in backward)
   float* zs;        // TR      sigma pre-activation
   float* dzs;       // TR      (backward)
-  float* demb;      // TR x E  (backward)
+  float* demb;      // TR x E  (backward: the cotangent of emb)
   uint32_t* mask;   // depth x TR x W/32 ReLU bits (backward)
 };
 
@@ -302,12 +306,109 @@ __device__ __forceinline__ void block_mm(int K, int N, const T* __restrict__ B, 
 // Load rows [row0, row0 + TR) of a (rows, C) array into an f32 tile;
 // rows at or past `valid` read as zero.
 template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, size_t row0,
                                           int valid, int C) {
   for (int i = threadIdx.x; i < TR * C; i += blockDim.x) {
     const int r = i / C;
-    dst[i] = r < valid ? to_f<T>(src[(size_t)(row0 + r) * C + (i - r * C)]) : 0.f;
+    dst[i] = r < valid ? to_f<T>(src[(row0 + r) * C + (i - r * C)]) : 0.f;
   }
+}
+
+// The raw-input prologue (K5-K8; mirrors _embed_block): the frequency
+// embedding of rows [row0, row0 + TR) of x (rows, 3) f32, written straight
+// into the tile buffer dst (TR x C, C = 3 + 6 nf) in the reference order
+// [x, sin(2^0 x), cos(2^0 x), sin(2^1 x), ...], each value rounded to T.
+// The phases x * 2^k are exact f32 scalings (a tensor-core product would
+// round x to bf16 first: radians of error at the top band), and sin/cos
+// are the full-precision sinf/cosf, whose argument reduction holds at the
+// hundreds of radians the top band reaches (the __sinf intrinsic does
+// not). Rows at or past `valid` read as zero.
+template <typename T>
+__device__ __forceinline__ void embed_tile(float* dst, const float* __restrict__ x, size_t row0,
+                                           int valid, int C) {
+  for (int i = threadIdx.x; i < TR * C; i += blockDim.x) {
+    const int r = i / C, c = i - r * C;
+    float v = 0.f;
+    if (r < valid) {
+      const float* xr = x + (row0 + r) * 3;
+      if (c < 3) {
+        v = xr[c];
+      } else {
+        const int k = (c - 3) / 6, m = (c - 3) - 6 * k;
+        const float ph = ldexpf(xr[m % 3], k);
+        v = m < 3 ? sinf(ph) : cosf(ph);
+      }
+      v = rnd<T>(v);
+    }
+    dst[i] = v;
+  }
+}
+
+// The raw-input epilogue (K6, K8; mirrors the d_embed step of
+// _mlp_backward): the embedding cotangent de (TR x C f32) of the tile's
+// rows back to dx (rows, 3) f32, dx_i = de_i + sum_k 2^k (de_sin(k, i)
+// cos(2^k x_i) - de_cos(k, i) sin(2^k x_i)), the phases recomputed from x
+// rather than kept.
+__device__ __forceinline__ void embed_backward_tile(const float* de, const float* __restrict__ x,
+                                                    float* __restrict__ dx, size_t row0,
+                                                    int valid, int C) {
+  const int nf = (C - 3) / 6;
+  for (int i = threadIdx.x; i < valid * 3; i += blockDim.x) {
+    const int r = i / 3, j = i - 3 * r;
+    const float xv = x[(row0 + r) * 3 + j];
+    const float* d = de + r * C;
+    float acc = d[j];
+    for (int k = 0; k < nf; ++k) {
+      const float ph = ldexpf(xv, k);
+      acc += ldexpf(d[3 + 6 * k + j] * cosf(ph) - d[6 + 6 * k + j] * sinf(ph), k);
+    }
+    dx[(row0 + r) * 3 + j] = acc;
+  }
+}
+
+// The tile's inputs into s.emb and, with dirs, s.embd: rows of the
+// pre-embedded (N, E) / (N, Ed) arrays in T or, RAW, the embedding of the
+// f32 (N, 3) points and directions. Ends with a barrier.
+template <typename T, bool RAW>
+__device__ __forceinline__ void tile_inputs(const Dims& d, const Smem& s, const void* x,
+                                            const void* dirs, bool with_dirs, size_t row0,
+                                            int valid) {
+  if (RAW) {
+    embed_tile<T>(s.emb, static_cast<const float*>(x), row0, valid, d.E);
+    if (with_dirs) embed_tile<T>(s.embd, static_cast<const float*>(dirs), row0, valid, d.Ed);
+  } else {
+    load_tile<T>(s.emb, static_cast<const T*>(x), row0, valid, d.E);
+    if (with_dirs) load_tile<T>(s.embd, static_cast<const T*>(dirs), row0, valid, d.Ed);
+  }
+  __syncthreads();
+}
+
+// After tower_backward: the cotangents it left in s.demb and s.embd out to
+// the tile's valid rows, as (N, E) / (N, Ed) rows in T or, RAW, through
+// the embedding as (N, 3) f32 point and direction cotangents (x, dirs are
+// the raw inputs then). Ends with a barrier, so the next tile may reuse
+// the buffers.
+template <typename T, bool RAW>
+__device__ __forceinline__ void tile_input_grads(const Dims& d, const Smem& s, const void* x,
+                                                 const void* dirs, bool with_dirs, void* dx,
+                                                 void* ddirs, size_t row0, int valid) {
+  if (RAW) {
+    embed_backward_tile(s.demb, static_cast<const float*>(x), static_cast<float*>(dx), row0,
+                        valid, d.E);
+    if (with_dirs)
+      embed_backward_tile(s.embd, static_cast<const float*>(dirs), static_cast<float*>(ddirs),
+                          row0, valid, d.Ed);
+  } else {
+    T* de = static_cast<T*>(dx);
+    for (int i = threadIdx.x; i < valid * d.E; i += blockDim.x)
+      de[row0 * d.E + i] = from_f<T>(s.demb[i]);
+    if (with_dirs) {
+      T* dd = static_cast<T*>(ddirs);
+      for (int i = threadIdx.x; i < valid * d.Ed; i += blockDim.x)
+        dd[row0 * d.Ed + i] = from_f<T>(s.embd[i]);
+    }
+  }
+  __syncthreads();
 }
 
 // Forward tower over the tile in s.emb / s.embd (mirrors _tower_tile).
@@ -414,15 +515,15 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, bool full, bool
   __syncthreads();
 }
 
-// Frozen-field backward of the tower (mirrors _mlp_backward with pre=True,
-// need_dw=False). Needs the state tower_forward left with keep_masks.
-// gsig(r): cotangent of the sigma output; grf(r, c), c < 3 + F: cotangent
-// of the rgb/feature head (used when `full`). Writes the embedding
-// cotangents through out_emb(r, k, v) and out_embd(r, k, v) in f32.
-// Ends with a barrier.
-template <typename T, typename GSig, typename GRf, typename OutE, typename OutD>
-__device__ void tower_backward(const Tower<T>& tw, const Smem& s, bool full, GSig gsig, GRf grf,
-                               OutE out_emb, OutD out_embd) {
+// Frozen-field backward of the tower (mirrors _mlp_backward with
+// need_dw=False, up to the embedding). Needs the state tower_forward left
+// with keep_masks. gsig(r): cotangent of the sigma output; grf(r, c),
+// c < 3 + F: cotangent of the rgb/feature head (used when `full`). Leaves
+// the embedding cotangents in f32 in s.demb and, when `full`, in s.embd
+// (the dir embedding is not needed again). Ends with a barrier.
+template <typename T, typename GSig, typename GRf>
+__device__ void tower_backward(const Tower<T>& tw, const Smem& s, bool full, GSig gsig,
+                               GRf grf) {
   const Dims& d = tw.d;
   const Layout& L = tw.L;
   const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, C = 3 + d.F, nw = W / 32;
@@ -445,8 +546,9 @@ __device__ void tower_backward(const Tower<T>& tw, const Smem& s, bool full, GSi
     __syncthreads();
     block_mm<T>(H, W, tw.wt + L.dir_wh, W, [=](int r, int k) { return dzd[r * H + k]; },
                 [=](int r, int c, float acc) { dn[r * W + c] = rnd<T>(acc); });
+    float* dembd = s.embd;
     block_mm<T>(H, Ed, tw.wt + L.dir_wd, Ed, [=](int r, int k) { return dzd[r * H + k]; },
-                out_embd);
+                [=](int r, int c, float acc) { dembd[r * Ed + c] = acc; });
     __syncthreads();
     const float* dfin = dn;
     block_mm<T>(W, W, tw.wt + L.fin_w, W, [=](int r, int k) { return dfin[r * W + k]; },
@@ -479,8 +581,6 @@ __device__ void tower_backward(const Tower<T>& tw, const Smem& s, bool full, GSi
       dh = o;
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < TR * E; i += blockDim.x) out_emb(i / E, i % E, demb[i]);
   __syncthreads();
 }
 

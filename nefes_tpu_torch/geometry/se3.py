@@ -112,3 +112,11 @@ def rotation_angle(R: torch.Tensor, degrees: bool = True) -> torch.Tensor:
     tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     ang = torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
     return torch.rad2deg(ang) if degrees else ang
+
+
+def orthogonalize_rotation(pose: torch.Tensor) -> torch.Tensor:
+    """SVD re-orthogonalisation of the rotation block of (..., 3, 4) poses:
+    R -> U Vᵀ (the reference's ``svd_reg``). Differentiable through the
+    SVD, which is well defined while the singular values are distinct."""
+    u, _, vh = torch.linalg.svd(pose[..., :3, :3], full_matrices=False)
+    return torch.cat([u @ vh, pose[..., :3, 3:4]], dim=-1)

@@ -120,6 +120,10 @@ _SIGNATURES = {
                              _I, _I, _I, _P, _P, _P, _P, _P],
     "nefes_render_smem_bytes": [_I] * 8,
 }
+# the raw-input entry points take the same arguments as their pre-embedded
+# counterparts (points and directions in place of the embeddings)
+for _k in ("field_fwd", "field_bwd", "render_fwd", "render_bwd"):
+    _SIGNATURES[f"nefes_{_k}_raw"] = _SIGNATURES[f"nefes_{_k}_pre"]
 
 
 def library(name: str, emulate: bool = False,

@@ -1,6 +1,6 @@
-"""Pre-embedded fused NeRFH-NFF field: the MLP tower and its heads on
-embedded inputs, as two hand-written Hopper kernels (csrc/fused_field.cu)
-with a plain PyTorch version of each.
+"""Fused NeRFH-NFF field: the MLP tower and its heads, as hand-written
+Hopper kernels (csrc/fused_field.cu) with a plain PyTorch version of each,
+on pre-embedded inputs (K1, K2) or on raw points and directions (K5, K6).
 
   K1 field_fwd_pre  replaces nefes_tpu/kernels/fused_field.py:_run_fwd_pre
                     (_fwd_kernel_pre, _tower_tile)
@@ -8,12 +8,20 @@ with a plain PyTorch version of each.
                     with pre=True) for the frozen field (need_dw=False):
                     it recomputes the tower and returns only the embedding
                     cotangents
+  K5 field_fwd      replaces _run_fwd (_fwd_kernel, _embed_block): the
+                    frequency embedding computed in the kernel, heads in f32
+  K6 field_bwd      replaces _run_bwd (_bwd_kernel, _mlp_backward with
+                    pre=False) for the frozen field: d_pts, d_dirs in f32
 
-Both follow _tower_tile's rounding points: hidden layers accumulate in f32
-and round to the pack dtype, then take the bias and the ReLU in the pack
-dtype; the heads accumulate in f32. Each wrapper runs its kernel for a CUDA
-tensor and its plain version for a CPU tensor; it counts kernel launches
-in ``<wrapper>.launches``. Modes: "sigma" (coarse pass at test time) and
+All four follow _tower_tile's rounding points: hidden layers accumulate in
+f32 and round to the pack dtype, then take the bias and the ReLU in the
+pack dtype; the heads accumulate in f32. K1/K2 write heads and embedding
+cotangents in the pack dtype, K5/K6 (as the TPU kernels) take and give f32.
+K5/K6 embed in f32 (exact phases x·2^k, full-precision sin/cos, rounded to
+the pack dtype) in the reference channel order, so all kernels read the one
+PackedField layout. Each wrapper runs its kernel for a CUDA tensor and its
+plain version for a CPU tensor; it counts kernel launches in
+``<wrapper>.launches``. Modes: "sigma" (coarse pass at test time) and
 "full" (sigma + rgb + features). The transient heads ("transient" mode)
 and the weight gradients (need_dw=True) are not in these kernels.
 """
@@ -24,6 +32,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from nefes_tpu_torch.fields.embedder import EmbedConfig, embed
 from nefes_tpu_torch.kernels import build
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -118,8 +127,9 @@ class PackedField:
 def pack_params(tower, spec: FieldSpec) -> PackedField:
     """A torch NeRFHNFF -> PackedField. Linear weights (out, in) become
     (in, out) matrices; the skip and dir layers (one Linear over a concat)
-    are split into their row blocks. This is the pre-embedded layout (the
-    reference row order), the only one the ported kernels read."""
+    are split into their row blocks. The rows keep the reference embedding
+    order, the only layout the kernels read (the raw-input kernels embed in
+    that order; the TPU package permutes rows for its raw kernels)."""
     dt = spec.torch_dtype
     E, W = spec.emb_xyz, spec.width
 
@@ -266,6 +276,56 @@ def field_bwd_pre_plain(p: PackedField, full: bool, emb, embd, g_sigma,
     return d_emb.to(cd), (d_embd.to(cd) if full else None)
 
 
+def embed_plain(x: torch.Tensor, n_freqs: int, cd) -> torch.Tensor:
+    """_embed_block: x (N, 3) f32 -> (N, 3 + 6·n_freqs) in the reference
+    order, f32 phases and sin/cos rounded to cd."""
+    return embed(x.float(), EmbedConfig(num_freqs=n_freqs)).to(cd)
+
+
+def embed_backward_plain(d_e: torch.Tensor, x: torch.Tensor,
+                         n_freqs: int) -> torch.Tensor:
+    """The d_embed step of _mlp_backward: the embedding cotangent d_e
+    (N, 3 + 6·n_freqs) f32 back to x (N, 3), in f32, the phases recomputed
+    from x."""
+    out = d_e[:, :3]
+    for k in range(n_freqs):
+        ph = x * 2.0 ** k
+        d_sin, d_cos = d_e[:, 3 + 6 * k:6 + 6 * k], d_e[:, 6 + 6 * k:9 + 6 * k]
+        out = out + (d_sin * torch.cos(ph) - d_cos * torch.sin(ph)) * 2.0 ** k
+    return out
+
+
+def _embed_raw(p: PackedField, full: bool, pts, dirs):
+    spec, cd = p.spec, p.spec.torch_dtype
+    emb = embed_plain(pts, spec.n_freqs_xyz, cd)
+    return emb, (embed_plain(dirs, spec.n_freqs_dir, cd) if full else None)
+
+
+def field_fwd_plain(p: PackedField, full: bool, pts: torch.Tensor,
+                    dirs: torch.Tensor | None):
+    """K5's function: pts, dirs (N, 3) f32 -> (sigma (N,), rgb (N, 3) |
+    None, feat (N, F) | None), all f32."""
+    zs, rf, _ = tower_plain(p, full, *_embed_raw(p, full, pts, dirs))
+    sigma = _softplus(zs)
+    if not full:
+        return sigma, None, None
+    return sigma, rf[:, :3], rf[:, 3:]
+
+
+def field_bwd_plain(p: PackedField, full: bool, pts, dirs, g_sigma, g_rgb,
+                    g_feat):
+    """K6's function: recompute the tower, backprop the f32 head
+    cotangents to (d_pts (N, 3), d_dirs (N, 3) | None) in f32."""
+    spec = p.spec
+    _, _, acts = tower_plain(p, full, *_embed_raw(p, full, pts, dirs))
+    g_rf = torch.cat([g_rgb, g_feat], dim=1) if full else None
+    d_emb, d_embd = tower_backward_plain(p, full, acts, g_sigma, g_rf)
+    d_pts = embed_backward_plain(d_emb, pts, spec.n_freqs_xyz)
+    if not full:
+        return d_pts, None
+    return d_pts, embed_backward_plain(d_embd, dirs, spec.n_freqs_dir)
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
@@ -371,37 +431,116 @@ def field_bwd_pre(p: PackedField, full: bool, emb, embd, g_sigma, g_rgb,
     return d_emb, d_embd
 
 
-field_fwd_pre.launches = 0
-field_bwd_pre.launches = 0
+def field_fwd(p: PackedField, full: bool, pts: torch.Tensor,
+              dirs: torch.Tensor | None):
+    """K5: the tower forward on raw pts, dirs (N, 3) f32, embedding in the
+    kernel; heads in f32. The kernel on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    if pts.device.type == "cpu":
+        return field_fwd_plain(p, full, pts, dirs)
+    if pts.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pts.device}")
+    spec, dev, f32 = p.spec, pts.device, torch.float32
+    n = pts.shape[0]
+    check_packed(p, dev)
+    check(pts, "pts", (n, 3), f32, dev)
+    if full:
+        check(dirs, "dirs", (n, 3), f32, dev)
+    sigma = torch.empty(n, dtype=f32, device=dev)
+    rgb = torch.empty((n, 3), dtype=f32, device=dev) if full else None
+    feat = (torch.empty((n, spec.feature_dim), dtype=f32, device=dev)
+            if full else None)
+    lib = build.library("fused_field")
+    err = lib.nefes_field_fwd_raw(
+        _DTYPE_CODE[spec.torch_dtype], int(full), n, pts.data_ptr(),
+        _ptr(dirs), p.w.data_ptr(), p.b.data_ptr(), *dims(spec),
+        sigma.data_ptr(), _ptr(rgb), _ptr(feat), _stream())
+    field_fwd.launches += 1
+    raise_on(err, "field_fwd")
+    return sigma, rgb, feat
 
 
-class _FieldPre(torch.autograd.Function):
-    """Frozen-field tower: differentiable in emb / embd only."""
+def field_bwd(p: PackedField, full: bool, pts, dirs, g_sigma, g_rgb,
+              g_feat):
+    """K6: recompute the tower on raw inputs and backprop the f32 head
+    cotangents to (d_pts (N, 3), d_dirs (N, 3) | None) in f32."""
+    if pts.device.type == "cpu":
+        return field_bwd_plain(p, full, pts, dirs, g_sigma, g_rgb, g_feat)
+    if pts.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pts.device}")
+    spec, dev, f32 = p.spec, pts.device, torch.float32
+    n = pts.shape[0]
+    check_packed(p, dev)
+    check(pts, "pts", (n, 3), f32, dev)
+    check(g_sigma, "g_sigma", (n,), f32, dev)
+    if full:
+        check(dirs, "dirs", (n, 3), f32, dev)
+        check(g_rgb, "g_rgb", (n, 3), f32, dev)
+        check(g_feat, "g_feat", (n, spec.feature_dim), f32, dev)
+    d_pts = torch.empty((n, 3), dtype=f32, device=dev)
+    d_dirs = torch.empty((n, 3), dtype=f32, device=dev) if full else None
+    lib = build.library("fused_field")
+    err = lib.nefes_field_bwd_raw(
+        _DTYPE_CODE[spec.torch_dtype], int(full), n, pts.data_ptr(),
+        _ptr(dirs), p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(),
+        *dims(spec), g_sigma.data_ptr(), _ptr(g_rgb), _ptr(g_feat),
+        d_pts.data_ptr(), _ptr(d_dirs), _stream())
+    field_bwd.launches += 1
+    raise_on(err, "field_bwd")
+    return d_pts, d_dirs
+
+
+for _k in (field_fwd_pre, field_bwd_pre, field_fwd, field_bwd):
+    _k.launches = 0
+
+
+class _Field(torch.autograd.Function):
+    """Frozen-field tower, differentiable in its inputs only: the
+    embeddings (K1/K2) or, raw, the points and directions (K5/K6)."""
 
     @staticmethod
-    def forward(ctx, p, full, emb, embd):
-        ctx.p, ctx.full = p, full
-        ctx.save_for_backward(emb, embd)
-        return field_fwd_pre(p, full, emb, embd)
+    def forward(ctx, raw, p, full, x, dirs):
+        ctx.raw, ctx.p, ctx.full = raw, p, full
+        ctx.save_for_backward(x, dirs)
+        return (field_fwd if raw else field_fwd_pre)(p, full, x, dirs)
 
     @staticmethod
     def backward(ctx, g_sigma, g_rgb, g_feat):
-        emb, embd = ctx.saved_tensors
-        cd = ctx.p.spec.torch_dtype
-        n = emb.shape[0]
+        x, dirs = ctx.saved_tensors
+        hd = torch.float32 if ctx.raw else ctx.p.spec.torch_dtype
+        n = x.shape[0]
 
         def ct(g, shape):
             if g is None:
-                return torch.zeros(shape, dtype=cd, device=emb.device)
-            return g.to(cd).contiguous()
+                return torch.zeros(shape, dtype=hd, device=x.device)
+            return g.to(hd).contiguous()
 
         g_sigma = ct(g_sigma, (n,))
         if ctx.full:
             g_rgb = ct(g_rgb, (n, 3))
             g_feat = ct(g_feat, (n, ctx.p.spec.feature_dim))
-        d_emb, d_embd = field_bwd_pre(ctx.p, ctx.full, emb, embd, g_sigma,
-                                      g_rgb, g_feat)
-        return None, None, d_emb, d_embd
+        bwd = field_bwd if ctx.raw else field_bwd_pre
+        d_x, d_dirs = bwd(ctx.p, ctx.full, x, dirs, g_sigma, g_rgb, g_feat)
+        return None, None, None, d_x, d_dirs
+
+
+def _check_options(spec: FieldSpec, sigma_only: bool, output_transient: bool,
+                   need_dw: bool) -> None:
+    if need_dw:
+        raise NotImplementedError(
+            "weight gradients through the fused field (need_dw=True) are "
+            "not ported; the kernels serve the frozen field")
+    if not sigma_only and spec.transient and output_transient:
+        raise NotImplementedError(
+            "the transient heads are not in the fused field kernels")
+
+
+def _heads(spec: FieldSpec, lead, sigma, rgb, feat) -> dict:
+    out = {"static_sigma": sigma.reshape(lead)}
+    if rgb is not None:
+        out["static_rgb"] = rgb.reshape(*lead, 3)
+        out["static_feat"] = feat.reshape(*lead, spec.feature_dim)
+    return out
 
 
 def fused_field_apply_pre(spec: FieldSpec, packed: PackedField,
@@ -415,13 +554,7 @@ def fused_field_apply_pre(spec: FieldSpec, packed: PackedField,
 
     xyz_emb (..., E); dir_emb (..., Ed) broadcastable against xyz_emb's
     leading shape. Gradients reach the embeddings, never the weights."""
-    if need_dw:
-        raise NotImplementedError(
-            "weight gradients through the fused field (need_dw=True) are "
-            "not ported; the kernels serve the frozen field")
-    if not sigma_only and spec.transient and output_transient:
-        raise NotImplementedError(
-            "the transient heads are not in the fused field kernels")
+    _check_options(spec, sigma_only, output_transient, need_dw)
     full = not sigma_only
     cd = spec.torch_dtype
     lead = xyz_emb.shape[:-1]
@@ -430,9 +563,21 @@ def fused_field_apply_pre(spec: FieldSpec, packed: PackedField,
     if full:
         embd = dir_emb.expand(*lead, spec.emb_dir).reshape(
             -1, spec.emb_dir).to(cd).contiguous()
-    sigma, rgb, feat = _FieldPre.apply(packed, full, emb, embd)
-    out = {"static_sigma": sigma.reshape(lead)}
-    if full:
-        out["static_rgb"] = rgb.reshape(*lead, 3)
-        out["static_feat"] = feat.reshape(*lead, spec.feature_dim)
-    return out
+    return _heads(spec, lead, *_Field.apply(False, packed, full, emb, embd))
+
+
+def fused_field_apply(spec: FieldSpec, packed: PackedField,
+                      pts: torch.Tensor, dirs: torch.Tensor | None,
+                      sigma_only: bool = False, output_transient: bool = True,
+                      need_dw: bool = False) -> dict:
+    """Drop-in for NeRFHNFF on RAW inputs (the JAX package's
+    fused_field_apply): pts (..., 3), dirs (..., 3) broadcastable against
+    pts (unused when sigma_only). Returns the named heads in f32.
+    Gradients reach pts and dirs, never the weights."""
+    _check_options(spec, sigma_only, output_transient, need_dw)
+    full = not sigma_only
+    lead = pts.shape[:-1]
+    x = pts.reshape(-1, 3).float().contiguous()
+    d = (dirs.expand(*lead, 3).reshape(-1, 3).float().contiguous()
+         if full else None)
+    return _heads(spec, lead, *_Field.apply(True, packed, full, x, d))

@@ -1,13 +1,18 @@
-"""Composite-fused fine render on pre-embedded inputs: the fine tower, its
-heads and the volume composite in one pass emitting per-ray outputs, as
-two hand-written Hopper kernels (csrc/fused_render.cu) with a plain
-PyTorch version of each.
+"""Composite-fused fine render: the fine tower, its heads and the volume
+composite in one pass emitting per-ray outputs, as hand-written Hopper
+kernels (csrc/fused_render.cu) with a plain PyTorch version of each, on
+pre-embedded inputs (K3, K4) or on raw points and directions (K7, K8).
 
   K3 render_fwd_pre  replaces nefes_tpu/kernels/fused_render.py:
                      make_fused_render_pre.run_fwd (_render_fwd_kernel_pre)
   K4 render_bwd_pre  replaces run_bwd (_render_bwd_kernel_pre): the
                      frozen-field recompute backward giving d_emb, d_embd
                      and d_z
+  K7 render_fwd      replaces make_fused_render.run_fwd
+                     (_render_fwd_kernel): K3 embedding in the kernel
+  K8 render_bwd      replaces make_fused_render.run_bwd
+                     (_render_bwd_kernel): K4 ending in d_pts, d_dirs per
+                     sample (f32) and d_z
 
 The composite is the refinement fine pass of the compositor: deltas with
 a 1e2 tail, alpha = 1 - exp(-delta·sigma), transmittance exp of the
@@ -23,8 +28,9 @@ import torch
 
 from nefes_tpu_torch.kernels import build
 from nefes_tpu_torch.kernels.fused_field import (
-    _DTYPE_CODE, FieldSpec, PackedField, _ptr, _softplus, _stream, check,
-    check_packed, dims, raise_on, tower_backward_plain, tower_plain,
+    _DTYPE_CODE, FieldSpec, PackedField, _embed_raw, _ptr, _softplus,
+    _stream, check, check_packed, dims, embed_backward_plain, raise_on,
+    tower_backward_plain, tower_plain,
 )
 
 DELTA_INF = 1e2
@@ -56,13 +62,11 @@ def render_fwd_pre_plain(p: PackedField, emb, embd, z):
                       wgt.sum(1, keepdim=True)], dim=1)
 
 
-def render_bwd_pre_plain(p: PackedField, emb, embd, z, g):
-    """K4's function: recompute the fine pass and backprop the per-ray
-    cotangent g (R, 3 + F + 2) f32 -> (d_emb, d_embd) in the pack dtype
-    and d_z (R, S) f32."""
+def _render_bwd_plain(p: PackedField, emb, embd, z, g):
+    """Recompute the fine pass and backprop the per-ray cotangent g
+    (R, 3 + F + 2) f32 -> (d_emb, d_embd, d_z (R, S)), all f32."""
     R, S = z.shape
     C = p.spec.rgbfeat
-    cd = p.spec.torch_dtype
     zs, rf, acts = tower_plain(p, True, emb, embd)
     sigma = _softplus(zs).reshape(R, S)
     alpha, trans, wgt, deltas = _composite_pieces(sigma, z)
@@ -88,15 +92,43 @@ def render_bwd_pre_plain(p: PackedField, emb, embd, z, g):
     d_z = wgt * g_depth + d_shift - d_delta
     d_emb, d_embd = tower_backward_plain(p, True, acts, d_sigma.reshape(-1),
                                          d_rgbfeat)
+    return d_emb, d_embd, d_z
+
+
+def render_bwd_pre_plain(p: PackedField, emb, embd, z, g):
+    """K4's function: recompute the fine pass and backprop the per-ray
+    cotangent g (R, 3 + F + 2) f32 -> (d_emb, d_embd) in the pack dtype
+    and d_z (R, S) f32."""
+    cd = p.spec.torch_dtype
+    d_emb, d_embd, d_z = _render_bwd_plain(p, emb, embd, z, g)
     return d_emb.to(cd), d_embd.to(cd), d_z
 
 
-def _check_render(p: PackedField, emb, embd, z, backward: bool):
-    spec, dev, cd = p.spec, emb.device, p.spec.torch_dtype
+def render_fwd_plain(p: PackedField, pts, dirs, z):
+    """K7's function: pts, dirs (R·S, 3) f32 (dirs per sample), z (R, S)
+    f32 -> (R, 3 + F + 2) f32."""
+    return render_fwd_pre_plain(p, *_embed_raw(p, True, pts, dirs), z)
+
+
+def render_bwd_plain(p: PackedField, pts, dirs, z, g):
+    """K8's function: (d_pts, d_dirs) (R·S, 3) and d_z (R, S), all f32."""
+    spec = p.spec
+    d_emb, d_embd, d_z = _render_bwd_plain(
+        p, *_embed_raw(p, True, pts, dirs), z, g)
+    return (embed_backward_plain(d_emb, pts, spec.n_freqs_xyz),
+            embed_backward_plain(d_embd, dirs, spec.n_freqs_dir), d_z)
+
+
+def _check_render(p: PackedField, x, dirs, z, backward: bool, raw: bool):
+    spec, dev, cd = p.spec, x.device, p.spec.torch_dtype
     R, S = z.shape
     check_packed(p, dev)
-    check(emb, "emb", (R * S, spec.emb_xyz), cd, dev)
-    check(embd, "embd", (R * S, spec.emb_dir), cd, dev)
+    if raw:
+        check(x, "pts", (R * S, 3), torch.float32, dev)
+        check(dirs, "dirs", (R * S, 3), torch.float32, dev)
+    else:
+        check(x, "emb", (R * S, spec.emb_xyz), cd, dev)
+        check(dirs, "embd", (R * S, spec.emb_dir), cd, dev)
     check(z, "z", (R, S), torch.float32, dev)
     lib = build.library("fused_render")
     smem = lib.nefes_render_smem_bytes(int(backward), S, *dims(spec))
@@ -113,7 +145,7 @@ def render_fwd_pre(p: PackedField, emb, embd, z):
         return render_fwd_pre_plain(p, emb, embd, z)
     if emb.device.type != "cuda":
         raise ValueError(f"no kernel for device {emb.device}")
-    lib = _check_render(p, emb, embd, z, False)
+    lib = _check_render(p, emb, embd, z, False, False)
     R, S = z.shape
     out = torch.empty((R, p.spec.rgbfeat + 2), dtype=torch.float32,
                       device=emb.device)
@@ -132,7 +164,7 @@ def render_bwd_pre(p: PackedField, emb, embd, z, g):
         return render_bwd_pre_plain(p, emb, embd, z, g)
     if emb.device.type != "cuda":
         raise ValueError(f"no kernel for device {emb.device}")
-    lib = _check_render(p, emb, embd, z, True)
+    lib = _check_render(p, emb, embd, z, True, False)
     R, S = z.shape
     spec, dev, cd = p.spec, emb.device, p.spec.torch_dtype
     check(g, "g", (R, spec.rgbfeat + 2), torch.float32, dev)
@@ -149,26 +181,79 @@ def render_bwd_pre(p: PackedField, emb, embd, z, g):
     return d_emb, d_embd, d_z
 
 
-render_fwd_pre.launches = 0
-render_bwd_pre.launches = 0
+def render_fwd(p: PackedField, pts, dirs, z):
+    """K7: (R, 3 + F + 2) per-ray outputs from raw pts, dirs (R·S, 3) f32.
+    The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if pts.device.type == "cpu":
+        return render_fwd_plain(p, pts, dirs, z)
+    if pts.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pts.device}")
+    lib = _check_render(p, pts, dirs, z, False, True)
+    R, S = z.shape
+    out = torch.empty((R, p.spec.rgbfeat + 2), dtype=torch.float32,
+                      device=pts.device)
+    err = lib.nefes_render_fwd_raw(
+        _DTYPE_CODE[p.spec.torch_dtype], R, S, pts.data_ptr(),
+        dirs.data_ptr(), z.data_ptr(), p.w.data_ptr(), p.b.data_ptr(),
+        *dims(p.spec), out.data_ptr(), _stream())
+    render_fwd.launches += 1
+    raise_on(err, "render_fwd")
+    return out
 
 
-class _RenderPre(torch.autograd.Function):
-    """Frozen-field fine pass + composite: differentiable in emb, embd
-    and z; the weights get no cotangent."""
+def render_bwd(p: PackedField, pts, dirs, z, g):
+    """K8: (d_pts, d_dirs) (R·S, 3) and d_z (R, S), all f32."""
+    if pts.device.type == "cpu":
+        return render_bwd_plain(p, pts, dirs, z, g)
+    if pts.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pts.device}")
+    lib = _check_render(p, pts, dirs, z, True, True)
+    R, S = z.shape
+    spec, dev, f32 = p.spec, pts.device, torch.float32
+    check(g, "g", (R, spec.rgbfeat + 2), f32, dev)
+    d_pts = torch.empty((R * S, 3), dtype=f32, device=dev)
+    d_dirs = torch.empty((R * S, 3), dtype=f32, device=dev)
+    d_z = torch.empty((R, S), dtype=f32, device=dev)
+    err = lib.nefes_render_bwd_raw(
+        _DTYPE_CODE[spec.torch_dtype], R, S, pts.data_ptr(), dirs.data_ptr(),
+        z.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(),
+        *dims(spec), g.data_ptr(), d_pts.data_ptr(), d_dirs.data_ptr(),
+        d_z.data_ptr(), _stream())
+    render_bwd.launches += 1
+    raise_on(err, "render_bwd")
+    return d_pts, d_dirs, d_z
+
+
+for _k in (render_fwd_pre, render_bwd_pre, render_fwd, render_bwd):
+    _k.launches = 0
+
+
+class _Render(torch.autograd.Function):
+    """Frozen-field fine pass + composite: differentiable in its inputs
+    (the embeddings, or raw the points and directions) and z; the weights
+    get no cotangent."""
 
     @staticmethod
-    def forward(ctx, p, emb, embd, z):
-        ctx.p = p
-        ctx.save_for_backward(emb, embd, z)
-        return render_fwd_pre(p, emb, embd, z)
+    def forward(ctx, raw, p, x, dirs, z):
+        ctx.raw, ctx.p = raw, p
+        ctx.save_for_backward(x, dirs, z)
+        return (render_fwd if raw else render_fwd_pre)(p, x, dirs, z)
 
     @staticmethod
     def backward(ctx, g):
-        emb, embd, z = ctx.saved_tensors
-        d_emb, d_embd, d_z = render_bwd_pre(ctx.p, emb, embd, z,
-                                            g.float().contiguous())
-        return None, d_emb, d_embd, d_z
+        x, dirs, z = ctx.saved_tensors
+        bwd = render_bwd if ctx.raw else render_bwd_pre
+        d_x, d_dirs, d_z = bwd(ctx.p, x, dirs, z, g.float().contiguous())
+        return None, None, d_x, d_dirs, d_z
+
+
+def _per_ray(spec: FieldSpec, out: torch.Tensor) -> dict:
+    C = spec.rgbfeat
+    depth, acc = out[:, C], out[:, C + 1]
+    # the compositor's formula
+    disp = 1.0 / torch.clamp_min(depth / acc, 1e-10)
+    return {"rgb": out[:, :3], "feat": out[:, 3:C], "depth": depth,
+            "acc": acc, "disp": disp}
 
 
 def fused_render_apply_pre(spec: FieldSpec, packed: PackedField,
@@ -182,9 +267,20 @@ def fused_render_apply_pre(spec: FieldSpec, packed: PackedField,
     emb = xyz_emb.reshape(R * S, E).to(cd).contiguous()
     embd = dir_emb.expand(R, S, spec.emb_dir).reshape(
         R * S, spec.emb_dir).to(cd).contiguous()
-    out = _RenderPre.apply(packed, emb, embd, z_vals.float().contiguous())
-    C = spec.rgbfeat
-    depth, acc = out[:, C], out[:, C + 1]
-    disp = 1.0 / torch.clamp_min(depth / acc, 1e-10)
-    return {"rgb": out[:, :3], "feat": out[:, 3:C], "depth": depth,
-            "acc": acc, "disp": disp}
+    return _per_ray(spec, _Render.apply(False, packed, emb, embd,
+                                        z_vals.float().contiguous()))
+
+
+def fused_render_apply(spec: FieldSpec, packed: PackedField,
+                       pts: torch.Tensor, viewdirs: torch.Tensor,
+                       z_vals: torch.Tensor) -> dict:
+    """Composite-fused fine render on RAW inputs (the JAX package's
+    fused_render_apply). pts (R, S, 3), viewdirs (R, 3), z_vals (R, S).
+    The kernels take a direction per sample; autograd of the broadcast
+    sums d_dirs over S into the per-ray viewdirs. Returns {rgb (R, 3),
+    feat (R, F), depth (R,), acc (R,), disp (R,)}."""
+    R, S, _ = pts.shape
+    x = pts.reshape(R * S, 3).float().contiguous()
+    dirs = viewdirs.float()[:, None, :].expand(R, S, 3).reshape(R * S, 3)
+    return _per_ray(spec, _Render.apply(True, packed, x, dirs.contiguous(),
+                                        z_vals.float().contiguous()))

@@ -5,3 +5,7 @@ from nefes_tpu_torch.refine.pose_opt import (  # noqa: F401
     RefineConfig, refine_pose_single, refine_poses_batch,
     render_feature_image,
 )
+from nefes_tpu_torch.refine.apr_opt import (  # noqa: F401
+    apply_verification, apr_pose, refine_apr_batch, refine_apr_single,
+    refine_apr_verified,
+)

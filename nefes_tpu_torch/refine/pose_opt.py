@@ -29,6 +29,7 @@ class RefineConfig:
     lr_r: float = 0.01
     lr_t: float = 0.1
     per_pixel: bool = False
+    learning_rate: float = 1e-5   # mode-2 APR learning rate
     fusion: str = "batch"         # "batch" | "running" | "none"
 
 
@@ -39,15 +40,22 @@ def render_feature_image(model, pose34: torch.Tensor, hist: torch.Tensor,
     """Render at (h, w) and run exposure + fusion, the shared forward of
     both refinement modes. Returns (rgb_img (h, w, 3), fused (h, w, F)).
 
-    With cfg.fused and cfg.fused_pre the field runs through the kernels:
-    `packed` is model.pack_fused_pre() (packed here when None)."""
+    With cfg.fused the field runs through the kernels, the pre-embedded
+    ones (cfg.fused_pre) or the raw-input ones: `packed` is
+    model.pack_fused() (packed here when None)."""
     h, w, focal = hwf
     if cfg.fused:
         packed_c, packed_f = packed if packed is not None \
-            else model.pack_fused_pre()
-        coarse = model.coarse_pre_fn(packed_c, need_dw=cfg.fused_need_dw)
-        fine = (model.fine_render_pre_fn(packed_f) if cfg.fused_render
-                else model.fine_pre_fn(packed_f, need_dw=cfg.fused_need_dw))
+            else model.pack_fused()
+        dw = cfg.fused_need_dw
+        if cfg.fused_pre:
+            coarse = model.coarse_pre_fn(packed_c, need_dw=dw)
+            fine = (model.fine_render_pre_fn(packed_f) if cfg.fused_render
+                    else model.fine_pre_fn(packed_f, need_dw=dw))
+        else:
+            coarse = model.coarse_raw_fn(packed_c, need_dw=dw)
+            fine = (model.fine_render_raw_fn(packed_f) if cfg.fused_render
+                    else model.fine_raw_fn(packed_f, need_dw=dw))
     else:
         coarse, fine = model.coarse_fn, model.fine_fn
     out = render_image(coarse, fine, h, w, focal, pose34, near, far, cfg,
@@ -88,8 +96,7 @@ def refine_pose_single(model, init_pose: torch.Tensor,
     opt = torch.optim.Adam([{"params": [r], "lr": rcfg.lr_r},
                             {"params": [t], "lr": rcfg.lr_t}],
                            betas=(0.9, 0.999), eps=1e-8)
-    packed = (model.pack_fused_pre() if cfg.fused and cfg.fused_pre
-              else None)
+    packed = model.pack_fused() if cfg.fused else None
     target_feat = target_feat.detach()
     losses = []
     for _ in range(rcfg.opt_iter):

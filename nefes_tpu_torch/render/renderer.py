@@ -8,7 +8,10 @@ flax field fns of the JAX package minus their params slot. With
 pre-embedded kernel fns (NeFeSModel.coarse_pre_fn / fine_pre_fn), and
 with ``cfg.fused_render`` the fine pass and its composite are one kernel
 (NeFeSModel.fine_render_pre_fn: ``fn(xyz_emb, dir_emb, z)`` -> per-ray
-dict).
+dict). With ``cfg.fused`` and not ``cfg.fused_pre`` nothing is embedded
+here: the raw-input kernel fns take the points and directions
+(NeFeSModel.coarse_raw_fn / fine_raw_fn: ``fn(pts, dirs, sigma_only,
+output_transient)``; fine_render_raw_fn: ``fn(pts, viewdirs, z)``).
 """
 
 from __future__ import annotations
@@ -47,10 +50,10 @@ class RenderConfig:
     output_transient: bool = True
     xyz_embed: EmbedConfig = EmbedConfig(num_freqs=10)
     dir_embed: EmbedConfig = EmbedConfig(num_freqs=4)
-    # kernel path (kernels/): fused=True with fused_pre=True runs the field
-    # through the pre-embedded Hopper kernels; the raw-input variant
-    # (fused_pre=False) is not ported yet. fused_need_dw=True (weight
-    # gradients, training) is not ported yet either.
+    # kernel path (kernels/): fused=True runs the field through the Hopper
+    # kernels, on embeddings made here (fused_pre=True) or on raw points
+    # and directions that the kernels embed (fused_pre=False).
+    # fused_need_dw=True (weight gradients, training) is not ported yet.
     fused: bool = False
     fused_need_dw: bool = True
     fused_pre: bool = False
@@ -74,7 +77,12 @@ def _query(field_fn: FieldFn, pts: torch.Tensor, viewdirs: torch.Tensor,
            cfg: RenderConfig, sigma_only: bool,
            output_transient: bool) -> dict:
     """Embed sample points (and directions) over the (R, S) grid and apply
-    the field."""
+    the field; the raw-input kernel fns (fused, not fused_pre) embed
+    themselves and take the points and directions."""
+    if cfg.fused and not cfg.fused_pre:
+        dirs = None if sigma_only else viewdirs[..., None, :].expand(
+            pts.shape)
+        return field_fn(pts, dirs, sigma_only, output_transient)
     ed = _DTYPES[cfg.embed_dtype]
     xyz_emb = embed(pts, cfg.xyz_embed).to(ed)
     if sigma_only:
@@ -90,10 +98,6 @@ def render_rays(coarse_fn: FieldFn, fine_fn: FieldFn | None,
                 remat: bool = True) -> dict:
     """Render a batch of rays (R, 3). Returns rgb/feat/disp/acc/depth, plus
     the coarse outputs and the transient terms at train time."""
-    if cfg.fused and not cfg.fused_pre:
-        raise NotImplementedError(
-            "the raw-input fused kernels (fused=True, fused_pre=False) are "
-            "not ported yet; use fused_pre=True")
     n_rays = rays_o.shape[0]
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     z_vals = stratified_samples(rng, n_rays, cfg.n_samples, near, far,
@@ -129,11 +133,14 @@ def render_rays(coarse_fn: FieldFn, fine_fn: FieldFn | None,
         if not (cfg.test_time and not cfg.output_transient):
             raise ValueError("fused_render covers the refinement render "
                              "only (test_time, no transient heads)")
-        ed = _DTYPES[cfg.embed_dtype]
-        xyz_emb = embed(pts_f, cfg.xyz_embed).to(ed)
-        dirs_f = viewdirs[..., None, :].expand(pts_f.shape)
-        dir_emb = embed(dirs_f, cfg.dir_embed).to(ed)
-        out_f = fine_fn(xyz_emb, dir_emb, z_vals_f)
+        if cfg.fused_pre:
+            ed = _DTYPES[cfg.embed_dtype]
+            xyz_emb = embed(pts_f, cfg.xyz_embed).to(ed)
+            dirs_f = viewdirs[..., None, :].expand(pts_f.shape)
+            dir_emb = embed(dirs_f, cfg.dir_embed).to(ed)
+            out_f = fine_fn(xyz_emb, dir_emb, z_vals_f)
+        else:
+            out_f = fine_fn(pts_f, viewdirs, z_vals_f)
         return {k: out_f[k] for k in ("rgb", "feat", "disp", "acc", "depth")}
 
     raw_f = query(fine_fn, pts_f, viewdirs, cfg, False, cfg.output_transient)

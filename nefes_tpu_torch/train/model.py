@@ -4,8 +4,10 @@ FusionNet) as one nn.Module; port of nefes_tpu/train/model.py.
 Field fns are closures over their weights: ``fn(xyz_emb, dir_emb,
 sigma_only, output_transient)`` -> head dict, the JAX package's field fns
 minus their params slot. The ``*_pre_fn`` builders return the same
-signature over the pre-embedded kernels (kernels/), bound to weights
-packed once with ``pack_fused_pre``.
+signature over the pre-embedded kernels (kernels/), the ``*_raw_fn``
+builders ``fn(pts, dirs, sigma_only, output_transient)`` over the
+raw-input kernels; both are bound to weights packed once with
+``pack_fused``.
 """
 
 from __future__ import annotations
@@ -20,9 +22,11 @@ from nefes_tpu_torch.fields.nerfh_nff import (
     FEATURE_DIM, ExposureMLP, FusionNet, NeRFHNFF, affine_color_transform,
 )
 from nefes_tpu_torch.kernels.fused_field import (
-    FieldSpec, fused_field_apply_pre, pack_params,
+    FieldSpec, fused_field_apply, fused_field_apply_pre, pack_params,
 )
-from nefes_tpu_torch.kernels.fused_render import fused_render_apply_pre
+from nefes_tpu_torch.kernels.fused_render import (
+    fused_render_apply, fused_render_apply_pre,
+)
 from nefes_tpu_torch.render.renderer import RenderConfig
 
 _NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -106,42 +110,56 @@ class NeFeSModel(nn.Module):
                 output_transient=True):
         return self.fine(xyz_emb, dir_emb, sigma_only, output_transient)
 
-    # --- pre-embedded kernel path (kernels/) ---
+    # --- kernel paths (kernels/) ---
 
     def fused_spec(self, typ: str) -> FieldSpec:
         return FieldSpec.from_model(self.cfg, typ, dtype=self.cfg.dtype_name)
 
-    def pack_fused_pre(self) -> tuple:
+    def pack_fused(self) -> tuple:
         """(packed_coarse, packed_fine): the frozen weights in the kernels'
-        layout; pack once per refinement, not per iteration."""
+        one layout, read by the pre-embedded and the raw-input kernels;
+        pack once per refinement, not per iteration."""
         return (pack_params(self.coarse, self.fused_spec("coarse")),
                 pack_params(self.fine, self.fused_spec("fine")))
 
-    def _pre_fn(self, typ: str, packed, need_dw: bool):
+    def _field_fn(self, apply, typ: str, packed, need_dw: bool):
         spec = self.fused_spec(typ)
 
-        def fn(xyz_emb, dir_emb=None, sigma_only=False,
-               output_transient=True):
-            return fused_field_apply_pre(spec, packed, xyz_emb, dir_emb,
-                                         sigma_only=sigma_only,
-                                         output_transient=output_transient,
-                                         need_dw=need_dw)
+        def fn(x, dirs=None, sigma_only=False, output_transient=True):
+            return apply(spec, packed, x, dirs, sigma_only=sigma_only,
+                         output_transient=output_transient, need_dw=need_dw)
         return fn
 
+    def _render_fn(self, apply, packed):
+        spec = self.fused_spec("fine")
+        return lambda x, dirs, z: apply(spec, packed, x, dirs, z)
+
     def coarse_pre_fn(self, packed, need_dw: bool = False):
-        return self._pre_fn("coarse", packed, need_dw)
+        """(xyz_emb (..., E), dir_emb (..., Ed) | None, sigma_only,
+        output_transient) -> head dict through the pre-embedded kernels."""
+        return self._field_fn(fused_field_apply_pre, "coarse", packed,
+                              need_dw)
 
     def fine_pre_fn(self, packed, need_dw: bool = False):
-        return self._pre_fn("fine", packed, need_dw)
+        return self._field_fn(fused_field_apply_pre, "fine", packed, need_dw)
 
     def fine_render_pre_fn(self, packed):
         """(xyz_emb (R,S,E), dir_emb (R,S,Ed), z (R,S)) -> per-ray dict
         through the composite-fused render kernels."""
-        spec = self.fused_spec("fine")
+        return self._render_fn(fused_render_apply_pre, packed)
 
-        def fn(xyz_emb, dir_emb, z):
-            return fused_render_apply_pre(spec, packed, xyz_emb, dir_emb, z)
-        return fn
+    def coarse_raw_fn(self, packed, need_dw: bool = False):
+        """(pts (..., 3), dirs (..., 3) | None, sigma_only,
+        output_transient) -> head dict through the raw-input kernels."""
+        return self._field_fn(fused_field_apply, "coarse", packed, need_dw)
+
+    def fine_raw_fn(self, packed, need_dw: bool = False):
+        return self._field_fn(fused_field_apply, "fine", packed, need_dw)
+
+    def fine_render_raw_fn(self, packed):
+        """(pts (R,S,3), viewdirs (R,3), z (R,S)) -> per-ray dict through
+        the raw-input composite-fused render kernels."""
+        return self._render_fn(fused_render_apply, packed)
 
     # --- exposure and fusion ---
 

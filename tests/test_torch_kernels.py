@@ -1,5 +1,6 @@
 """The port's fused-field (K1, K2) and composite-fused render (K3, K4)
-kernels.
+kernels, and the host builds of their raw-input counterparts (K5-K8;
+their plain versions are held to the JAX package in test_torch_raw.py).
 
 1. Their plain PyTorch versions (what a wrapper runs for a CPU tensor)
    against the JAX package's Pallas kernels in interpret mode, values and
@@ -8,7 +9,9 @@ kernels.
 2. The CUDA sources themselves, compiled for the host with the C++
    compiler under NEFES_EMULATE (one thread per block), against the plain
    versions in f32, to 1e-5 of scale: the kernels' indexing and tiling,
-   with a ragged last tile and with whole tiles, checked without a card.
+   with a ragged last tile and with whole tiles, and for K5-K8 the
+   in-kernel embedding and its chain rule (sinf/cosf of the C library
+   against torch's), checked without a card.
    The host build refuses bf16: bf16 runs on the tensor cores, which only
    the card has, so bf16 is checked by 3.
 3. On a card (marked cuda; skipped on a machine without one): each kernel
@@ -51,7 +54,7 @@ def field():
     jmodel, variables, tmodel = models(jcfg, tcfg)
     jspec = JSpec.from_model(jcfg, "fine", dtype="float32", tile=64)
     jw = jpack(variables["params"]["fine"], jspec, pre_embedded=True)
-    _, packed_f = tmodel.pack_fused_pre()
+    _, packed_f = tmodel.pack_fused()
     return jcfg, jspec, jw, tmodel.fused_spec("fine"), packed_f
 
 
@@ -164,42 +167,66 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen).to(dtype)
 
 
+def _inputs(gen, spec, N, raw):
+    """(x, dirs, their plain-version dtype, the heads' dtype, the input
+    cotangents' widths): pre-embedded rows in the pack dtype, or raw
+    points and directions in f32 (points at the scale of a scene, so the
+    top band's phases reach tens of radians)."""
+    cd = spec.torch_dtype
+    if raw:
+        return (torch.randn((N, 3), generator=gen) * 1.5,
+                torch.nn.functional.normalize(
+                    torch.randn((N, 3), generator=gen), dim=-1),
+                torch.float32, (3, 3))
+    return (_rand(gen, (N, spec.emb_xyz), cd),
+            _rand(gen, (N, spec.emb_dir), cd), cd,
+            (spec.emb_xyz, spec.emb_dir))
+
+
+_KIND = {False: "pre", True: "raw"}
+
+
 # N rows: 100 ends in a ragged tile of 36, 128 is two whole tiles of 64
-@pytest.mark.parametrize("N", [pytest.param(100, id="float32"),
-                               pytest.param(128, id="float32-whole-tiles")])
-def test_field_source_matches_plain(N, host_build):
+@pytest.mark.parametrize("N,raw", [
+    pytest.param(100, False, id="float32"),
+    pytest.param(128, False, id="float32-whole-tiles"),
+    pytest.param(100, True, id="raw-float32"),
+    pytest.param(128, True, id="raw-float32-whole-tiles")])
+def test_field_source_matches_plain(N, raw, host_build):
+    """K1/K2, or with raw K5/K6, against their plain versions."""
     spec, p, gen = _emulated_case()
     lib = build.library("fused_field", emulate=True, build_dir=host_build)
+    fwd = getattr(lib, f"nefes_field_fwd_{_KIND[raw]}")
+    bwd = getattr(lib, f"nefes_field_bwd_{_KIND[raw]}")
+    plain_fwd = kf.field_fwd_plain if raw else kf.field_fwd_pre_plain
+    plain_bwd = kf.field_bwd_plain if raw else kf.field_bwd_pre_plain
     cd, F, tol = spec.torch_dtype, spec.feature_dim, 1e-5
     # bf16 (code 1) is refused before any pointer is read
-    assert lib.nefes_field_fwd_pre(1, 0, N, None, None, None, None,
-                                   *kf.dims(spec), None, None, None,
-                                   None) != 0
-    emb = _rand(gen, (N, spec.emb_xyz), cd)
-    embd = _rand(gen, (N, spec.emb_dir), cd)
+    assert fwd(1, 0, N, None, None, None, None, *kf.dims(spec), None, None,
+               None, None) != 0
+    x, dirs, hd, (dx_w, dd_w) = _inputs(gen, spec, N, raw)
     for full in (False, True):
-        outs = [torch.empty(N, dtype=cd), torch.empty((N, 3), dtype=cd),
-                torch.empty((N, F), dtype=cd)]
-        err = lib.nefes_field_fwd_pre(
-            kf._DTYPE_CODE[cd], int(full), N, emb.data_ptr(),
-            embd.data_ptr(), p.w.data_ptr(), p.b.data_ptr(), *kf.dims(spec),
-            *[o.data_ptr() for o in outs], None)
+        outs = [torch.empty(N, dtype=hd), torch.empty((N, 3), dtype=hd),
+                torch.empty((N, F), dtype=hd)]
+        err = fwd(kf._DTYPE_CODE[cd], int(full), N, x.data_ptr(),
+                  dirs.data_ptr(), p.w.data_ptr(), p.b.data_ptr(),
+                  *kf.dims(spec), *[o.data_ptr() for o in outs], None)
         assert err == 0
-        want = kf.field_fwd_pre_plain(p, full, emb, embd)
+        want = plain_fwd(p, full, x, dirs)
         for o, w in zip(outs, want):
             if w is not None:
+                assert w.dtype == hd
                 _scaled_close(o, w, tol)
-        g = [_rand(gen, (N,), cd), _rand(gen, (N, 3), cd),
-             _rand(gen, (N, F), cd)]
-        d = [torch.empty((N, spec.emb_xyz), dtype=cd),
-             torch.empty((N, spec.emb_dir), dtype=cd)]
-        err = lib.nefes_field_bwd_pre(
-            kf._DTYPE_CODE[cd], int(full), N, emb.data_ptr(),
-            embd.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(),
-            p.b.data_ptr(), *kf.dims(spec), *[x.data_ptr() for x in g],
-            *[x.data_ptr() for x in d], None)
+        g = [_rand(gen, (N,), hd), _rand(gen, (N, 3), hd),
+             _rand(gen, (N, F), hd)]
+        d = [torch.empty((N, dx_w), dtype=hd),
+             torch.empty((N, dd_w), dtype=hd)]
+        err = bwd(kf._DTYPE_CODE[cd], int(full), N, x.data_ptr(),
+                  dirs.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(),
+                  p.b.data_ptr(), *kf.dims(spec), *[v.data_ptr() for v in g],
+                  *[v.data_ptr() for v in d], None)
         assert err == 0
-        want = kf.field_bwd_pre_plain(p, full, emb, embd, *g)
+        want = plain_bwd(p, full, x, dirs, *g)
         for o, w in zip(d, want):
             if w is not None:
                 _scaled_close(o, w, tol)
@@ -207,31 +234,36 @@ def test_field_source_matches_plain(N, host_build):
 
 # S samples per ray: 70 is a whole tile and a ragged one (64 + 6), 128
 # the main path's two whole tiles
-@pytest.mark.parametrize("S", [pytest.param(70, id="float32"),
-                               pytest.param(128, id="float32-whole-tiles")])
-def test_render_source_matches_plain(S, host_build):
+@pytest.mark.parametrize("S,raw", [
+    pytest.param(70, False, id="float32"),
+    pytest.param(128, False, id="float32-whole-tiles"),
+    pytest.param(70, True, id="raw-float32"),
+    pytest.param(128, True, id="raw-float32-whole-tiles")])
+def test_render_source_matches_plain(S, raw, host_build):
+    """K3/K4, or with raw K7/K8, against their plain versions."""
     spec, p, gen = _emulated_case()
     lib = build.library("fused_render", emulate=True, build_dir=host_build)
+    fwd = getattr(lib, f"nefes_render_fwd_{_KIND[raw]}")
+    bwd = getattr(lib, f"nefes_render_bwd_{_KIND[raw]}")
+    plain_fwd = kr.render_fwd_plain if raw else kr.render_fwd_pre_plain
+    plain_bwd = kr.render_bwd_plain if raw else kr.render_bwd_pre_plain
     cd, R, C, tol = spec.torch_dtype, 4, spec.rgbfeat, 1e-5
-    emb = _rand(gen, (R * S, spec.emb_xyz), cd)
-    embd = _rand(gen, (R * S, spec.emb_dir), cd)
+    x, dirs, hd, (dx_w, dd_w) = _inputs(gen, spec, R * S, raw)
     z = torch.sort(torch.rand((R, S), generator=gen) * 4, 1).values
     out = torch.empty((R, C + 2))
-    err = lib.nefes_render_fwd_pre(
-        kf._DTYPE_CODE[cd], R, S, emb.data_ptr(), embd.data_ptr(),
-        z.data_ptr(), p.w.data_ptr(), p.b.data_ptr(), *kf.dims(spec),
-        out.data_ptr(), None)
+    err = fwd(kf._DTYPE_CODE[cd], R, S, x.data_ptr(), dirs.data_ptr(),
+              z.data_ptr(), p.w.data_ptr(), p.b.data_ptr(), *kf.dims(spec),
+              out.data_ptr(), None)
     assert err == 0
-    _scaled_close(out, kr.render_fwd_pre_plain(p, emb, embd, z), tol)
+    _scaled_close(out, plain_fwd(p, x, dirs, z), tol)
     g = torch.randn((R, C + 2), generator=gen)
-    d = [torch.empty((R * S, spec.emb_xyz), dtype=cd),
-         torch.empty((R * S, spec.emb_dir), dtype=cd), torch.empty((R, S))]
-    err = lib.nefes_render_bwd_pre(
-        kf._DTYPE_CODE[cd], R, S, emb.data_ptr(), embd.data_ptr(),
-        z.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(),
-        *kf.dims(spec), g.data_ptr(), *[x.data_ptr() for x in d], None)
+    d = [torch.empty((R * S, dx_w), dtype=hd),
+         torch.empty((R * S, dd_w), dtype=hd), torch.empty((R, S))]
+    err = bwd(kf._DTYPE_CODE[cd], R, S, x.data_ptr(), dirs.data_ptr(),
+              z.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(),
+              *kf.dims(spec), g.data_ptr(), *[v.data_ptr() for v in d], None)
     assert err == 0
-    for o, w in zip(d, kr.render_bwd_pre_plain(p, emb, embd, z, g)):
+    for o, w in zip(d, plain_bwd(p, x, dirs, z, g)):
         _scaled_close(o, w, tol)
 
 
@@ -247,7 +279,7 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_on_card(cuda, dtype):
-    """Each of K1-K4 against its plain version on the same card inputs,
+    """Each of K1-K8 against its plain version on the same card inputs,
     by relative L2 error: bf16 1e-2, f32 1e-5. In bf16 the tensor cores
     and cuBLAS sum in another order, so a hidden unit within one rounding
     of 0 can fall on the other side of the ReLU, and a backward then
@@ -258,7 +290,7 @@ def test_kernels_match_plain_on_card(cuda, dtype):
                       dtype=kf._DTYPES[dtype])
     model = NeFeSModel(cfg, device=cuda,
                        generator=torch.Generator().manual_seed(0))
-    pc, pf = model.pack_fused_pre()
+    pc, pf = model.pack_fused()
     spec = pf.spec
     cd, tol = spec.torch_dtype, (1e-5 if dtype == "float32" else 1e-2)
 
@@ -286,5 +318,23 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     gr = torch.randn((R, spec.rgbfeat + 2), device=cuda)
     for a, b in zip(kr.render_bwd_pre(pf, emb, embd, z, gr),
                     kr.render_bwd_pre_plain(pf, emb, embd, z, gr)):
+        agree(a, b)
+    # K5-K8 on raw points (at the scale of a scene) and directions
+    pts = torch.randn((R * S, 3), device=cuda) * 1.5
+    dirs = torch.nn.functional.normalize(torch.randn((R * S, 3),
+                                                     device=cuda), dim=-1)
+    for full in (False, True):
+        for a, b in zip(kf.field_fwd(pf, full, pts, dirs),
+                        kf.field_fwd_plain(pf, full, pts, dirs)):
+            if b is not None:
+                agree(a, b)
+    g = [torch.randn(s, device=cuda)
+         for s in ((R * S,), (R * S, 3), (R * S, spec.feature_dim))]
+    for a, b in zip(kf.field_bwd(pf, True, pts, dirs, *g),
+                    kf.field_bwd_plain(pf, True, pts, dirs, *g)):
+        agree(a, b)
+    agree(kr.render_fwd(pf, pts, dirs, z), kr.render_fwd_plain(pf, pts, dirs, z))
+    for a, b in zip(kr.render_bwd(pf, pts, dirs, z, gr),
+                    kr.render_bwd_plain(pf, pts, dirs, z, gr)):
         agree(a, b)
     torch.cuda.synchronize()

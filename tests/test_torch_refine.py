@@ -4,9 +4,10 @@ the CPU in f32 at a small size, plus the import rule of the port.
 * render_image and its pose gradient equal JAX's unfused render.
 * A short refine_pose_single gives the loss curve and refined pose of
   JAX's unfused path, both with the port's unfused path (fused=False) and
-  with its kernel path (fused=fused_pre=fused_render=True, and the K1/K2
-  path with fused_render=False), which on the CPU run the kernels' plain
-  versions. Tolerance 2e-4: Adam's first steps divide each gradient by
+  with its kernel paths: pre-embedded (fused_pre=True) with the
+  composite-fused render (K1/K3/K4) or the field kernels (K1/K2), and
+  raw-input (fused_pre=False) with the render (K5/K7/K8) or the field
+  kernels (K5/K6); on the CPU they run the kernels' plain versions. Tolerance 2e-4: Adam's first steps divide each gradient by
   its own magnitude, so f32 summation-order noise in a small gradient
   component shows in the pose at that level, and the losses agree to it.
 * Mode 3 recovers a perturbed pose on the analytic blob scene (the port
@@ -92,6 +93,10 @@ KERNEL_PATHS = {
                          fused_render=True),
     "fused_field": dict(fused=True, fused_pre=True, fused_need_dw=False,
                         fused_render=False),
+    "render_raw": dict(fused=True, fused_pre=False, fused_need_dw=False,
+                       fused_render=True),
+    "fused_raw": dict(fused=True, fused_pre=False, fused_need_dw=False,
+                      fused_render=False),
 }
 
 
@@ -214,7 +219,11 @@ def test_port_imports_no_jax():
     root = Path(__file__).resolve().parents[1]
     files = sorted((root / "nefes_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
-    assert len(files) > 15
+    names = {str(f.relative_to(root)) for f in files}
+    for module in ("features/dfnet.py", "refine/apr_opt.py", "utils/image.py",
+                   "utils/ssim.py", "train/losses.py"):
+        assert f"nefes_tpu_torch/{module}" in names, module
+    assert len(files) > 25
     hits = [f"{f.relative_to(root)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
