@@ -1,13 +1,16 @@
 """On-card smoke run of nefes_tpu_torch on one NVIDIA GPU (written for the
 H100: the kernels build for sm_90a).
 
-    python3 chip_smoke.py [--phases build,check,mode3,mode2,paths,time]
+    python3 chip_smoke.py [--phases build,check,mode3,mode2,paths,train,time,profile]
 
 Phases:
   build  compile the CUDA kernels from csrc/ (nvcc, one process per
          source, in parallel) into nefes_tpu_torch/_build/
   check  K1-K8 against their plain PyTorch versions on the card, at the
-         shapes of the refinement's main path, in bf16 and f32
+         shapes of the refinement's main path, in bf16 and f32; and the
+         training variants at the training shapes: K1/K5 in transient
+         mode, K2/K6 with weight gradients in sigma, full and transient
+         mode (every dW and bias gradient checked)
   mode3  mode-3 refinement at full width (NeFeS D8/W128/F128 in bf16,
          60x80 rays, 64+64 samples) through the pre-embedded kernels
          (fused=fused_pre=fused_render=True, frozen field: K1, K3, K4):
@@ -23,9 +26,22 @@ Phases:
          the raw paths (K5 + K7/K8, K5 + K6); mode 2 through the raw
          paths, the pre-embedded render and unfused. Their losses must
          agree with the mode's first path's
+  train  field training at full width (NeFeS D8/W128/F128 in bf16, stage
+         1, 4 images x 1536 random rays of a 60x80 render, 64+64 samples,
+         perturbed, NeRF-W transient heads): 2 warm-up and 20 timed steps
+         through the raw-input kernels with weight gradients (fused=True,
+         fused_pre=False, fused_need_dw=True: K5, K6 +dW), s/step, rays/s,
+         losses, peak memory, launch counts; 3 steps of each path (train_raw,
+         train_pre through K1/K2, unfused) from one initial state, in bf16
+         and f32, whose losses and parameters must agree; 3 stage-2 patch
+         steps through the kernels (finite loss, BN running stats move)
   time   each kernel's time (CUDA events, median) beside its bound, its
          plain version's time and a bf16 torch.matmul chain over the same
-         tower as a yardstick
+         tower as a yardstick; the training variants at the fine training
+         shape, and the coarse pass's two training launches
+  profile torch.profiler over 3 train_raw steps and 5 iterations of mode 3
+         and mode 2: the device's busy share of the wall time, device
+         time per kernel
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits with 1 and prints
@@ -61,6 +77,17 @@ TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 # The paths phase: largest |loss difference| between a mode's paths over
 # their iterations, relative to the first path's first loss.
 PATHS_RTOL = 2e-3
+# The train phase: B images x N_rand rays per step (bench.py's
+# train_throughput leg), timed steps, and the parameters of the three
+# paths after PATH_STEPS steps from one state, relative L2 ||p_path -
+# p_train_raw|| / ||p_train_raw||. On an H100 the f32 paths agreed to
+# 4.2e-7 (sums in another order only), bf16 to 1.3e-4: bf16 also rounds
+# in other places (heads in bf16 on K1/K2, f32 on K5/K6), and Adam's
+# first steps move every weight by about lr whatever its gradient's size,
+# so a gradient near 0 whose sign differs moves a weight by up to 2 lr
+# the other way. The limits are about 10x those.
+TRAIN_B, N_RAND, TRAIN_STEPS, PATH_STEPS, TRAIN_LR = 4, 1536, 20, 3, 5e-4
+PARAM_TOL = {"float32": 5e-6, "bfloat16": 1e-3}
 # Mode 2: the query at 7-Scenes H/2, rendered at a quarter of that
 IMG_H, IMG_W, FOCAL_FULL = 4 * H, 4 * W, 4 * FOCAL
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
@@ -76,6 +103,12 @@ KERNELS = {
     "K6 field_bwd": ("nefes_tpu/kernels/fused_field.py:622", _FF),
     "K7 render_fwd": ("nefes_tpu/kernels/fused_render.py:208", _FR),
     "K8 render_bwd": ("nefes_tpu/kernels/fused_render.py:225", _FR),
+    # the training variants of K1/K5 (transient mode) and K2/K6 (need_dw)
+    "K1 field_fwd_pre transient": ("nefes_tpu/kernels/fused_field.py:686",
+                                   _FF),
+    "K2 field_bwd_pre +dW": ("nefes_tpu/kernels/fused_field.py:712", _FF),
+    "K5 field_fwd transient": ("nefes_tpu/kernels/fused_field.py:597", _FF),
+    "K6 field_bwd +dW": ("nefes_tpu/kernels/fused_field.py:622", _FF),
 }
 
 
@@ -86,7 +119,8 @@ def log(*a):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="build,check,mode3,mode2,paths,time")
+                    default="build,check,mode3,mode2,paths,train,time,"
+                    "profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run")
@@ -137,7 +171,7 @@ def main() -> int:
 
     phase("build", do_build)
     if "build" in failed:
-        return finish(failed, kernels)
+        return finish(failed, kernels, smi)
 
     from nefes_tpu_torch.train.model import ModelConfig, NeFeSModel
     models = {}
@@ -149,6 +183,34 @@ def main() -> int:
     for m in models.values():
         m.requires_grad_(False)
     gt = torch.from_numpy(look_at()).to(dev)
+
+    def compare(name, mode, dt, got, want, names=None):
+        """Kernel outputs against the plain version's: relative L2 per
+        output (None pairs skipped), max-abs beside; raises past TOL."""
+        worst_abs, worst_l2, parts = 0.0, 0.0, []
+        pairs = [(i, a, b) for i, (a, b) in enumerate(zip(got, want))
+                 if b is not None]
+        for i, a, b in pairs:
+            a, b = a.float(), b.float()
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{name} {dt}: non-finite")
+            err = (a - b).abs().max().item()
+            l2 = ((a - b).norm() / max(b.norm().item(), 1e-30)).item()
+            worst_abs, worst_l2 = max(worst_abs, err), max(worst_l2, l2)
+            if names:
+                parts.append(f"{names[i]} {l2:.3e}/{err:.3e}")
+        ok = worst_l2 <= TOL[dt]
+        log(f"{name} {mode} {dt}: shapes "
+            f"{[tuple(a.shape) for _, a, _ in pairs]} rel_l2 {worst_l2:.3e} "
+            f"(tolerance {TOL[dt]:.0e}) max_abs {worst_abs:.3e} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if parts:
+            log(f"  per output rel_l2/max_abs: {', '.join(parts)}")
+        if not ok:
+            raise AssertionError(f"{name} {dt} disagrees with plain")
+        if dt == "bfloat16":
+            kernels[name]["max_abs_err"] = max(
+                worst_abs, kernels[name].get("max_abs_err", 0.0))
 
     def do_check():
         for dt, m in models.items():
@@ -200,32 +262,74 @@ def main() -> int:
             for name, mode, kern, plain, case in cases:
                 got = case(kern)
                 torch.cuda.synchronize()
-                want = case(plain)
-                worst_abs, worst_rel, worst_l2 = 0.0, 0.0, 0.0
-                for a, b in zip(got, want):
-                    a, b = a.float(), b.float()
-                    if not torch.isfinite(a).all():
-                        raise AssertionError(f"{name} {dt}: non-finite")
-                    err = (a - b).abs().max().item()
-                    worst_abs = max(worst_abs, err)
-                    worst_rel = max(worst_rel, err / max(
-                        b.abs().max().item(), 1e-30))
-                    worst_l2 = max(worst_l2, ((a - b).norm() / max(
-                        b.norm().item(), 1e-30)).item())
-                ok = worst_l2 <= TOL[dt]
-                log(f"{name} {mode} {dt}: shapes "
-                    f"{[tuple(x.shape) for x in got]} "
-                    f"rel_l2 {worst_l2:.3e} (tolerance {TOL[dt]:.0e}) "
-                    f"max_abs {worst_abs:.3e} max_abs/max|plain| "
-                    f"{worst_rel:.3e} {'ok' if ok else 'MISMATCH'}")
-                if not ok:
-                    raise AssertionError(f"{name} {dt} disagrees with plain")
-                if dt == "bfloat16":
-                    kernels[name]["max_abs_err"] = max(
-                        worst_abs, kernels[name].get("max_abs_err", 0.0))
-                del got, want
+                compare(name, mode, dt, got, case(plain))
+                del got
+            check_training(dt, m)
         # the time phase reads the bf16 inputs only
-        del state["inputs"]["float32"]
+        del state["inputs"]["float32"], state["train_inputs"]["float32"]
+        torch.cuda.empty_cache()
+
+    def check_training(dt, m):
+        """The training variants at the training shapes: K1/K5 transient
+        forward (fine pass), K2/K6 with dW in sigma and full mode (coarse
+        pass) and transient mode (fine pass)."""
+        with torch.no_grad():
+            tr = train_path_inputs(m, dev)
+        state.setdefault("train_inputs", {})[dt] = tr
+        gen = torch.Generator(device=dev).manual_seed(2)
+        cd = kf._DTYPES[dt]
+        pc, pf = tr["packed"]
+        F = pf.spec.feature_dim
+        n_c, n_f = tr["pts_c"].shape[0], tr["pts"].shape[0]
+        log(f"training shapes: coarse {n_c} samples, fine {n_f}")
+
+        def cots(n, hd):
+            return [torch.randn(s, device=dev, generator=gen).to(hd)
+                    for s in ((n,), (n, 3), (n, F), (n, 5))]
+        g_c_pre, g_f_pre = cots(n_c, cd), cots(n_f, cd)
+        g_c_raw, g_f_raw = cots(n_c, torch.float32), cots(n_f, torch.float32)
+        tr.update(g_f_pre=g_f_pre, g_f_raw=g_f_raw)
+        S, Fm, T = kf.SIGMA, kf.FULL, kf.TRANSIENT
+        fwd_names = ["sigma", "rgb", "feat", "transient"]
+        bwd_names = ["d_x", "d_dirs", "dW", "db"]
+
+        def with_dw(p, out):
+            """(d_x, d_dirs, dW matrices, db biases): the gradient blob
+            split into the matrices' and the biases' parts."""
+            d_x, d_dirs, dw = out
+            nw = p.w.numel()
+            return d_x, d_dirs, dw[:nw], dw[nw:]
+
+        cases = [
+            ("K1 field_fwd_pre transient", "transient", kf.field_fwd_pre,
+             kf.field_fwd_pre_plain, fwd_names,
+             lambda f: f(pf, T, tr["emb"], tr["embd"])),
+            ("K5 field_fwd transient", "transient", kf.field_fwd,
+             kf.field_fwd_plain, fwd_names,
+             lambda f: f(pf, T, tr["pts"], tr["dirs"])),
+        ]
+        for name, kern, plain, xs, gs in (
+                ("K2 field_bwd_pre +dW", kf.field_bwd_pre,
+                 kf.field_bwd_pre_plain, ("emb_c", "embd_c", "emb", "embd"),
+                 (g_c_pre, g_f_pre)),
+                ("K6 field_bwd +dW", kf.field_bwd, kf.field_bwd_plain,
+                 ("pts_c", "dirs_c", "pts", "dirs"), (g_c_raw, g_f_raw))):
+            for mode, p, x, d, g in (
+                    (S, pc, tr[xs[0]], None, gs[0][:1] + [None] * 3),
+                    (Fm, pc, tr[xs[0]], tr[xs[1]], gs[0][:3] + [None]),
+                    (T, pf, tr[xs[2]], tr[xs[3]], gs[1])):
+                cases.append((
+                    name, ("sigma", "full", "transient")[mode], kern, plain,
+                    bwd_names,
+                    lambda f, p=p, mode=mode, x=x, d=d, g=g: with_dw(
+                        p, f(p, mode, x, d, *g, need_dw=True))))
+        with torch.no_grad():
+            for name, mode, kern, plain, names, case in cases:
+                got = case(kern)
+                torch.cuda.synchronize()
+                want = case(plain)
+                compare(name, mode, dt, got, want, names)
+                del got, want
         torch.cuda.empty_cache()
 
     phase("check", do_check)
@@ -273,29 +377,62 @@ def main() -> int:
     all_kernels = (kf.field_fwd_pre, kf.field_bwd_pre, kr.render_fwd_pre,
                    kr.render_bwd_pre, kf.field_fwd, kf.field_bwd,
                    kr.render_fwd, kr.render_bwd)
+    # the training variants' own counters (also counted in `launches`)
+    variants = {
+        "K1 field_fwd_pre transient": (kf.field_fwd_pre,
+                                       "transient_launches"),
+        "K2 field_bwd_pre +dW": (kf.field_bwd_pre, "dw_launches"),
+        "K5 field_fwd transient": (kf.field_fwd, "transient_launches"),
+        "K6 field_bwd +dW": (kf.field_bwd, "dw_launches"),
+    }
+    # the kernels (and variants) each training path must launch
+    path_kernels.update({
+        "train_raw": ("K5 field_fwd", "K6 field_bwd",
+                      "K5 field_fwd transient", "K6 field_bwd +dW"),
+        "train_pre": ("K1 field_fwd_pre", "K2 field_bwd_pre",
+                      "K1 field_fwd_pre transient", "K2 field_bwd_pre +dW"),
+        "train_unfused": (),
+    })
+
+    def snapshot_counts():
+        return ([k.launches for k in all_kernels],
+                {n: getattr(k, a) for n, (k, a) in variants.items()})
+
+    def restore_counts(saved):
+        for k, c in zip(all_kernels, saved[0]):
+            k.launches = c
+        for n, (k, a) in variants.items():
+            setattr(k, a, saved[1][n])
+
+    def reset_counts():
+        for k in all_kernels:
+            k.launches = 0
+        for k, attr in variants.values():
+            setattr(k, attr, 0)
 
     def counted(cfg_name, fn):
         """Run fn with every launch count set to 0 just before it; returns
         (its result, seconds, the counts), and fails if the path did not
-        launch exactly its own kernels."""
-        for k in all_kernels:
-            k.launches = 0
+        launch exactly its own kernels and variants."""
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = {n: k.launches for n, k in zip(KERNELS, all_kernels)}
+        counts.update({n: getattr(k, attr)
+                       for n, (k, attr) in variants.items()})
         ran = {n for n, c in counts.items() if c}
         if ran != set(path_kernels[cfg_name]):
             raise AssertionError(f"{cfg_name} launched {sorted(ran)}, "
                                  f"expected {path_kernels[cfg_name]}")
         return out, dt, {n: c for n, c in counts.items() if c}
 
-    def peak_mib(held: int) -> str:
+    def peak_mib(held: int, what: str = "the frame") -> str:
         peak = torch.cuda.max_memory_allocated()
         return (f"{peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} MiB "
-                f"above the {held / 2**20:.1f} MiB held before the frame")
+                f"above the {held / 2**20:.1f} MiB held before {what}")
 
     def refine3(cfg_name, iters):
         (refined, losses), dt, counts = counted(cfg_name, lambda: (
@@ -428,6 +565,171 @@ def main() -> int:
 
     phase("paths", do_paths)
 
+    def train_batch(F):
+        """rgb targets uniform (seed 5), feature targets normal (seed 6),
+        the TRAIN_B poses, the rgb targets' luminance histograms."""
+        from nefes_tpu_torch.data.scene import compute_histograms
+        rgb = torch.rand((TRAIN_B, H, W, 3),
+                         generator=torch.Generator().manual_seed(5))
+        feat = torch.randn((TRAIN_B, H, W, F),
+                           generator=torch.Generator().manual_seed(6))
+        hists = torch.from_numpy(compute_histograms(rgb.numpy()))
+        return {"rgb": rgb.to(dev), "feat": feat.to(dev),
+                "poses": train_poses(dev), "hists": hists.to(dev)}
+
+    def train_model(dt):
+        return NeFeSModel(ModelConfig(dtype=kf._DTYPES[dt]), device=dev,
+                          generator=torch.Generator().manual_seed(0))
+
+    def train_cfg(model, path):
+        cfg = model.cfg.render_config(n_samples=N_C, n_importance=N_F,
+                                      perturb=True, output_transient=True,
+                                      remat=False)
+        flags = {"train_raw": dict(fused=True, fused_pre=False),
+                 "train_pre": dict(fused=True, fused_pre=True),
+                 "train_unfused": {}}[path]
+        return replace_cfg(cfg, fused_need_dw=True, **flags)
+
+    def train_run(path, st, batch, steps, gen, stage=1, lr=TRAIN_LR,
+                  scene=None):
+        """`steps` steps of `path` on the train state st; (losses, seconds,
+        launch counts). stage 2 runs the patch step."""
+        from nefes_tpu_torch.train import train_step_patch, train_step_rays
+        cfg = train_cfg(st.model, path)
+        hwf, near, far = scene or ((H, W, FOCAL), NEAR, FAR)
+
+        def steps_():
+            losses = []
+            for i in range(steps):
+                lr_i = lr(i) if callable(lr) else lr
+                if stage == 2:
+                    _, loss, _ = train_step_patch(st, cfg, batch, gen, lr_i,
+                                                  hwf, near, far)
+                else:
+                    _, loss, _ = train_step_rays(st, cfg, batch, gen, lr_i,
+                                                 hwf, near, far,
+                                                 n_rand=N_RAND, stage=stage)
+                losses.append(loss)
+            return torch.stack(losses).float().cpu()
+        return counted(path, steps_)
+
+    def flat_params(model):
+        return torch.cat([p.detach().float().reshape(-1)
+                          for p in model.parameters()])
+
+    def do_train():
+        from nefes_tpu_torch.train import create_train_state, lr_for_epoch
+        F = ModelConfig().feature_dim
+        batch = train_batch(F)
+        rays = TRAIN_B * N_RAND
+        # the main path: K5 and K6 with dW, bf16
+        st = create_train_state(train_model("bfloat16"))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        train_run("train_raw", st, batch, 2, gen)          # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        losses, secs, counts = train_run("train_raw", st, batch, TRAIN_STEPS,
+                                         gen)
+        peak = peak_mib(held, "the steps")
+        step_s = secs / TRAIN_STEPS
+        log(f"train train_raw: {step_s:.4f} s/step, {rays / step_s:.1f} "
+            f"rays/s ({TRAIN_STEPS} steps of {TRAIN_B}x{N_RAND} rays, "
+            f"{N_C}+{N_F} samples, stage 1, transient heads, NeFeS bf16)")
+        log(f"  losses {[round(float(x), 6) for x in losses]}")
+        log(f"  launches {counts}")
+        log(f"  peak memory {peak}")
+        if not torch.isfinite(losses).all():
+            raise AssertionError("non-finite training loss")
+        want = {"K5 field_fwd": 2, "K6 field_bwd": 2,
+                "K5 field_fwd transient": 1, "K6 field_bwd +dW": 2}
+        for name, per_step in want.items():
+            if counts.get(name) != per_step * TRAIN_STEPS:
+                raise AssertionError(f"{name}: {counts.get(name)} launches "
+                                     f"in {TRAIN_STEPS} steps, expected "
+                                     f"{per_step} per step")
+        for name in ("K5 field_fwd transient", "K6 field_bwd +dW"):
+            kernels[name]["launches"] = counts[name]
+            kernels[name]["path"] = "train train_raw"
+
+        # 3 stage-2 patch steps through the kernels, continuing
+        bn = st.model.fusion.bn
+        before = (bn.running_mean.clone(), bn.running_var.clone())
+        losses, secs, counts = train_run("train_raw", st, batch, 3, gen,
+                                         stage=2)
+        moved = max((bn.running_mean - before[0]).abs().max().item(),
+                    (bn.running_var - before[1]).abs().max().item())
+        log(f"train stage 2 (patch) train_raw: losses "
+            f"{[round(float(x), 6) for x in losses]}, {secs / 3:.4f} s/step,"
+            f" BN running stats moved by {moved:.3e} (max abs), launches "
+            f"{counts}")
+        if not (torch.isfinite(losses).all() and moved > 0):
+            raise AssertionError("stage-2 step: non-finite loss or BN "
+                                 "running stats unchanged")
+
+        # the paths from one initial state and generator seed, bf16 and f32
+        for dt in ("bfloat16", "float32"):
+            runs = {}
+            for path in ("train_raw", "train_pre", "train_unfused"):
+                m = train_model(dt)
+                p0 = flat_params(m)
+                st_p = create_train_state(m)
+                gen_p = torch.Generator(device=dev).manual_seed(8)
+                losses, secs, counts = train_run(path, st_p, batch,
+                                                 PATH_STEPS, gen_p)
+                runs[path] = (losses, flat_params(m))
+                log(f"train {dt} {path}: {PATH_STEPS} steps in "
+                    f"{secs:.3f} s, losses "
+                    f"{[round(float(x), 6) for x in losses]}, launches "
+                    f"{counts}")
+                if dt == "bfloat16" and path == "train_pre":
+                    for name in ("K1 field_fwd_pre transient",
+                                 "K2 field_bwd_pre +dW"):
+                        kernels[name]["launches"] = counts[name]
+                        kernels[name]["path"] = "train train_pre"
+                del st_p, m
+            ref_l, ref_p = runs["train_raw"]
+            tol = PATHS_RTOL * float(ref_l[0])
+            for path in ("train_pre", "train_unfused"):
+                l, prm = runs[path]
+                diff = (l - ref_l).abs().max().item()
+                rel = ((prm - ref_p).norm() / ref_p.norm()).item()
+                rel_step = ((prm - ref_p).norm()
+                            / (ref_p - p0).norm()).item()
+                log(f"train {dt}: max |loss({path}) - loss(train_raw)| = "
+                    f"{diff:.3e} (tolerance {tol:.3e}); parameters after "
+                    f"{PATH_STEPS} steps: rel L2 {rel:.3e} (tolerance "
+                    f"{PARAM_TOL[dt]:.0e}), {rel_step:.3e} of what the "
+                    f"steps moved them")
+                if not diff <= tol:
+                    raise AssertionError(f"train {dt} {path}: losses "
+                                         f"disagree")
+                if not rel <= PARAM_TOL[dt]:
+                    raise AssertionError(f"train {dt} {path}: parameters "
+                                         f"disagree")
+            torch.cuda.empty_cache()
+
+        # the loss falls on the synthetic blob scene (stage 0, the JAX
+        # package's tests/test_training_e2e.py recipe at full width)
+        from nefes_tpu_torch.data.synthetic import make_synthetic_scene
+        scene = make_synthetic_scene(n_views=8, H=H, W=W, focal=FOCAL,
+                                     device=dev)
+        sb = {"rgb": torch.from_numpy(scene.images[:TRAIN_B]).to(dev),
+              "poses": torch.from_numpy(scene.poses[:TRAIN_B]).to(dev),
+              "hists": torch.from_numpy(scene.hists[:TRAIN_B]).to(dev)}
+        st_s = create_train_state(train_model("bfloat16"))
+        losses, secs, _ = train_run(
+            "train_raw", st_s, sb, 30, torch.Generator(device=dev)
+            .manual_seed(9), stage=0, lr=lambda i: lr_for_epoch(i, 5e-3),
+            scene=(scene.hwf, scene.near, scene.far))
+        first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+        log(f"train synthetic scene, stage 0, train_raw: mean loss of the "
+            f"first 5 steps {first:.6f}, of the last 5 {last:.6f}")
+        if not last < 0.8 * first:
+            raise AssertionError("the training loss did not fall")
+
+    phase("train", do_train)
+
+    @torch.no_grad()
     def do_time():
         if "inputs" not in state:
             raise RuntimeError("the time phase needs the check phase")
@@ -492,15 +794,57 @@ def main() -> int:
                 n_f * fl["K4"], n_f * (el["fwd"] + el["bwd"]),
                 2 * n_f * (2 * 3 + 1) * b4 + ray_out),
         }
-        weight_bytes = pf.w.numel() * b2 + pf.b.numel() * b4
+        # the training variants at the fine training shape (transient
+        # mode), their gradients f32
+        tr = state["train_inputs"]["bfloat16"]
+        _, tpf = tr["packed"]
+        temb, tembd, tpts, tdirs = tr["emb"], tr["embd"], tr["pts"], tr["dirs"]
+        g_pre, g_rw = tr["g_f_pre"], tr["g_f_raw"]
+        n_t, T = temb.shape[0], kf.TRANSIENT
+        heads_t = 1 + 3 + sp.feature_dim + 5
+        dw_bytes = (tpf.w.numel() + tpf.b.numel()) * b4
+        rows.update({
+            "K1 field_fwd_pre transient": (
+                lambda f: f(tpf, T, temb, tembd), kf.field_fwd_pre,
+                kf.field_fwd_pre_plain,
+                lambda: chain(tpf, T, temb, tembd, False),
+                n_t * fl["fwd_t"], 0,
+                n_t * (sp.emb_xyz + sp.emb_dir + heads_t) * b2),
+            "K2 field_bwd_pre +dW": (
+                lambda f: f(tpf, T, temb, tembd, *g_pre, need_dw=True),
+                kf.field_bwd_pre, kf.field_bwd_pre_plain,
+                lambda: chain(tpf, T, temb, tembd, True, dw=True),
+                n_t * fl["bwd_dw_t"], 0,
+                n_t * (2 * (sp.emb_xyz + sp.emb_dir) + heads_t) * b2
+                + dw_bytes),
+            "K5 field_fwd transient": (
+                lambda f: f(tpf, T, tpts, tdirs), kf.field_fwd,
+                kf.field_fwd_plain,
+                lambda: chain(tpf, T, temb, tembd, False),
+                n_t * fl["fwd_t"], n_t * el["fwd"],
+                n_t * (2 * 3 + heads_t) * b4),
+            "K6 field_bwd +dW": (
+                lambda f: f(tpf, T, tpts, tdirs, *g_rw, need_dw=True),
+                kf.field_bwd, kf.field_bwd_plain,
+                lambda: chain(tpf, T, temb, tembd, True, dw=True),
+                n_t * fl["bwd_dw_t"], n_t * (el["fwd"] + el["bwd"]),
+                n_t * (4 * 3 + heads_t) * b4 + dw_bytes),
+        })
+        # the weights each function reads: the static tower, and with the
+        # transient heads for the training variants
+        static = replace_cfg(sp, transient=False)
+        static_bytes = (
+            sum(pf.weights[n].numel() for n in kf.matrix_names(static)) * b2
+            + sum(pf.weights[n].numel() for n in kf.bias_names(static)) * b4)
+        train_bytes = tpf.w.numel() * b2 + tpf.b.numel() * b4
         for name, (case, kern, plain, lib_fn, flops, ew, nbytes) in \
                 rows.items():
-            saved = kern.launches
+            saved = snapshot_counts()
             ms = time_ms(lambda: case(kern))
-            kern.launches = saved      # timing launches are not the path's
+            restore_counts(saved)      # timing launches are not the path's
             plain_ms = time_ms(lambda: case(plain), reps=3)
             lib_ms = time_ms(lib_fn, reps=3)
-            nbytes += weight_bytes
+            nbytes += train_bytes if name in variants else static_bytes
             t_ops = (flops / PEAK_BF16_FLOPS + ew / PEAK_F32_FLOPS) * 1e3
             t_bytes = nbytes / PEAK_BYTES * 1e3
             kernels[name].update(
@@ -514,14 +858,89 @@ def main() -> int:
                 f"{flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms, "
                 f"bf16 matmul chain {lib_ms:.3f} ms")
 
-    phase("time", do_time)
-    return finish(failed, kernels)
+    @torch.no_grad()
+    def time_coarse_training():
+        """The coarse pass of a training step (full mode, half the fine
+        samples): K5 forward and K6 with dW, their ms."""
+        tr = state["train_inputs"]["bfloat16"]
+        pc = tr["packed"][0]
+        n_c = tr["pts_c"].shape[0]
+        gen = torch.Generator(device=dev).manual_seed(3)
+        g = [torch.randn(s_, device=dev, generator=gen)
+             for s_ in ((n_c,), (n_c, 3), (n_c, pc.spec.feature_dim))]
+        saved = snapshot_counts()
+        fwd = time_ms(lambda: kf.field_fwd(pc, kf.FULL, tr["pts_c"],
+                                           tr["dirs_c"]))
+        bwd = time_ms(lambda: kf.field_bwd(pc, kf.FULL, tr["pts_c"],
+                                           tr["dirs_c"], *g, need_dw=True))
+        restore_counts(saved)
+        log(f"coarse training pass ({n_c} samples, full mode): K5 field_fwd "
+            f"{fwd:.3f} ms, K6 field_bwd +dW {bwd:.3f} ms")
+
+    def do_time_all():
+        do_time()
+        time_coarse_training()
+
+    phase("time", do_time_all)
+
+    def profiled(what, fn):
+        """Run fn under torch.profiler; log the wall time, the device's
+        busy share (the union of the kernels' spans) and the device time
+        of the top kernels."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6          # us
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not kern:
+            log(f"profile {what}: the trace holds no device time")
+            return
+        busy, end = 0.0, -1.0
+        for a, b in sorted((e.time_range.start, e.time_range.end)
+                           for e in kern):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        by_name: dict = {}
+        for e in kern:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start)
+        log(f"profile {what}: {wall / 1e3:.1f} ms wall, device busy "
+            f"{busy / 1e3:.1f} ms ({100 * busy / wall:.1f} %), idle "
+            f"{100 - 100 * busy / wall:.1f} %")
+        for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
+            log(f"  {us / 1e3:9.3f} ms  {name[:90]}")
+
+    def do_profile():
+        """The device's busy share and time per kernel on each main path:
+        3 train_raw steps, 5 iterations of mode 3 (render_pre) and of mode
+        2 (render_raw)."""
+        from nefes_tpu_torch.train import create_train_state
+        batch = train_batch(ModelConfig().feature_dim)
+        st = create_train_state(train_model("bfloat16"))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        train_run("train_raw", st, batch, 2, gen)          # warm-up
+        profiled("train train_raw, 3 steps",
+                 lambda: train_run("train_raw", st, batch, 3, gen))
+        profiled("mode3 render_pre, 5 iterations",
+                 lambda: refine3("render_pre", 5))
+        profiled("mode2 render_raw, 5 iterations",
+                 lambda: refine2("render_raw", 5))
+
+    phase("profile", do_profile)
+    return finish(failed, kernels, smi)
 
 
-def finish(failed, kernels) -> int:
+def finish(failed, kernels, smi) -> int:
     if failed:
         log(f"FAILED phases: {failed}")
         return 1
+    log(f"card: {smi}")       # again, beside the results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [{k: v.get(k) for k in keys} | {"path": v.get("path")}
@@ -544,13 +963,45 @@ def look_at() -> np.ndarray:
 
 
 def main_path_inputs(model, pose, dev) -> dict:
-    """The kernels' inputs at the true pose, made as the renderer makes
-    them: coarse points (H·W·64, 3) and embeddings (H·W·64, 63), fine
-    points and per-sample directions (H·W·128, 3) with their embeddings
-    (63 and 27), and fine z (H·W, 128); points and directions in f32,
-    embeddings in the model's pack dtype."""
-    from nefes_tpu_torch.fields.embedder import embed
+    """The kernels' inputs on the refinement's main path, at the true
+    pose: every pixel of the H x W render, deterministic samples
+    (path_inputs)."""
     from nefes_tpu_torch.geometry.rays import get_rays
+    ro, rd = get_rays(H, W, FOCAL, pose[:3, :4])
+    return path_inputs(model, ro.reshape(-1, 3), rd.reshape(-1, 3), dev)
+
+
+def train_poses(dev) -> torch.Tensor:
+    """TRAIN_B cameras around the scene, (B, 3, 4)."""
+    from nefes_tpu_torch.data.synthetic import look_at_pose
+    eyes = [(2.4 * np.sin(a), 0.3, 2.4 * np.cos(a))
+            for a in np.linspace(0.0, 1.2, TRAIN_B)]
+    return torch.from_numpy(np.stack([look_at_pose(np.array(e, np.float32))
+                                      for e in eyes])).to(dev)
+
+
+def train_path_inputs(model, dev) -> dict:
+    """The field kernels' inputs on the training path: TRAIN_B images x
+    N_RAND random pixels of the H x W render (seed 4), perturbed
+    samples."""
+    from nefes_tpu_torch.geometry.rays import get_ray_at
+    gen = torch.Generator(device=dev).manual_seed(4)
+    idx = torch.stack([torch.randperm(H * W, generator=gen, device=dev)
+                       [:N_RAND] for _ in range(TRAIN_B)])
+    ro, rd = get_ray_at((idx % W).float(), (idx // W).float(), FOCAL, H, W,
+                        train_poses(dev))
+    return path_inputs(model, ro.reshape(-1, 3), rd.reshape(-1, 3), dev,
+                       gen)
+
+
+def path_inputs(model, ro, rd, dev, gen=None) -> dict:
+    """The field kernels' inputs for rays ro, rd (R, 3), made as the
+    renderer makes them: coarse points and per-sample directions
+    (R·64, 3) with their embeddings (63 and 27), fine points and
+    directions (R·128, 3) with theirs, and fine z (R, 128); points and
+    directions in f32, embeddings in the model's pack dtype. With `gen`,
+    perturbed samples (training), else the deterministic ones."""
+    from nefes_tpu_torch.fields.embedder import embed
     from nefes_tpu_torch.kernels.fused_field import field_fwd_pre_plain
     from nefes_tpu_torch.render.compositor import composite
     from nefes_tpu_torch.render.sampling import (
@@ -558,30 +1009,31 @@ def main_path_inputs(model, pose, dev) -> dict:
     )
     cfg = model.cfg
     cd = cfg.dtype
-    packed = model.pack_fused()
     with torch.no_grad():
-        ro, rd = get_rays(H, W, FOCAL, pose[:3, :4])
-        ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+        packed = model.pack_fused()
         R = ro.shape[0]
         vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
-        z = stratified_samples(None, R, N_C, NEAR, FAR, perturb=False,
-                               device=dev)
+        z = stratified_samples(gen, R, N_C, NEAR, FAR,
+                               perturb=gen is not None, device=dev)
         pts = ro[:, None] + rd[:, None] * z[..., None]
         emb_c = embed(pts, cfg.xyz_embed).to(cd).reshape(R * N_C, -1)
         sigma = field_fwd_pre_plain(packed[0], False, emb_c, None)[0]
         w = composite({"static_sigma": sigma.reshape(R, N_C)}, z,
                       sigma_only=True, test_time=True)["weights"]
-        zf = hierarchical_samples(None, z, w, N_F, det=True)
+        zf = hierarchical_samples(gen, z, w, N_F, det=gen is None)
         S = zf.shape[1]
         pf = ro[:, None] + rd[:, None] * zf[..., None]
         emb = embed(pf, cfg.xyz_embed).to(cd).reshape(R * S, -1)
-        embd = embed(vd[:, None].expand(R, S, 3), cfg.dir_embed).to(
-            cd).reshape(R * S, -1)
-        dirs = vd[:, None].expand(R, S, 3).reshape(R * S, 3)
-    return dict(packed=packed, emb_c=emb_c.contiguous(),
-                emb=emb.contiguous(), embd=embd.contiguous(),
-                z=zf.contiguous(), pts_c=pts.reshape(-1, 3).contiguous(),
-                pts=pf.reshape(-1, 3).contiguous(), dirs=dirs.contiguous())
+        out = dict(packed=packed, emb_c=emb_c.contiguous(),
+                   emb=emb.contiguous(), z=zf.contiguous(),
+                   pts_c=pts.reshape(-1, 3).contiguous(),
+                   pts=pf.reshape(-1, 3).contiguous())
+        for key, n_s in (("", S), ("_c", N_C)):
+            d = vd[:, None].expand(R, n_s, 3)
+            out["embd" + key] = embed(d, cfg.dir_embed).to(cd).reshape(
+                R * n_s, -1).contiguous()
+            out["dirs" + key] = d.reshape(R * n_s, 3).contiguous()
+    return out
 
 
 def tower_flops(spec) -> dict:
@@ -592,15 +1044,23 @@ def tower_flops(spec) -> dict:
     the 3 rgb columns that the composite's weights need (K4), then
     backprop through the whole tower to the inputs, which takes as many
     products as the whole forward. K5-K8 do the products of K1 (sigma
-    mode), K2, K3 and K4, plus the elementwise embedding (embed_ops)."""
+    mode), K2, K3 and K4, plus the elementwise embedding (embed_ops). The
+    training variants, transient mode: "fwd_t" the whole forward with the
+    transient branch (t1 over final and the dir embedding, t2, t3, the 5
+    heads); "bwd_dw_t" its recompute without the rgb head, the products
+    back to the inputs, and one product per weight for dW, each as many
+    as the whole forward."""
     E, Ed, Wd, Hd, C = (spec.emb_xyz, spec.emb_dir, spec.width, spec.half,
                         spec.rgbfeat)
     trunk = E * Wd + (spec.depth - 1) * Wd * Wd + Wd
     trunk += sum(E * Wd for i in spec.skips if 0 < i < spec.depth)
     body = trunk + Wd * Wd + (Wd + Ed) * Hd
     full = body + Hd * C
+    trans = (Wd + Ed) * Hd + 2 * Hd * Hd + Hd * 5
     return {"K1": 2 * trunk, "K2": 2 * (body + full), "K3": 2 * full,
-            "K4": 2 * (body + Hd * 3 + full)}
+            "K4": 2 * (body + Hd * 3 + full),
+            "fwd_t": 2 * (full + trans),
+            "bwd_dw_t": 2 * ((body + trans) + 2 * (full + trans))}
 
 
 def embed_ops(spec) -> dict:
@@ -614,38 +1074,72 @@ def embed_ops(spec) -> dict:
             "bwd": 3 * 7 * (nx + nd)}
 
 
-def chain(p, full, emb, embd, backward):
+def chain(p, mode, emb, embd, backward, dw=False):
     """Yardstick: the tower's matmuls as a plain bf16 torch.matmul chain
-    (cuBLAS), forward and, for a backward, the input-gradient products."""
+    (cuBLAS), forward and, for a backward, the input-gradient products
+    and, with dw, one product per weight for its gradient. mode: 0 sigma,
+    1 (or True) full, 2 transient."""
     w, spec = p.weights, p.spec
-    h, masks = emb, []
+    h, hs = emb, []
     for i in range(spec.depth):
         z = h @ w[f"l{i}_wh" if i else "l0_we"]
         if i and i in spec.skips:
             z = z + emb @ w[f"l{i}_we"]
         h = torch.relu(z)
-        masks.append(h)
+        hs.append(h)
     out = [h @ w["sig_w"]]
-    if full:
+    if mode:
         fin = h @ w["fin_w"]
         de = torch.relu(fin @ w["dir_wh"] + embd @ w["dir_wd"])
         out.append(de @ w["rgb_w"])
+    if mode == 2:
+        ts = [torch.relu(fin @ w["t1_wh"] + embd @ w["t1_wd"])]
+        for n in ("t2", "t3"):
+            ts.append(torch.relu(ts[-1] @ w[f"{n}_w"]))
+        heads = [ts[-1] @ w[f"{n}_w"] for n in ("ts", "tr", "tb")]
+        out += heads
     if not backward:
         return out
-    g = out[1] @ w["rgb_w"].t()
+    dws = []
+
+    def grad(act, g):
+        if dw:
+            dws.append(act.t() @ g)
+
+    g = out[1]
+    grad(de, g)
+    g = g @ w["rgb_w"].t()
+    grad(fin, g)
+    grad(embd, g)
     g_fin = g @ w["dir_wh"].t()
     g_embd = g @ w["dir_wd"].t()
+    if mode == 2:
+        gt = sum(hd @ w[f"{n}_w"].t() for hd, n in zip(heads, ("ts", "tr",
+                                                             "tb")))
+        for hd in heads:
+            grad(ts[2], hd)
+        for n, act in (("t3", ts[1]), ("t2", ts[0])):
+            grad(act, gt)
+            gt = gt @ w[f"{n}_w"].t()
+        grad(fin, gt)
+        grad(embd, gt)
+        g_fin = g_fin + gt @ w["t1_wh"].t()
+        g_embd = g_embd + gt @ w["t1_wd"].t()
+    grad(h, g_fin)
+    grad(h, out[0])
     dh = g_fin @ w["fin_w"].t() + out[0] @ w["sig_w"].t()
     d_emb = 0
     for i in range(spec.depth - 1, -1, -1):
-        dz = dh * (masks[i] > 0)
+        dz = dh * (hs[i] > 0)
+        grad(hs[i - 1] if i else emb, dz)
         if i == 0:
             d_emb = d_emb + dz @ w["l0_we"].t()
         else:
             dh = dz @ w[f"l{i}_wh"].t()
             if i in spec.skips:
+                grad(emb, dz)
                 d_emb = d_emb + dz @ w[f"l{i}_we"].t()
-    return d_emb, g_embd
+    return d_emb, g_embd, dws
 
 
 def time_ms(fn, reps: int = 5) -> float:

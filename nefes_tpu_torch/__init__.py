@@ -11,15 +11,20 @@ This package imports torch, numpy and the standard library only.
   features/   DFNet (VGG16 hypercolumn features + pose regressor)
   render/     stratified + inverse-CDF sampling, compositor, renderer
   kernels/    hand-written Hopper kernels (csrc/) with their plain PyTorch
-              versions: the fused field and the composite-fused fine
-              render, each on pre-embedded inputs (K1-K4) and on raw
-              points and directions embedded in the kernel (K5-K8)
-  train/      ModelConfig, the NeFeSModel bundle, mse / psnr
+              versions: the fused field (modes sigma / full / transient,
+              backward with or without weight gradients) and the
+              composite-fused fine render, each on pre-embedded inputs
+              (K1-K4) and on raw points and directions embedded in the
+              kernel (K5-K8)
+  train/      ModelConfig, the NeFeSModel bundle; field training: the
+              random-ray (stages 0/1) and patch (stage 2) steps, schedule,
+              optax-style Adam, the NeRF-W / feature / fusion losses,
+              torch.save checkpoints
   refine/     mode-3 pose refinement (explicit SE(3) delta + Adam) and
               mode-2 APR refinement (Adam on DFNet's weights, with the
               PSNR/SSIM verification fail-safe)
   utils/      torch-semantics bicubic / bilinear resizes, SSIM
-  data/       look_at_pose for synthetic cameras
+  data/       SceneData, luminance histograms, the synthetic blob scene
 
 Entry points run on the card unless the caller passes device="cpu".
 """

@@ -46,7 +46,7 @@ struct RaySmem {
 
 __host__ __device__ inline size_t carve_ray(const Dims& d, bool backward, int S, char* base,
                                             Smem* s, RaySmem* rs) {
-  size_t off = carve(d, backward, base, s);
+  size_t off = carve(d, backward, FULL, false, base, s);
   const int C = 3 + d.F;
   RaySmem t;
   t.sig = take(base, &off, S);
@@ -70,7 +70,7 @@ __device__ void ray_forward(const Tower<T>& tw, const Smem& s, const RaySmem& rs
     const int valid = S - t0 < TR ? S - t0 : TR;
     tile_inputs<T, RAW>(tw.d, s, x, dirs, true, sample0 + t0, valid);
     float* rf = rs.rf;
-    tower_forward<T>(tw, s, true, false, rf_cols, [=](int r, int c, float v) {
+    tower_forward<T>(tw, s, FULL, false, rf_cols, [=](int r, int c, float v) {
       if (r < valid) rf[(t0 + r) * rf_cols + c] = v;
     });
     for (int r = threadIdx.x; r < valid; r += blockDim.x) rs.sig[t0 + r] = softplus(s.zs[r]);
@@ -169,12 +169,13 @@ render_bwd_kernel(Tower<T> tw, int S, const void* __restrict__ x, const void* __
     const int valid = S - t0 < TR ? S - t0 : TR;
     const size_t row0 = sample0 + t0;
     tile_inputs<T, RAW>(tw.d, s, x, dirs, true, row0, valid);
-    tower_forward<T>(tw, s, true, true, 0, [](int, int, float) {});
+    tower_forward<T>(tw, s, FULL, true, 0, [](int, int, float) {});
     const float* dsig = rs.dsig + t0;
     const float* wgt = rs.wgt + t0;
     tower_backward<T>(
-        tw, s, true, [=](int r) { return r < valid ? dsig[r] : 0.f; },
-        [=](int r, int c) { return r < valid ? wgt[r] * gr[c] : 0.f; });
+        tw, s, FULL, [=](int r) { return r < valid ? dsig[r] : 0.f; },
+        [=](int r, int c) { return r < valid ? wgt[r] * gr[c] : 0.f; }, NoGrad{},
+        DwOut<T>{nullptr, nullptr, nullptr});
     tile_input_grads<T, RAW>(tw.d, s, x, dirs, true, dx, ddirs, row0, valid);
   }
 }

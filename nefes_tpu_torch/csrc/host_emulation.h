@@ -28,11 +28,13 @@ namespace nefes_emu {
 inline NefesDim3 thread_idx{0, 0, 0};
 inline NefesDim3 block_idx{0, 0, 0};
 inline NefesDim3 block_dim{1, 1, 1};
+inline NefesDim3 grid_dim{1, 1, 1};
 }  // namespace nefes_emu
 
 #define threadIdx nefes_emu::thread_idx
 #define blockIdx nefes_emu::block_idx
 #define blockDim nefes_emu::block_dim
+#define gridDim nefes_emu::grid_dim
 
 inline void __syncthreads() {}
 
@@ -70,6 +72,7 @@ alignas(16) char nefes_smem[1 << 18];
 }
 
 #define NEFES_LAUNCH(kern, grid, smem, stream, ...)                          \
+  nefes_emu::grid_dim.x = (unsigned)(grid);                                 \
   for (unsigned nefes_b = 0; nefes_b < (unsigned)(grid); ++nefes_b) {       \
     nefes_emu::block_idx.x = nefes_b;                                       \
     kern(__VA_ARGS__);                                                      \

@@ -1,15 +1,30 @@
 // Shared device code of the NeRFH-NFF tower kernels (fused_field.cu,
-// fused_render.cu): the MLP tower with its heads, and its frozen-field
-// recompute backward, over one tile of TR samples per block, fed either
-// pre-embedded rows or raw f32 points and directions that the tile embeds
-// itself (the raw-input kernels K5-K8).
+// fused_render.cu): the MLP tower with its heads (and, in transient mode,
+// the NeRF-W transient branch), and its recompute backward, with or
+// without the weight gradients, over one tile of TR samples per block,
+// fed either pre-embedded rows or raw f32 points and directions that the
+// tile embeds itself (the raw-input kernels K5-K8).
 //
 // Replaces the per-tile bodies of the Pallas kernels in
 // nefes_tpu/kernels/fused_field.py (_embed_block, _tower_tile,
-// _mlp_backward with need_dw=False, pre=True or False). Same arithmetic
-// and the same rounding points: hidden layers accumulate in f32 and round
-// to the pack dtype T, then take the bias and the ReLU in T; heads
-// accumulate in f32.
+// _mlp_backward, pre=True or False, need_dw=True or False). Same
+// arithmetic and the same rounding points: hidden layers accumulate in
+// f32 and round to the pack dtype T, then take the bias and the ReLU in
+// T; heads accumulate in f32; a weight gradient is act^T · g with act in
+// T and g rounded to T, accumulated in f32, a bias gradient the f32 sum
+// of g (_mlp_backward's dmat).
+//
+// Weight gradients across tiles: the TPU grid runs in order and carries
+// dW in VMEM from one tile to the next. A GPU grid does not, so the
+// backward with dW runs a persistent grid of `slices` blocks (one per SM
+// on the card), each looping over tiles blockIdx.x, blockIdx.x + slices,
+// ... and adding each tile's dW into its own f32 partial slice in global
+// memory (every element owned by one thread, in a fixed order); a second
+// kernel (fused_field.cu) sums the slices in slice order. No atomics, so
+// the gradient and a training run's loss curve are the same from run to
+// run. The activations a dW product needs (every hidden layer and the
+// `final` layer) go to a per-block scratch in global memory during the
+// recompute and come back one layer at a time into shared memory.
 //
 // Design on Hopper (H100): the TPU kernel keeps the whole tower resident
 // in VMEM. Here the weights (about 167k values for the fine tower, 333 KB
@@ -28,7 +43,11 @@
 //
 // The backward stores no activations: it recomputes the forward for the
 // tile and keeps one ReLU bit per unit and layer, plus the dir-layer output
-// and the sigma pre-activation.
+// and the sigma pre-activation (and, in transient mode, the three 64-wide
+// transient layers and their head pre-activations). The dW products
+// contract over the tile's rows: bf16 on the tensor cores (mma.sync, as
+// the forward), f32 on the CUDA cores; the per-tile read-modify-write of
+// the partial slice costs one pass over the weights' gradients per tile.
 //
 // Host emulation: built with NEFES_EMULATE (see host_emulation.h) the same
 // code runs on the CPU with one thread per block, so the arithmetic and
@@ -84,9 +103,15 @@ __device__ __forceinline__ float softplus(float x) {
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
+// Modes of the field kernels: the sigma head only; sigma plus the rgb and
+// feature heads; and those plus the transient heads (fine tower, NeRF-W).
+enum Mode { SIGMA = 0, FULL = 1, TRANSIENT = 2 };
+
 // Tower dimensions (FieldSpec) and the offsets of every matrix and bias in
 // the packed blobs. Matrices are (in, out) row-major in weight_names order;
-// the transposed blob holds each one as (out, in) at the same offset.
+// the transposed blob holds each one as (out, in) at the same offset. The
+// transient arrays come after every static one, so a tower packed with
+// them keeps the static offsets the render kernels read.
 struct Dims {
   int depth, width, skipmask, E, Ed, F;
 };
@@ -95,6 +120,8 @@ struct Layout {
   int we[MAX_DEPTH], wh[MAX_DEPTH], b[MAX_DEPTH];
   int sig_w, fin_w, dir_wh, dir_wd, rgb_w;
   int sig_b, fin_b, dir_b, rgb_b;
+  int t1_wh, t1_wd, t2_w, t3_w, ts_w, tr_w, tb_w;
+  int t1_b, t2_b, t3_b, ts_b, tr_b, tb_b;
 };
 
 __host__ __device__ inline Layout make_layout(const Dims& d) {
@@ -122,6 +149,19 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   L.dir_b = b; b += H;
   L.rgb_w = w; w += H * C;
   L.rgb_b = b; b += C;
+  L.t1_wh = w; w += W * H;
+  L.t1_wd = w; w += d.Ed * H;
+  L.t2_w = w; w += H * H;
+  L.t3_w = w; w += H * H;
+  L.ts_w = w; w += H;
+  L.tr_w = w; w += H * 3;
+  L.tb_w = w;
+  L.t1_b = b; b += H;
+  L.t2_b = b; b += H;
+  L.t3_b = b; b += H;
+  L.ts_b = b; b += 1;
+  L.tr_b = b; b += 3;
+  L.tb_b = b;
   return L;
 }
 
@@ -157,6 +197,11 @@ struct Smem {
   float* dzs;       // TR      (backward)
   float* demb;      // TR x E  (backward: the cotangent of emb)
   uint32_t* mask;   // depth x TR x W/32 ReLU bits (backward)
+  float* t1;        // TR x H  transient layers (transient mode; their
+  float* t2;        // TR x H  cotangents, in place, in backward)
+  float* t3;        // TR x H
+  float* tz;        // TR x 5  transient head pre-activations (cotangents)
+  float* ha;        // TR x W  one saved activation, staged (backward, dW)
 };
 
 // Next 16-byte aligned buffer of n 4-byte words at base + *off.
@@ -167,8 +212,11 @@ __host__ __device__ inline float* take(char* base, size_t* off, size_t n) {
 }
 
 // Carve the tile's buffers from `base`; returns the bytes used. With
-// base == nullptr only the size is computed (host side).
-__host__ __device__ inline size_t carve(const Dims& d, bool backward, char* base, Smem* s) {
+// base == nullptr only the size is computed (host side). The transient
+// buffers exist in transient mode only and the staging buffer with dW
+// only, so the render kernels (full mode, frozen) keep their size.
+__host__ __device__ inline size_t carve(const Dims& d, bool backward, int mode, bool dw,
+                                        char* base, Smem* s) {
   const int W = d.width, H = d.width / 2;
   size_t off = 0;
   Smem t;
@@ -181,14 +229,39 @@ __host__ __device__ inline size_t carve(const Dims& d, bool backward, char* base
   t.dzs = nullptr;
   t.demb = nullptr;
   t.mask = nullptr;
+  t.t1 = t.t2 = t.t3 = t.tz = t.ha = nullptr;
   if (backward) {
     t.dzs = take(base, &off, TR);
     t.demb = take(base, &off, (size_t)TR * d.E);
     t.mask = reinterpret_cast<uint32_t*>(take(base, &off, (size_t)d.depth * TR * (W / 32)));
   }
+  if (mode == TRANSIENT) {
+    t.t1 = take(base, &off, (size_t)TR * H);
+    t.t2 = take(base, &off, (size_t)TR * H);
+    t.t3 = take(base, &off, (size_t)TR * H);
+    t.tz = take(base, &off, (size_t)TR * 5);
+  }
+  if (backward && dw) t.ha = take(base, &off, (size_t)TR * W);
   if (s) *s = t;
   return off;
 }
+
+// Elements of T one block of the backward with dW keeps in its global
+// scratch: the tile's hidden layers h_0 .. h_{depth-1} and `final`.
+__host__ __device__ inline size_t dw_scratch(const Dims& d) {
+  return (size_t)(d.depth + 1) * TR * d.width;
+}
+
+// The weight-gradient output of one block of the backward: its f32
+// partial slice (the matrices at their blob offsets, then the biases at
+// theirs) and its activation scratch; part == nullptr for the frozen
+// field (need_dw=False).
+template <typename T>
+struct DwOut {
+  float* part;
+  float* part_b;
+  T* acts;
+};
 
 #ifndef NEFES_EMULATE
 // Tensor-core product for bf16: mma.sync m16n8k16 (bf16 in, f32
@@ -256,6 +329,57 @@ __device__ __forceinline__ void block_mm_mma(int K, int N,
     }
   }
 }
+
+// The dW product on the tensor cores: part[m * N + n] += sum_r A(r, m) *
+// G(r, n) over the tile's TR rows, for m < M, n < N, with mma.sync
+// m16n8k16 (the tile's rows are the contraction; A and G values are
+// already bf16-representable, so building the fragments is exact). A warp
+// owns 16 weight rows by MMA_G x 8 columns; each element of part belongs
+// to one lane, which adds in a fixed order.
+template <typename AFn, typename GFn>
+__device__ __forceinline__ void block_dw_mma(int M, int N, AFn A, GFn G,
+                                             float* __restrict__ part) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m_tiles = (M + 15) >> 4, n_tiles = (N + 7) >> 3;
+  const int items = m_tiles * ((n_tiles + MMA_G - 1) / MMA_G);
+  auto a_at = [&](int m, int r) { return m < M ? A(r, m) : 0.f; };
+  auto g_at = [&](int r, int n) { return n < N ? G(r, n) : 0.f; };
+  for (int it = threadIdx.x >> 5; it < items; it += blockDim.x >> 5) {
+    const int m0 = (it % m_tiles) * 16 + g, m1 = m0 + 8;
+    const int nt0 = (it / m_tiles) * MMA_G;
+    float acc[MMA_G][4];
+#pragma unroll
+    for (int j = 0; j < MMA_G; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int k0 = 0; k0 < TR; k0 += 16) {
+      const int ka = k0 + 2 * t, kb = ka + 8;
+      const uint32_t a[4] = {pack_bf16x2(a_at(m0, ka), a_at(m0, ka + 1)),
+                             pack_bf16x2(a_at(m1, ka), a_at(m1, ka + 1)),
+                             pack_bf16x2(a_at(m0, kb), a_at(m0, kb + 1)),
+                             pack_bf16x2(a_at(m1, kb), a_at(m1, kb + 1))};
+#pragma unroll
+      for (int j = 0; j < MMA_G; ++j) {
+        if (nt0 + j < n_tiles) {
+          const int n = (nt0 + j) * 8 + g;
+          mma_bf16(acc[j], a, pack_bf16x2(g_at(ka, n), g_at(ka + 1, n)),
+                   pack_bf16x2(g_at(kb, n), g_at(kb + 1, n)));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < MMA_G; ++j) {
+      const int c = (nt0 + j) * 8 + 2 * t;
+      if (nt0 + j >= n_tiles) continue;
+      if (m0 < M) {
+        if (c < N) part[(size_t)m0 * N + c] += acc[j][0];
+        if (c + 1 < N) part[(size_t)m0 * N + c + 1] += acc[j][1];
+      }
+      if (m1 < M) {
+        if (c < N) part[(size_t)m1 * N + c] += acc[j][2];
+        if (c + 1 < N) part[(size_t)m1 * N + c + 1] += acc[j][3];
+      }
+    }
+  }
+}
 #endif
 
 // out[r][c] = sum_k A(r, k) * B[k * ldb + c] for r < TR, c < N, handed to
@@ -300,6 +424,61 @@ __device__ __forceinline__ void block_mm(int K, int N, const T* __restrict__ B, 
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (j < nc) epi(r0 + i, c0 + j, acc[i][j]);
+  }
+}
+
+// One weight's gradient from one tile, added to the block's partial:
+// part[k * N + c] += sum_r A(r, k) * G(r, c) over the TR rows, for k < K,
+// c < N (the (in, out) layout of the blob). A gives the layer's input in
+// T (exact in f32), G its output cotangent rounded to T, so every product
+// is exact and only the f32 sums round. bf16 runs on the tensor cores
+// (block_dw_mma); f32 on the CUDA cores in 4x4 micro-tiles with FMA.
+// Either way each element of part belongs to one thread, which adds in a
+// fixed order.
+template <typename T, typename AFn, typename GFn>
+__device__ __forceinline__ void block_dw(int K, int N, AFn A, GFn G, float* __restrict__ part) {
+#ifndef NEFES_EMULATE
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    block_dw_mma(K, N, A, G, part);
+    return;
+  }
+#endif
+  const int ncg = (N + 3) >> 2;
+  const int n_mt = ((K + 3) >> 2) * ncg;
+  for (int mt = threadIdx.x; mt < n_mt; mt += blockDim.x) {
+    const int k0 = (mt / ncg) * 4, c0 = (mt % ncg) * 4;
+    const int nk = K - k0 < 4 ? K - k0 : 4, nc = N - c0 < 4 ? N - c0 : 4;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int r = 0; r < TR; ++r) {
+      float a[4], g[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = i < nk ? A(r, k0 + i) : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) g[j] = j < nc ? G(r, c0 + j) : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], g[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (i < nk && j < nc) part[(size_t)(k0 + i) * N + c0 + j] += acc[i][j];
+  }
+}
+
+// One bias's gradient from one tile: part[c] += sum_r G(r, c) in f32.
+template <typename GFn>
+__device__ __forceinline__ void block_db(int N, GFn G, float* __restrict__ part) {
+  for (int c = threadIdx.x; c < N; c += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < TR; ++r) s += G(r, c);
+    part[c] += s;
   }
 }
 
@@ -411,15 +590,28 @@ __device__ __forceinline__ void tile_input_grads(const Dims& d, const Smem& s, c
   __syncthreads();
 }
 
+
+// Copy one TR x W activation tile (f32 values that hold T numbers) to its
+// slot of the dW scratch in T. No barrier: the source is not overwritten
+// before the next one.
+template <typename T>
+__device__ __forceinline__ void save_act(T* __restrict__ dst, const float* src, int n) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = from_f<T>(src[j]);
+}
+
 // Forward tower over the tile in s.emb / s.embd (mirrors _tower_tile).
-// Leaves the last hidden layer's sigma pre-activation in s.zs and, when
-// `full`, the dir-layer output in s.de; when keep_masks, the ReLU bits of
-// every hidden layer in s.mask. The rgb/feature head is computed for
-// columns [0, rgb_cols) and handed to rgb_epi(r, c, value) in f32.
-// Ends with a barrier.
+// Leaves the last hidden layer's sigma pre-activation in s.zs and, in
+// FULL and TRANSIENT mode, the dir-layer output in s.de; in TRANSIENT
+// mode the three transient layers in s.t1..t3 and the transient heads'
+// pre-activations [sigma, rgb x3, beta] in s.tz; when keep_masks, the
+// ReLU bits of every hidden layer in s.mask; when acts is given (the
+// backward with dW), every hidden layer and `final` in acts, (depth + 1)
+// x TR x W in T. The rgb/feature head is computed for columns [0,
+// rgb_cols) and handed to rgb_epi(r, c, value) in f32. Ends with a
+// barrier.
 template <typename T, typename RgbEpi>
-__device__ void tower_forward(const Tower<T>& tw, const Smem& s, bool full, bool keep_masks,
-                              int rgb_cols, RgbEpi rgb_epi) {
+__device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, bool keep_masks,
+                              int rgb_cols, RgbEpi rgb_epi, T* acts = nullptr) {
   const Dims& d = tw.d;
   const Layout& L = tw.L;
   const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, C = 3 + d.F, nw = W / 32;
@@ -460,6 +652,7 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, bool full, bool
         m[j] = bits;
       }
     }
+    if (acts) save_act(acts + (size_t)i * TR * W, ho, TR * W);
     h = ho;
     hn = const_cast<float*>(hc);
   }
@@ -472,7 +665,7 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, bool full, bool
     block_mm<T>(W, 1, tw.w + L.sig_w, 1, [=](int r, int k) { return hc[r * W + k]; },
                 [=](int r, int c, float acc) { zs[r] = acc + sb; });
   }
-  if (!full) {
+  if (mode == SIGMA) {
     __syncthreads();
     return;
   }
@@ -488,21 +681,23 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, bool full, bool
                 });
   }
   __syncthreads();
+  if (acts) save_act(acts + (size_t)d.depth * TR * W, hn, TR * W);
 
   // de = relu(final @ dir_wh + embd @ dir_wd + dir_b)
+  const float* fin = hn;
+  const float* embd = s.embd;
+  auto a_fin = [=](int r, int k) { return fin[r * W + k]; };
+  auto a_embd = [=](int r, int k) { return embd[r * Ed + k]; };
   {
-    const float* fin = hn;
-    const float* embd = s.embd;
     float* de = s.de;
     const float* db = tw.b + L.dir_b;
-    block_mm<T>(W, H, tw.w + L.dir_wh, H, [=](int r, int k) { return fin[r * W + k]; },
+    block_mm<T>(W, H, tw.w + L.dir_wh, H, a_fin,
                 [=](int r, int c, float acc) { de[r * H + c] = rnd<T>(acc); });
-    block_mm<T>(Ed, H, tw.w + L.dir_wd, H, [=](int r, int k) { return embd[r * Ed + k]; },
-                [=](int r, int c, float acc) {
-                  float z = rnd<T>(de[r * H + c] + rnd<T>(acc));
-                  z = rnd<T>(z + rnd<T>(db[c]));
-                  de[r * H + c] = fmaxf(z, 0.f);
-                });
+    block_mm<T>(Ed, H, tw.w + L.dir_wd, H, a_embd, [=](int r, int c, float acc) {
+      float z = rnd<T>(de[r * H + c] + rnd<T>(acc));
+      z = rnd<T>(z + rnd<T>(db[c]));
+      de[r * H + c] = fmaxf(z, 0.f);
+    });
   }
   __syncthreads();
 
@@ -512,62 +707,253 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, bool full, bool
     block_mm<T>(H, rgb_cols, tw.w + L.rgb_w, C, [=](int r, int k) { return de[r * H + k]; },
                 [=](int r, int c, float acc) { rgb_epi(r, c, acc + rb[c]); });
   }
+  if (mode == TRANSIENT) {
+    // t1 = relu(final @ t1_wh + embd @ t1_wd + t1_b), then two 64-wide
+    // layers, each rounded like the dir layer
+    float* t1 = s.t1;
+    const float* b1 = tw.b + L.t1_b;
+    block_mm<T>(W, H, tw.w + L.t1_wh, H, a_fin,
+                [=](int r, int c, float acc) { t1[r * H + c] = rnd<T>(acc); });
+    block_mm<T>(Ed, H, tw.w + L.t1_wd, H, a_embd, [=](int r, int c, float acc) {
+      float z = rnd<T>(t1[r * H + c] + rnd<T>(acc));
+      z = rnd<T>(z + rnd<T>(b1[c]));
+      t1[r * H + c] = fmaxf(z, 0.f);
+    });
+    __syncthreads();
+    const float* src[2] = {s.t1, s.t2};
+    float* dst[2] = {s.t2, s.t3};
+    const int wo[2] = {L.t2_w, L.t3_w}, bo[2] = {L.t2_b, L.t3_b};
+    for (int l = 0; l < 2; ++l) {
+      const float* a = src[l];
+      float* o = dst[l];
+      const float* bb = tw.b + bo[l];
+      block_mm<T>(H, H, tw.w + wo[l], H, [=](int r, int k) { return a[r * H + k]; },
+                  [=](int r, int c, float acc) {
+                    o[r * H + c] = fmaxf(rnd<T>(rnd<T>(acc) + rnd<T>(bb[c])), 0.f);
+                  });
+      __syncthreads();
+    }
+    // heads: f32 accumulation plus f32 bias, columns [sigma, rgb x3, beta]
+    const float* t3 = s.t3;
+    float* tz = s.tz;
+    const float bs = tw.b[L.ts_b], bb = tw.b[L.tb_b];
+    const float* br = tw.b + L.tr_b;
+    auto a_t3 = [=](int r, int k) { return t3[r * H + k]; };
+    block_mm<T>(H, 1, tw.w + L.ts_w, 1, a_t3,
+                [=](int r, int, float acc) { tz[r * 5] = acc + bs; });
+    block_mm<T>(H, 3, tw.w + L.tr_w, 3, a_t3,
+                [=](int r, int c, float acc) { tz[r * 5 + 1 + c] = acc + br[c]; });
+    block_mm<T>(H, 1, tw.w + L.tb_w, 1, a_t3,
+                [=](int r, int, float acc) { tz[r * 5 + 4] = acc + bb; });
+  }
   __syncthreads();
 }
 
-// Frozen-field backward of the tower (mirrors _mlp_backward with
-// need_dw=False, up to the embedding). Needs the state tower_forward left
-// with keep_masks. gsig(r): cotangent of the sigma output; grf(r, c),
-// c < 3 + F: cotangent of the rgb/feature head (used when `full`). Leaves
-// the embedding cotangents in f32 in s.demb and, when `full`, in s.embd
-// (the dir embedding is not needed again). Ends with a barrier.
-template <typename T, typename GSig, typename GRf>
-__device__ void tower_backward(const Tower<T>& tw, const Smem& s, bool full, GSig gsig,
-                               GRf grf) {
+// The transient heads from their pre-activations: softplus, sigmoid x3,
+// softplus.
+__device__ __forceinline__ float transient_head(float z, int j) {
+  return (j == 0 || j == 4) ? softplus(z) : sigmoid(z);
+}
+
+// Backward of the tower (mirrors _mlp_backward up to the embedding).
+// Needs the state tower_forward left with keep_masks (and, with dW, its
+// acts). gsig(r): cotangent of the sigma output; grf(r, c), c < 3 + F:
+// of the rgb/feature head (FULL and TRANSIENT); gtr(r, j), j < 5: of the
+// transient heads (TRANSIENT). Leaves the embedding cotangents in f32 in
+// s.demb and, unless SIGMA, in s.embd (the dir embedding is not needed
+// again). With dw.part, adds the tile's weight gradients to the block's
+// partial. Ends with a barrier.
+template <typename T, typename GSig, typename GRf, typename GTr>
+__device__ void tower_backward(const Tower<T>& tw, const Smem& s, int mode, GSig gsig, GRf grf,
+                               GTr gtr, const DwOut<T>& dw) {
   const Dims& d = tw.d;
   const Layout& L = tw.L;
   const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, C = 3 + d.F, nw = W / 32;
   const T* sig_w = tw.w + L.sig_w;
+  const bool wgrad = dw.part != nullptr;
+  float* pw = dw.part;
+  float* pb = dw.part_b;
+  float* ha = s.ha;
+  // saved activation `slot` (h_slot, or final at slot == depth) into s.ha
+  auto stage = [&](int slot) {
+    const T* src = dw.acts + (size_t)slot * TR * W;
+    for (int j = threadIdx.x; j < TR * W; j += blockDim.x) ha[j] = to_f<T>(src[j]);
+  };
+  auto a_ha = [=](int r, int k) { return ha[r * W + k]; };
 
+  // dzs stays unrounded: the sigma bias gradient sums it in f32
   for (int r = threadIdx.x; r < TR; r += blockDim.x)
-    s.dzs[r] = rnd<T>(gsig(r) * sigmoid(s.zs[r]));   // softplus' = sigmoid
+    s.dzs[r] = gsig(r) * sigmoid(s.zs[r]);   // softplus' = sigmoid
   for (int i = threadIdx.x; i < TR * E; i += blockDim.x) s.demb[i] = 0.f;
   __syncthreads();
 
   float* dh = s.h0;
   float* dn = s.h1;
   const float* dzs = s.dzs;
-  if (full) {
+  auto g_sig = [=](int r, int) { return rnd<T>(dzs[r]); };
+  auto sum_sig = [=](int r, int) { return dzs[r]; };
+  if (mode != SIGMA) {
     float* dzd = s.de;   // overwritten in place: each element by its own thread
+    const float* de = s.de;
+    if (wgrad) {
+      block_dw<T>(H, C, [=](int r, int k) { return de[r * H + k]; },
+               [=](int r, int c) { return rnd<T>(grf(r, c)); }, pw + L.rgb_w);
+      block_db(C, grf, pb + L.rgb_b);
+      __syncthreads();
+    }
     block_mm<T>(C, H, tw.wt + L.rgb_w, H, [=](int r, int k) { return rnd<T>(grf(r, k)); },
                 [=](int r, int c, float acc) {
                   dzd[r * H + c] = dzd[r * H + c] > 0.f ? rnd<T>(acc) : 0.f;
                 });
+    if (mode == TRANSIENT) {
+      // head cotangents through softplus / sigmoid, in place, f32
+      float* tz = s.tz;
+      for (int i = threadIdx.x; i < TR * 5; i += blockDim.x) {
+        const int j = i % 5;
+        const float sg = sigmoid(tz[i]);
+        const float g = gtr(i / 5, j);
+        tz[i] = (j == 0 || j == 4) ? g * sg : g * sg * (1.f - sg);
+      }
+    }
     __syncthreads();
-    block_mm<T>(H, W, tw.wt + L.dir_wh, W, [=](int r, int k) { return dzd[r * H + k]; },
+
+    if (mode == TRANSIENT) {
+      float* t1 = s.t1;
+      float* t2 = s.t2;
+      float* t3 = s.t3;
+      const float* dz5 = s.tz;
+      auto a_t3 = [=](int r, int k) { return t3[r * H + k]; };
+      if (wgrad) {
+        block_dw<T>(H, 1, a_t3, [=](int r, int) { return rnd<T>(dz5[r * 5]); }, pw + L.ts_w);
+        block_dw<T>(H, 3, a_t3, [=](int r, int c) { return rnd<T>(dz5[r * 5 + 1 + c]); },
+                 pw + L.tr_w);
+        block_dw<T>(H, 1, a_t3, [=](int r, int) { return rnd<T>(dz5[r * 5 + 4]); }, pw + L.tb_w);
+        block_db(1, [=](int r, int) { return dz5[r * 5]; }, pb + L.ts_b);
+        block_db(3, [=](int r, int c) { return dz5[r * 5 + 1 + c]; }, pb + L.tr_b);
+        block_db(1, [=](int r, int) { return dz5[r * 5 + 4]; }, pb + L.tb_b);
+        __syncthreads();
+      }
+      // dt3: the three heads' products, each rounded to T, summed in T in
+      // the order sigma + rgb + beta; times relu'(t3), in place
+      {
+        const T* tsw = tw.w + L.ts_w;
+        const T* trw = tw.w + L.tr_w;
+        const T* tbw = tw.w + L.tb_w;
+        for (int i = threadIdx.x; i < TR * H; i += blockDim.x) {
+          const int r = i / H, c = i - r * H;
+          const float* g = dz5 + r * 5;
+          const float a = rnd<T>(rnd<T>(g[0]) * to_f<T>(tsw[c]));
+          float acc = 0.f;
+          for (int j = 0; j < 3; ++j) acc = fmaf(rnd<T>(g[1 + j]), to_f<T>(trw[c * 3 + j]), acc);
+          const float b = rnd<T>(acc);
+          const float e = rnd<T>(rnd<T>(g[4]) * to_f<T>(tbw[c]));
+          const float v = rnd<T>(rnd<T>(a + b) + e);
+          t3[i] = t3[i] > 0.f ? v : 0.f;
+        }
+      }
+      __syncthreads();
+      // t3 -> t2 -> t1, each: dW with the layer's input, then the input's
+      // cotangent in place of the input
+      float* tin[2] = {t2, t1};
+      const float* tout[2] = {t3, t2};
+      const int wo[2] = {L.t3_w, L.t2_w}, bo[2] = {L.t3_b, L.t2_b};
+      for (int l = 0; l < 2; ++l) {
+        float* a = tin[l];
+        const float* g = tout[l];
+        auto g_t = [=](int r, int c) { return g[r * H + c]; };
+        if (wgrad) {
+          block_dw<T>(H, H, [=](int r, int k) { return a[r * H + k]; }, g_t, pw + wo[l]);
+          block_db(H, g_t, pb + bo[l]);
+          __syncthreads();
+        }
+        block_mm<T>(H, H, tw.wt + wo[l], H, g_t, [=](int r, int c, float acc) {
+          a[r * H + c] = a[r * H + c] > 0.f ? rnd<T>(acc) : 0.f;
+        });
+        __syncthreads();
+      }
+    }
+
+    const float* embd = s.embd;
+    const float* dzt1 = s.t1;
+    auto g_d = [=](int r, int c) { return dzd[r * H + c]; };
+    auto g_t1 = [=](int r, int c) { return dzt1[r * H + c]; };
+    if (wgrad) {
+      stage(d.depth);   // final
+      __syncthreads();
+      auto a_embd = [=](int r, int k) { return embd[r * Ed + k]; };
+      block_dw<T>(W, H, a_ha, g_d, pw + L.dir_wh);
+      block_dw<T>(Ed, H, a_embd, g_d, pw + L.dir_wd);
+      block_db(H, g_d, pb + L.dir_b);
+      if (mode == TRANSIENT) {
+        block_dw<T>(W, H, a_ha, g_t1, pw + L.t1_wh);
+        block_dw<T>(Ed, H, a_embd, g_t1, pw + L.t1_wd);
+        block_db(H, g_t1, pb + L.t1_b);
+      }
+      __syncthreads();   // s.embd and s.ha are overwritten below
+    }
+    // d_final = dzd @ dir_wh^T (+ dzt1 @ t1_wh^T), each rounded, into dn;
+    // d_embd = dzd @ dir_wd^T (+ dzt1 @ t1_wd^T) in f32, into s.embd. The
+    // second product of each pair has the first one's N, so every element
+    // goes to the same thread and no barrier sits between them.
+    block_mm<T>(H, W, tw.wt + L.dir_wh, W, g_d,
                 [=](int r, int c, float acc) { dn[r * W + c] = rnd<T>(acc); });
     float* dembd = s.embd;
-    block_mm<T>(H, Ed, tw.wt + L.dir_wd, Ed, [=](int r, int k) { return dzd[r * H + k]; },
+    block_mm<T>(H, Ed, tw.wt + L.dir_wd, Ed, g_d,
                 [=](int r, int c, float acc) { dembd[r * Ed + c] = acc; });
+    if (mode == TRANSIENT) {
+      block_mm<T>(H, W, tw.wt + L.t1_wh, W, g_t1, [=](int r, int c, float acc) {
+        dn[r * W + c] = rnd<T>(dn[r * W + c] + rnd<T>(acc));
+      });
+      block_mm<T>(H, Ed, tw.wt + L.t1_wd, Ed, g_t1,
+                  [=](int r, int c, float acc) { dembd[r * Ed + c] += acc; });
+    }
+    if (wgrad) stage(d.depth - 1);
     __syncthreads();
     const float* dfin = dn;
-    block_mm<T>(W, W, tw.wt + L.fin_w, W, [=](int r, int k) { return dfin[r * W + k]; },
-                [=](int r, int c, float acc) {
-                  dh[r * W + c] = rnd<T>(rnd<T>(dzs[r] * to_f<T>(sig_w[c])) + rnd<T>(acc));
-                });
+    auto g_fin = [=](int r, int c) { return dfin[r * W + c]; };
+    if (wgrad) {
+      block_dw<T>(W, W, a_ha, g_fin, pw + L.fin_w);
+      block_db(W, g_fin, pb + L.fin_b);
+      block_dw<T>(W, 1, a_ha, g_sig, pw + L.sig_w);
+      block_db(1, sum_sig, pb + L.sig_b);
+    }
+    block_mm<T>(W, W, tw.wt + L.fin_w, W, g_fin, [=](int r, int c, float acc) {
+      dh[r * W + c] = rnd<T>(rnd<T>(rnd<T>(dzs[r]) * to_f<T>(sig_w[c])) + rnd<T>(acc));
+    });
   } else {
+    if (wgrad) {
+      stage(d.depth - 1);
+      __syncthreads();
+      block_dw<T>(W, 1, a_ha, g_sig, pw + L.sig_w);
+      block_db(1, sum_sig, pb + L.sig_b);
+    }
     for (int i = threadIdx.x; i < TR * W; i += blockDim.x)
-      dh[i] = rnd<T>(dzs[i / W] * to_f<T>(sig_w[i % W]));
+      dh[i] = rnd<T>(rnd<T>(dzs[i / W]) * to_f<T>(sig_w[i % W]));
   }
   __syncthreads();
 
   float* demb = s.demb;
+  const float* emb = s.emb;
+  auto a_emb = [=](int r, int k) { return emb[r * E + k]; };
   for (int i = d.depth - 1; i >= 0; --i) {
+    if (wgrad && i > 0) {
+      stage(i - 1);
+      __syncthreads();
+    }
     const uint32_t* m = s.mask + (size_t)i * TR * nw;
     const float* g = dh;
     auto dz = [=](int r, int k) {
       return (m[r * nw + (k >> 5)] >> (k & 31)) & 1u ? g[r * W + k] : 0.f;
     };
+    if (wgrad) {
+      if (i == 0) {
+        block_dw<T>(E, W, a_emb, dz, pw + L.we[0]);
+      } else {
+        block_dw<T>(W, W, a_ha, dz, pw + L.wh[i]);
+        if ((d.skipmask >> i) & 1) block_dw<T>(E, W, a_emb, dz, pw + L.we[i]);
+      }
+      block_db(W, dz, pb + L.b[i]);
+    }
     auto add_emb = [=](int r, int c, float acc) { demb[r * E + c] += acc; };
     if (i == 0) {
       block_mm<T>(W, E, tw.wt + L.we[0], E, dz, add_emb);
@@ -583,5 +969,11 @@ __device__ void tower_backward(const Tower<T>& tw, const Smem& s, bool full, GSi
   }
   __syncthreads();
 }
+
+// A tower_backward gradient source that is never read (the render
+// kernels run in FULL mode without transient heads).
+struct NoGrad {
+  __device__ float operator()(int, int) const { return 0.f; }
+};
 
 }  // namespace nefes

@@ -170,10 +170,15 @@ class FusionNet(nn.Module):
         return F.conv2d(h, conv.weight.to(dt), conv.bias.to(dt),
                         padding=conv.padding)
 
-    def forward(self, x: torch.Tensor,
-                use_batch_stats: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_batch_stats: bool = False,
+                train: bool = False):
         """use_batch_stats: normalise with this input's batch statistics
-        (running averages left untouched) instead of the running ones."""
+        (running averages left untouched) instead of the running ones.
+        train: normalise with the batch statistics and return (h, the
+        running averages flax's BatchNorm(momentum=0.9) stores after this
+        batch, {"running_mean", "running_var"} detached, or None without
+        BN); the caller applies them (train_step_patch does, after the
+        step), as the JAX step persists its new batch_stats."""
         mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
         std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
         rgb = (x[..., :3] - mean) / std
@@ -183,16 +188,37 @@ class FusionNet(nn.Module):
         h = torch.relu(self._conv(self.conv1, h))
         h = torch.relu(self._conv(self.conv2, h))
         h = self._conv(self.conv3, h)
+        new_stats = None
         if not self.no_bn:
-            # statistics in f32, output in the compute dtype (flax's
-            # float32 reductions)
             bn = self.bn
-            h = F.batch_norm(
-                h.float(), None if use_batch_stats else bn.running_mean,
-                None if use_batch_stats else bn.running_var,
-                bn.weight, bn.bias, training=use_batch_stats,
-                eps=bn.eps).to(self.dtype)
+            if use_batch_stats or train:
+                h, mean_b, var_b = self._batch_norm(h)
+                if train:
+                    m = 0.9
+                    new_stats = {
+                        "running_mean": (m * bn.running_mean
+                                         + (1 - m) * mean_b).detach(),
+                        "running_var": (m * bn.running_var
+                                        + (1 - m) * var_b).detach()}
+            else:
+                h = F.batch_norm(h.float(), bn.running_mean, bn.running_var,
+                                 bn.weight, bn.bias, training=False,
+                                 eps=bn.eps).to(self.dtype)
         h = h.float().permute(0, 2, 3, 1)                          # NHWC
         if self.residual:
             h = x[..., 3:] + h
-        return h
+        return (h, new_stats) if train else h
+
+    def _batch_norm(self, h: torch.Tensor):
+        """flax BatchNorm with batch statistics: mean and the biased
+        variance E[h^2] - E[h]^2 (clipped at 0) in f32, over N, H, W;
+        output in the compute dtype. Returns (out, mean, var)."""
+        bn = self.bn
+        hf = h.float()
+        axes = (0, 2, 3)
+        mean = hf.mean(axes)
+        var = torch.clamp_min((hf * hf).mean(axes) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        out = (hf - mean[:, None, None]) * mul[:, None, None] \
+            + bn.bias[:, None, None]
+        return out.to(self.dtype), mean, var

@@ -111,9 +111,12 @@ def build_log(name: str, emulate: bool = False) -> str:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "nefes_field_fwd_pre": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _P, _P, _P, _P],
+                            _I, _P, _P, _P, _P, _P],
     "nefes_field_bwd_pre": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _P, _P, _P, _P, _P, _P],
+                            _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                            _P, _P],
+    "nefes_field_dw_scratch": [_I, _I],
+    "nefes_field_dw_reduce": [_I, _I, _P, _P, _P],
     "nefes_render_fwd_pre": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _P, _P],
     "nefes_render_bwd_pre": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,

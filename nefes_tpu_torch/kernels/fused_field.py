@@ -5,13 +5,13 @@ on pre-embedded inputs (K1, K2) or on raw points and directions (K5, K6).
   K1 field_fwd_pre  replaces nefes_tpu/kernels/fused_field.py:_run_fwd_pre
                     (_fwd_kernel_pre, _tower_tile)
   K2 field_bwd_pre  replaces _run_bwd_pre (_bwd_kernel_pre, _mlp_backward
-                    with pre=True) for the frozen field (need_dw=False):
-                    it recomputes the tower and returns only the embedding
-                    cotangents
+                    with pre=True): it recomputes the tower and returns the
+                    embedding cotangents and, with need_dw, the weights'
   K5 field_fwd      replaces _run_fwd (_fwd_kernel, _embed_block): the
                     frequency embedding computed in the kernel, heads in f32
   K6 field_bwd      replaces _run_bwd (_bwd_kernel, _mlp_backward with
-                    pre=False) for the frozen field: d_pts, d_dirs in f32
+                    pre=False): d_pts, d_dirs in f32 and, with need_dw, the
+                    weights' gradients
 
 All four follow _tower_tile's rounding points: hidden layers accumulate in
 f32 and round to the pack dtype, then take the bias and the ReLU in the
@@ -19,16 +19,21 @@ pack dtype; the heads accumulate in f32. K1/K2 write heads and embedding
 cotangents in the pack dtype, K5/K6 (as the TPU kernels) take and give f32.
 K5/K6 embed in f32 (exact phases x·2^k, full-precision sin/cos, rounded to
 the pack dtype) in the reference channel order, so all kernels read the one
-PackedField layout. Each wrapper runs its kernel for a CUDA tensor and its
-plain version for a CPU tensor; it counts kernel launches in
-``<wrapper>.launches``. Modes: "sigma" (coarse pass at test time) and
-"full" (sigma + rgb + features). The transient heads ("transient" mode)
-and the weight gradients (need_dw=True) are not in these kernels.
+PackedField layout. Modes: "sigma" (coarse pass at test time), "full"
+(sigma + rgb + features) and "transient" (full + the NeRF-W transient
+heads of the fine tower, at train time). With need_dw (training) the
+backward also gives each packed weight's gradient, f32 like the TPU
+kernel's, and the autograd Function hands it, cast to the pack dtype as
+JAX does, to the blobs, which pack_params builds with autograd from the
+nn.Linear parameters. Each wrapper runs its kernel for a CUDA tensor and
+its plain version for a CPU tensor; it counts kernel launches in
+``<wrapper>.launches`` (K1/K5 also ``.transient_launches``, K2/K6
+``.dw_launches`` for those variants).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 
 import torch
 
@@ -37,6 +42,10 @@ from nefes_tpu_torch.kernels import build
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# modes of the kernels (csrc/tower.cuh Mode); True / False read as FULL /
+# SIGMA
+SIGMA, FULL, TRANSIENT = 0, 1, 2
+TILE_ROWS = 64      # samples per tower tile (csrc/tower.cuh TR)
 
 
 @dataclass(frozen=True)
@@ -107,15 +116,25 @@ def weight_names(spec: FieldSpec) -> list[str]:
     return names
 
 
+def matrix_names(spec: FieldSpec) -> list[str]:
+    return [n for n in weight_names(spec) if not n.endswith("_b")]
+
+
+def bias_names(spec: FieldSpec) -> list[str]:
+    return [n for n in weight_names(spec) if n.endswith("_b")]
+
+
 @dataclass(frozen=True)
 class PackedField:
-    """Frozen tower weights as the kernels read them.
+    """Tower weights as the kernels read them.
 
     weights: name -> tensor in weight_names order; matrices (in, out) in
-    the pack dtype, biases (out,) f32. w / wt: every matrix of the static
-    tower (no transient heads), in weight_names order, flattened into one
-    blob, (in, out) and transposed (out, in) at the same offsets. b: the
-    static biases in one f32 blob."""
+    the pack dtype, biases (out,) f32. w / wt: every matrix, in
+    weight_names order (the transient ones, when the tower has them,
+    after every static one), flattened into one blob, (in, out) and
+    transposed (out, in) at the same offsets. b: the biases in one f32
+    blob. Built with autograd from the tower's parameters, so a gradient
+    of w and b reaches them."""
 
     spec: FieldSpec
     weights: dict
@@ -125,8 +144,11 @@ class PackedField:
 
 
 def pack_params(tower, spec: FieldSpec) -> PackedField:
-    """A torch NeRFHNFF -> PackedField. Linear weights (out, in) become
-    (in, out) matrices; the skip and dir layers (one Linear over a concat)
+    """A torch NeRFHNFF -> PackedField, differentiable in the tower's
+    parameters (the JAX package's pack_params is too): pack once per
+    training step; a frozen-field refinement packs once, under
+    torch.no_grad(). Linear weights (out, in) become (in, out) matrices;
+    the skip, dir and first transient layers (one Linear over a concat)
     are split into their row blocks. The rows keep the reference embedding
     order, the only layout the kernels read (the raw-input kernels embed in
     that order; the TPU package permutes rows for its raw kernels)."""
@@ -134,10 +156,10 @@ def pack_params(tower, spec: FieldSpec) -> PackedField:
     E, W = spec.emb_xyz, spec.width
 
     def k(name):
-        return getattr(tower, name).weight.detach().t()
+        return getattr(tower, name).weight.t()
 
     def b(name):
-        return getattr(tower, name).bias.detach().float().contiguous()
+        return getattr(tower, name).bias.float()
 
     out = {}
     for i in range(spec.depth):
@@ -165,15 +187,14 @@ def pack_params(tower, spec: FieldSpec) -> PackedField:
                      ("ts", "transient_sigma"), ("tr", "transient_rgb"),
                      ("tb", "transient_beta")):
             out[f"{n}_w"], out[f"{n}_b"] = k(m), b(m)
-    weights = {n: (v if n.endswith("_b") else v.to(dt).contiguous())
+    weights = {n: (v if n.endswith("_b") else v.to(dt))
                for n, v in out.items()}
-    static = weight_names(replace(spec, transient=False))
-    mats = [weights[n] for n in static if not n.endswith("_b")]
+    mats = [weights[n] for n in matrix_names(spec)]
     return PackedField(
         spec=spec, weights=weights,
         w=torch.cat([m.reshape(-1) for m in mats]),
         wt=torch.cat([m.t().reshape(-1) for m in mats]),
-        b=torch.cat([weights[n] for n in static if n.endswith("_b")]))
+        b=torch.cat([weights[n] for n in bias_names(spec)]))
 
 
 # --------------------------------------------------------------------------
@@ -192,11 +213,12 @@ def _mm_t(g: torch.Tensor, w: torch.Tensor, cd=None) -> torch.Tensor:
     return out if cd is None else out.to(cd)
 
 
-def tower_plain(p: PackedField, full: bool, emb: torch.Tensor,
+def tower_plain(p: PackedField, mode: int, emb: torch.Tensor,
                 embd: torch.Tensor | None):
     """_tower_tile on pre-embedded inputs in the pack dtype: returns
     (zs (N,) f32 sigma pre-activation, rgbfeat (N, 3+F) f32 | None,
-    activations for the backward)."""
+    activations for the backward; in TRANSIENT mode acts["tz"] holds the
+    transient heads' pre-activations (N, 5) f32)."""
     spec, w = p.spec, p.weights
     cd = spec.torch_dtype
     acts = {"emb": emb}
@@ -209,71 +231,143 @@ def tower_plain(p: PackedField, full: bool, emb: torch.Tensor,
         acts[f"h{i}"] = h
     zs = (_mm(h, w["sig_w"]) + w["sig_b"])[:, 0]
     acts["zs"] = zs
-    if not full:
+    if mode == SIGMA:
         return zs, None, acts
     final = _mm(h, w["fin_w"], cd) + w["fin_b"].to(cd)
     zd = (_mm(final, w["dir_wh"], cd) + _mm(embd, w["dir_wd"], cd)
           + w["dir_b"].to(cd))
     de = torch.relu(zd)
-    acts["final"], acts["de"] = final, de
+    acts.update(final=final, de=de, embd=embd)
+    if mode == TRANSIENT:
+        t = torch.relu(_mm(final, w["t1_wh"], cd) + _mm(embd, w["t1_wd"], cd)
+                       + w["t1_b"].to(cd))
+        acts["t1"] = t
+        for n in ("t2", "t3"):
+            t = torch.relu(_mm(t, w[f"{n}_w"], cd) + w[f"{n}_b"].to(cd))
+            acts[n] = t
+        acts["tz"] = torch.cat([_mm(t, w[f"{n}_w"]) + w[f"{n}_b"]
+                                for n in ("ts", "tr", "tb")], dim=1)
     return zs, _mm(de, w["rgb_w"]) + w["rgb_b"], acts
 
 
-def tower_backward_plain(p: PackedField, full: bool, acts: dict,
+def tower_backward_plain(p: PackedField, mode: int, acts: dict,
                          g_sigma: torch.Tensor,
-                         g_rgbfeat: torch.Tensor | None):
-    """_mlp_backward with pre=True and need_dw=False. g_sigma (N,) is the
-    cotangent of softplus(zs), g_rgbfeat (N, 3+F) that of the rgb/feature
-    head. Returns (d_emb (N, E) f32, d_embd (N, Ed) f32 | None)."""
+                         g_rgbfeat: torch.Tensor | None,
+                         g_trans: torch.Tensor | None = None,
+                         need_dw: bool = False):
+    """_mlp_backward with pre=True. g_sigma (N,) is the cotangent of
+    softplus(zs), g_rgbfeat (N, 3+F) that of the rgb/feature head, g_trans
+    (N, 5) that of the transient heads. Returns (d_emb (N, E) f32, d_embd
+    (N, Ed) f32 | None, dw): with need_dw, dw is every packed weight's
+    gradient, f32, in the blob order (the matrices, flattened, then the
+    biases), else None. A weight's gradient is act^T · g with g rounded to
+    the pack dtype, a bias's the f32 sum of g (_mlp_backward's dmat)."""
     spec, w = p.spec, p.weights
     cd = spec.torch_dtype
+    dws = {}
+
+    def dw_only(g, act, wname, bname=None):
+        if need_dw:
+            dws[wname] = _mm(act.t(), g.to(cd))
+            if bname:
+                dws[bname] = g.float().sum(0)
+
+    def dmat(g, act, wname, bname):
+        dw_only(g, act, wname, bname)
+        return _mm_t(g.to(cd), w[wname], cd)
+
+    h_last = acts[f"h{spec.depth - 1}"]
     dzs = g_sigma.float() * torch.sigmoid(acts["zs"])        # softplus'
-    dh = _mm_t(dzs[:, None].to(cd), w["sig_w"], cd)
+    dh = dmat(dzs[:, None], h_last, "sig_w", "sig_b")
     d_embd = None
-    if full:
-        dde = _mm_t(g_rgbfeat.to(cd), w["rgb_w"], cd)
+    if mode != SIGMA:
+        dde = dmat(g_rgbfeat.float(), acts["de"], "rgb_w", "rgb_b")
         dzd = dde * (acts["de"] > 0)
-        d_final = _mm_t(dzd, w["dir_wh"], cd)
+        d_final = dmat(dzd, acts["final"], "dir_wh", "dir_b")
+        dw_only(dzd, acts["embd"], "dir_wd")
         d_embd = _mm_t(dzd, w["dir_wd"])
-        dh = dh + _mm_t(d_final, w["fin_w"], cd)
+        if mode == TRANSIENT:
+            g, tz = g_trans.float(), acts["tz"]
+            s = torch.sigmoid(tz)
+            dz5 = torch.cat([g[:, :1] * s[:, :1],
+                             g[:, 1:4] * s[:, 1:4] * (1.0 - s[:, 1:4]),
+                             g[:, 4:] * s[:, 4:]], dim=1)
+            t3 = acts["t3"]
+            dt = (dmat(dz5[:, :1], t3, "ts_w", "ts_b")
+                  + dmat(dz5[:, 1:4], t3, "tr_w", "tr_b")
+                  + dmat(dz5[:, 4:], t3, "tb_w", "tb_b"))
+            for n, prev in (("t3", "t2"), ("t2", "t1")):
+                dt = dmat(dt * (acts[n] > 0), acts[prev], f"{n}_w", f"{n}_b")
+            dzt1 = dt * (acts["t1"] > 0)
+            d_final = d_final + dmat(dzt1, acts["final"], "t1_wh", "t1_b")
+            dw_only(dzt1, acts["embd"], "t1_wd")
+            d_embd = d_embd + _mm_t(dzt1, w["t1_wd"])
+        dh = dh + dmat(d_final, h_last, "fin_w", "fin_b")
     d_emb = torch.zeros(acts["emb"].shape, dtype=torch.float32,
                         device=dh.device)
     for i in range(spec.depth - 1, -1, -1):
         dz = dh * (acts[f"h{i}"] > 0)
         if i == 0:
+            dw_only(dz, acts["emb"], "l0_we", "l0_b")
             d_emb = d_emb + _mm_t(dz, w["l0_we"])
         else:
-            dh = _mm_t(dz, w[f"l{i}_wh"], cd)
+            dh = dmat(dz, acts[f"h{i - 1}"], f"l{i}_wh", f"l{i}_b")
             if i in spec.skips:
+                dw_only(dz, acts["emb"], f"l{i}_we")
                 d_emb = d_emb + _mm_t(dz, w[f"l{i}_we"])
-    return d_emb, d_embd
+    if not need_dw:
+        return d_emb, d_embd, None
+    flat = [dws[n].reshape(-1) if n in dws
+            else torch.zeros(w[n].numel(), device=dh.device)
+            for n in matrix_names(spec) + bias_names(spec)]
+    return d_emb, d_embd, torch.cat(flat)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def field_fwd_pre_plain(p: PackedField, full: bool, emb: torch.Tensor,
+def _transient_heads(tz: torch.Tensor) -> torch.Tensor:
+    """[softplus, sigmoid x3, softplus] of the (N, 5) pre-activations."""
+    return torch.cat([_softplus(tz[:, :1]), torch.sigmoid(tz[:, 1:4]),
+                      _softplus(tz[:, 4:])], dim=1)
+
+
+def _heads_plain(p: PackedField, mode: int, emb, embd, hd):
+    """(sigma (N,), rgb (N, 3) | None, feat (N, F) | None, transient (N, 5)
+    | None), all in hd."""
+    zs, rf, acts = tower_plain(p, mode, emb, embd)
+    sigma = _softplus(zs).to(hd)
+    if mode == SIGMA:
+        return sigma, None, None, None
+    trans = (_transient_heads(acts["tz"]).to(hd) if mode == TRANSIENT
+             else None)
+    return sigma, rf[:, :3].to(hd), rf[:, 3:].to(hd), trans
+
+
+def _cotangents(mode: int, g_rgb, g_feat, g_trans):
+    g_rf = torch.cat([g_rgb, g_feat], dim=1) if mode != SIGMA else None
+    return g_rf, (g_trans if mode == TRANSIENT else None)
+
+
+def field_fwd_pre_plain(p: PackedField, mode: int, emb: torch.Tensor,
                         embd: torch.Tensor | None):
-    """K1's function: (sigma (N,), rgb (N, 3) | None, feat (N, F) | None),
-    all in the pack dtype."""
-    cd = p.spec.torch_dtype
-    zs, rf, _ = tower_plain(p, full, emb, embd)
-    sigma = _softplus(zs).to(cd)
-    if not full:
-        return sigma, None, None
-    return sigma, rf[:, :3].to(cd), rf[:, 3:].to(cd)
+    """K1's function: (sigma (N,), rgb (N, 3) | None, feat (N, F) | None,
+    transient (N, 5) | None), all in the pack dtype."""
+    return _heads_plain(p, mode, emb, embd, p.spec.torch_dtype)
 
 
-def field_bwd_pre_plain(p: PackedField, full: bool, emb, embd, g_sigma,
-                        g_rgb, g_feat):
+def field_bwd_pre_plain(p: PackedField, mode: int, emb, embd, g_sigma,
+                        g_rgb, g_feat, g_trans=None, need_dw=False):
     """K2's function: recompute the tower, backprop the head cotangents
-    (pack dtype) to (d_emb, d_embd | None) in the pack dtype."""
+    (pack dtype) to (d_emb, d_embd | None) in the pack dtype, and with
+    need_dw the weights' f32 gradients in blob order (else None)."""
     cd = p.spec.torch_dtype
-    _, _, acts = tower_plain(p, full, emb, embd)
-    g_rf = torch.cat([g_rgb, g_feat], dim=1) if full else None
-    d_emb, d_embd = tower_backward_plain(p, full, acts, g_sigma, g_rf)
-    return d_emb.to(cd), (d_embd.to(cd) if full else None)
+    _, _, acts = tower_plain(p, mode, emb, embd)
+    d_emb, d_embd, dw = tower_backward_plain(
+        p, mode, acts, g_sigma, *_cotangents(mode, g_rgb, g_feat, g_trans),
+        need_dw=need_dw)
+    return (d_emb.to(cd), (d_embd.to(cd) if mode != SIGMA else None), dw)
 
 
 def embed_plain(x: torch.Tensor, n_freqs: int, cd) -> torch.Tensor:
@@ -295,35 +389,34 @@ def embed_backward_plain(d_e: torch.Tensor, x: torch.Tensor,
     return out
 
 
-def _embed_raw(p: PackedField, full: bool, pts, dirs):
+def _embed_raw(p: PackedField, full, pts, dirs):
     spec, cd = p.spec, p.spec.torch_dtype
     emb = embed_plain(pts, spec.n_freqs_xyz, cd)
     return emb, (embed_plain(dirs, spec.n_freqs_dir, cd) if full else None)
 
 
-def field_fwd_plain(p: PackedField, full: bool, pts: torch.Tensor,
+def field_fwd_plain(p: PackedField, mode: int, pts: torch.Tensor,
                     dirs: torch.Tensor | None):
     """K5's function: pts, dirs (N, 3) f32 -> (sigma (N,), rgb (N, 3) |
-    None, feat (N, F) | None), all f32."""
-    zs, rf, _ = tower_plain(p, full, *_embed_raw(p, full, pts, dirs))
-    sigma = _softplus(zs)
-    if not full:
-        return sigma, None, None
-    return sigma, rf[:, :3], rf[:, 3:]
+    None, feat (N, F) | None, transient (N, 5) | None), all f32."""
+    return _heads_plain(p, mode, *_embed_raw(p, mode, pts, dirs),
+                        torch.float32)
 
 
-def field_bwd_plain(p: PackedField, full: bool, pts, dirs, g_sigma, g_rgb,
-                    g_feat):
+def field_bwd_plain(p: PackedField, mode: int, pts, dirs, g_sigma, g_rgb,
+                    g_feat, g_trans=None, need_dw=False):
     """K6's function: recompute the tower, backprop the f32 head
-    cotangents to (d_pts (N, 3), d_dirs (N, 3) | None) in f32."""
+    cotangents to (d_pts (N, 3), d_dirs (N, 3) | None) in f32, and with
+    need_dw the weights' f32 gradients in blob order (else None)."""
     spec = p.spec
-    _, _, acts = tower_plain(p, full, *_embed_raw(p, full, pts, dirs))
-    g_rf = torch.cat([g_rgb, g_feat], dim=1) if full else None
-    d_emb, d_embd = tower_backward_plain(p, full, acts, g_sigma, g_rf)
+    _, _, acts = tower_plain(p, mode, *_embed_raw(p, mode, pts, dirs))
+    d_emb, d_embd, dw = tower_backward_plain(
+        p, mode, acts, g_sigma, *_cotangents(mode, g_rgb, g_feat, g_trans),
+        need_dw=need_dw)
     d_pts = embed_backward_plain(d_emb, pts, spec.n_freqs_xyz)
-    if not full:
-        return d_pts, None
-    return d_pts, embed_backward_plain(d_embd, dirs, spec.n_freqs_dir)
+    if mode == SIGMA:
+        return d_pts, None, dw
+    return d_pts, embed_backward_plain(d_embd, dirs, spec.n_freqs_dir), dw
 
 
 # --------------------------------------------------------------------------
@@ -357,6 +450,16 @@ def check_packed(p: PackedField, device: torch.device) -> None:
     check(p.b, "b", p.b.shape, torch.float32, device)
 
 
+def _check_mode(p: PackedField, mode: int) -> int:
+    mode = int(mode)
+    if mode not in (SIGMA, FULL, TRANSIENT):
+        raise ValueError(f"mode {mode}")
+    if mode == TRANSIENT and not p.spec.transient:
+        raise ValueError("transient mode needs a tower packed with its "
+                         "transient heads (the fine tower)")
+    return mode
+
+
 def dims(spec: FieldSpec) -> tuple:
     return (spec.depth, spec.width, spec.skipmask, spec.emb_xyz,
             spec.emb_dir, spec.feature_dim)
@@ -371,143 +474,208 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def field_fwd_pre(p: PackedField, full: bool, emb: torch.Tensor,
+def _fwd_outputs(spec: FieldSpec, mode: int, n: int, hd, dev):
+    """Empty (sigma, rgb, feat, transient) for the heads of `mode`."""
+    def e(*shape):
+        return torch.empty(shape, dtype=hd, device=dev)
+    return (e(n), e(n, 3) if mode else None,
+            e(n, spec.feature_dim) if mode else None,
+            e(n, 5) if mode == TRANSIENT else None)
+
+
+def _check_cotangents(spec, mode, n, hd, dev, g_sigma, g_rgb, g_feat,
+                      g_trans):
+    check(g_sigma, "g_sigma", (n,), hd, dev)
+    if mode != SIGMA:
+        check(g_rgb, "g_rgb", (n, 3), hd, dev)
+        check(g_feat, "g_feat", (n, spec.feature_dim), hd, dev)
+    if mode == TRANSIENT:
+        check(g_trans, "g_trans", (n, 5), hd, dev)
+
+
+def _dw_buffers(lib, p: PackedField, n: int, dev):
+    """(slices, nw, nb, zeroed f32 partials (slices, nw + nb), activation
+    scratch) for a backward with dW: one block per SM (a block of the
+    backward takes most of an SM's shared memory), at most one per
+    tile."""
+    spec = p.spec
+    n_tiles = -(-n // TILE_ROWS)
+    slices = min(n_tiles,
+                 torch.cuda.get_device_properties(dev).multi_processor_count)
+    nw, nb = p.w.numel(), p.b.numel()
+    part = torch.zeros((slices, nw + nb), dtype=torch.float32, device=dev)
+    acts = torch.empty(slices * lib.nefes_field_dw_scratch(spec.depth,
+                                                           spec.width),
+                       dtype=spec.torch_dtype, device=dev)
+    return slices, nw, nb, part, acts
+
+
+def _dw_reduce(lib, part: torch.Tensor) -> torch.Tensor:
+    out = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
+    err = lib.nefes_field_dw_reduce(part.shape[0], part.shape[1],
+                                    part.data_ptr(), out.data_ptr(),
+                                    _stream())
+    raise_on(err, "field_dw_reduce")
+    return out
+
+
+def _launch_fwd(wrapper, fn, p, mode, x, dirs, hd):
+    spec, dev, n = p.spec, x.device, x.shape[0]
+    outs = _fwd_outputs(spec, mode, n, hd, dev)
+    err = fn(_DTYPE_CODE[spec.torch_dtype], mode, n, x.data_ptr(), _ptr(dirs),
+             p.w.data_ptr(), p.b.data_ptr(), *dims(spec),
+             *[_ptr(o) for o in outs], _stream())
+    wrapper.launches += 1
+    if mode == TRANSIENT:
+        wrapper.transient_launches += 1
+    raise_on(err, wrapper.__name__)
+    return outs
+
+
+def _launch_bwd(wrapper, fn, p, mode, x, dirs, g, dx_w, ddirs_w, dx_dtype,
+                need_dw):
+    """Allocate, launch K2/K6 (and the dW reduction), count."""
+    spec, dev, n = p.spec, x.device, x.shape[0]
+    lib = build.library("fused_field")
+    dx = torch.empty((n, dx_w), dtype=dx_dtype, device=dev)
+    ddirs = (torch.empty((n, ddirs_w), dtype=dx_dtype, device=dev)
+             if mode != SIGMA else None)
+    slices = nw = nb = 0
+    part = acts = None
+    if need_dw:
+        slices, nw, nb, part, acts = _dw_buffers(lib, p, n, dev)
+    err = fn(_DTYPE_CODE[spec.torch_dtype], mode, n, x.data_ptr(), _ptr(dirs),
+             p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(), *dims(spec),
+             *[_ptr(v) for v in g], dx.data_ptr(), _ptr(ddirs), slices, nw,
+             nb, _ptr(part), _ptr(acts), _stream())
+    wrapper.launches += 1
+    if mode == TRANSIENT:
+        wrapper.transient_launches += 1
+    if need_dw:
+        wrapper.dw_launches += 1
+    raise_on(err, wrapper.__name__)
+    return dx, ddirs, (_dw_reduce(lib, part) if need_dw else None)
+
+
+def _kernel_device(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (run the kernel), False for a CPU one (run
+    the plain version); other devices have no kernel."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return True
+
+
+def field_fwd_pre(p: PackedField, mode: int, emb: torch.Tensor,
                   embd: torch.Tensor | None):
-    """K1: the tower forward. emb (N, E), embd (N, Ed) in the pack dtype.
-    The kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if emb.device.type == "cpu":
-        return field_fwd_pre_plain(p, full, emb, embd)
-    if emb.device.type != "cuda":
-        raise ValueError(f"no kernel for device {emb.device}")
+    """K1: the tower forward. emb (N, E), embd (N, Ed) in the pack dtype;
+    returns (sigma, rgb, feat, transient (N, 5)), those of `mode`, in the
+    pack dtype. The kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    mode = _check_mode(p, mode)
+    if not _kernel_device(emb):
+        return field_fwd_pre_plain(p, mode, emb, embd)
     spec, dev, cd = p.spec, emb.device, p.spec.torch_dtype
     n = emb.shape[0]
     check_packed(p, dev)
     check(emb, "emb", (n, spec.emb_xyz), cd, dev)
-    if full:
+    if mode != SIGMA:
         check(embd, "embd", (n, spec.emb_dir), cd, dev)
-    sigma = torch.empty(n, dtype=cd, device=dev)
-    rgb = torch.empty((n, 3), dtype=cd, device=dev) if full else None
-    feat = (torch.empty((n, spec.feature_dim), dtype=cd, device=dev)
-            if full else None)
     lib = build.library("fused_field")
-    err = lib.nefes_field_fwd_pre(
-        _DTYPE_CODE[cd], int(full), n, emb.data_ptr(), _ptr(embd),
-        p.w.data_ptr(), p.b.data_ptr(), *dims(spec), sigma.data_ptr(),
-        _ptr(rgb), _ptr(feat), _stream())
-    field_fwd_pre.launches += 1
-    raise_on(err, "field_fwd_pre")
-    return sigma, rgb, feat
+    return _launch_fwd(field_fwd_pre, lib.nefes_field_fwd_pre, p, mode, emb,
+                       embd, cd)
 
 
-def field_bwd_pre(p: PackedField, full: bool, emb, embd, g_sigma, g_rgb,
-                  g_feat):
+def field_bwd_pre(p: PackedField, mode: int, emb, embd, g_sigma, g_rgb,
+                  g_feat, g_trans=None, need_dw=False):
     """K2: recompute the tower and backprop the head cotangents (pack
-    dtype) to (d_emb, d_embd | None) in the pack dtype."""
-    if emb.device.type == "cpu":
-        return field_bwd_pre_plain(p, full, emb, embd, g_sigma, g_rgb,
-                                   g_feat)
-    if emb.device.type != "cuda":
-        raise ValueError(f"no kernel for device {emb.device}")
+    dtype) to (d_emb, d_embd | None) in the pack dtype and, with need_dw,
+    the weights' f32 gradients in blob order (else None)."""
+    mode = _check_mode(p, mode)
+    if not _kernel_device(emb):
+        return field_bwd_pre_plain(p, mode, emb, embd, g_sigma, g_rgb,
+                                   g_feat, g_trans, need_dw)
     spec, dev, cd = p.spec, emb.device, p.spec.torch_dtype
     n = emb.shape[0]
     check_packed(p, dev)
     check(emb, "emb", (n, spec.emb_xyz), cd, dev)
-    check(g_sigma, "g_sigma", (n,), cd, dev)
-    if full:
+    if mode != SIGMA:
         check(embd, "embd", (n, spec.emb_dir), cd, dev)
-        check(g_rgb, "g_rgb", (n, 3), cd, dev)
-        check(g_feat, "g_feat", (n, spec.feature_dim), cd, dev)
-    d_emb = torch.empty((n, spec.emb_xyz), dtype=cd, device=dev)
-    d_embd = (torch.empty((n, spec.emb_dir), dtype=cd, device=dev)
-              if full else None)
+    g = (g_sigma, g_rgb, g_feat, g_trans)
+    _check_cotangents(spec, mode, n, cd, dev, *g)
     lib = build.library("fused_field")
-    err = lib.nefes_field_bwd_pre(
-        _DTYPE_CODE[cd], int(full), n, emb.data_ptr(), _ptr(embd),
-        p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(), *dims(spec),
-        g_sigma.data_ptr(), _ptr(g_rgb), _ptr(g_feat), d_emb.data_ptr(),
-        _ptr(d_embd), _stream())
-    field_bwd_pre.launches += 1
-    raise_on(err, "field_bwd_pre")
-    return d_emb, d_embd
+    return _launch_bwd(field_bwd_pre, lib.nefes_field_bwd_pre, p, mode, emb,
+                       embd, g, spec.emb_xyz, spec.emb_dir, cd, need_dw)
 
 
-def field_fwd(p: PackedField, full: bool, pts: torch.Tensor,
+def field_fwd(p: PackedField, mode: int, pts: torch.Tensor,
               dirs: torch.Tensor | None):
     """K5: the tower forward on raw pts, dirs (N, 3) f32, embedding in the
-    kernel; heads in f32. The kernel on a CUDA tensor, the plain version on
-    a CPU tensor."""
-    if pts.device.type == "cpu":
-        return field_fwd_plain(p, full, pts, dirs)
-    if pts.device.type != "cuda":
-        raise ValueError(f"no kernel for device {pts.device}")
+    kernel; heads (sigma, rgb, feat, transient (N, 5)), those of `mode`,
+    in f32. The kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    mode = _check_mode(p, mode)
+    if not _kernel_device(pts):
+        return field_fwd_plain(p, mode, pts, dirs)
     spec, dev, f32 = p.spec, pts.device, torch.float32
     n = pts.shape[0]
     check_packed(p, dev)
     check(pts, "pts", (n, 3), f32, dev)
-    if full:
+    if mode != SIGMA:
         check(dirs, "dirs", (n, 3), f32, dev)
-    sigma = torch.empty(n, dtype=f32, device=dev)
-    rgb = torch.empty((n, 3), dtype=f32, device=dev) if full else None
-    feat = (torch.empty((n, spec.feature_dim), dtype=f32, device=dev)
-            if full else None)
     lib = build.library("fused_field")
-    err = lib.nefes_field_fwd_raw(
-        _DTYPE_CODE[spec.torch_dtype], int(full), n, pts.data_ptr(),
-        _ptr(dirs), p.w.data_ptr(), p.b.data_ptr(), *dims(spec),
-        sigma.data_ptr(), _ptr(rgb), _ptr(feat), _stream())
-    field_fwd.launches += 1
-    raise_on(err, "field_fwd")
-    return sigma, rgb, feat
+    return _launch_fwd(field_fwd, lib.nefes_field_fwd_raw, p, mode, pts,
+                       dirs, f32)
 
 
-def field_bwd(p: PackedField, full: bool, pts, dirs, g_sigma, g_rgb,
-              g_feat):
+def field_bwd(p: PackedField, mode: int, pts, dirs, g_sigma, g_rgb, g_feat,
+              g_trans=None, need_dw=False):
     """K6: recompute the tower on raw inputs and backprop the f32 head
-    cotangents to (d_pts (N, 3), d_dirs (N, 3) | None) in f32."""
-    if pts.device.type == "cpu":
-        return field_bwd_plain(p, full, pts, dirs, g_sigma, g_rgb, g_feat)
-    if pts.device.type != "cuda":
-        raise ValueError(f"no kernel for device {pts.device}")
+    cotangents to (d_pts (N, 3), d_dirs (N, 3) | None) in f32 and, with
+    need_dw, the weights' f32 gradients in blob order (else None)."""
+    mode = _check_mode(p, mode)
+    if not _kernel_device(pts):
+        return field_bwd_plain(p, mode, pts, dirs, g_sigma, g_rgb, g_feat,
+                               g_trans, need_dw)
     spec, dev, f32 = p.spec, pts.device, torch.float32
     n = pts.shape[0]
     check_packed(p, dev)
     check(pts, "pts", (n, 3), f32, dev)
-    check(g_sigma, "g_sigma", (n,), f32, dev)
-    if full:
+    if mode != SIGMA:
         check(dirs, "dirs", (n, 3), f32, dev)
-        check(g_rgb, "g_rgb", (n, 3), f32, dev)
-        check(g_feat, "g_feat", (n, spec.feature_dim), f32, dev)
-    d_pts = torch.empty((n, 3), dtype=f32, device=dev)
-    d_dirs = torch.empty((n, 3), dtype=f32, device=dev) if full else None
+    g = (g_sigma, g_rgb, g_feat, g_trans)
+    _check_cotangents(spec, mode, n, f32, dev, *g)
     lib = build.library("fused_field")
-    err = lib.nefes_field_bwd_raw(
-        _DTYPE_CODE[spec.torch_dtype], int(full), n, pts.data_ptr(),
-        _ptr(dirs), p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(),
-        *dims(spec), g_sigma.data_ptr(), _ptr(g_rgb), _ptr(g_feat),
-        d_pts.data_ptr(), _ptr(d_dirs), _stream())
-    field_bwd.launches += 1
-    raise_on(err, "field_bwd")
-    return d_pts, d_dirs
+    return _launch_bwd(field_bwd, lib.nefes_field_bwd_raw, p, mode, pts,
+                       dirs, g, 3, 3, f32, need_dw)
 
 
 for _k in (field_fwd_pre, field_bwd_pre, field_fwd, field_bwd):
     _k.launches = 0
+    _k.transient_launches = 0
+for _k in (field_bwd_pre, field_bwd):
+    _k.dw_launches = 0
 
 
 class _Field(torch.autograd.Function):
-    """Frozen-field tower, differentiable in its inputs only: the
-    embeddings (K1/K2) or, raw, the points and directions (K5/K6)."""
+    """The tower, differentiable in its inputs (the embeddings, K1/K2, or,
+    raw, the points and directions, K5/K6) and, with need_dw, in the
+    packed blobs w and b: their gradients are the backward's f32 ones,
+    the matrices' cast to the pack dtype (as the JAX kernel's VJP casts
+    dW to the weights' dtype). Without need_dw the blobs get None."""
 
     @staticmethod
-    def forward(ctx, raw, p, full, x, dirs):
-        ctx.raw, ctx.p, ctx.full = raw, p, full
+    def forward(ctx, raw, p, mode, need_dw, x, dirs, w, b):
+        ctx.raw, ctx.p, ctx.mode, ctx.need_dw = raw, p, mode, need_dw
         ctx.save_for_backward(x, dirs)
-        return (field_fwd if raw else field_fwd_pre)(p, full, x, dirs)
+        return (field_fwd if raw else field_fwd_pre)(p, mode, x, dirs)
 
     @staticmethod
-    def backward(ctx, g_sigma, g_rgb, g_feat):
+    def backward(ctx, g_sigma, g_rgb, g_feat, g_trans):
         x, dirs = ctx.saved_tensors
-        hd = torch.float32 if ctx.raw else ctx.p.spec.torch_dtype
+        p, mode = ctx.p, ctx.mode
+        hd = torch.float32 if ctx.raw else p.spec.torch_dtype
         n = x.shape[0]
 
         def ct(g, shape):
@@ -516,30 +684,43 @@ class _Field(torch.autograd.Function):
             return g.to(hd).contiguous()
 
         g_sigma = ct(g_sigma, (n,))
-        if ctx.full:
+        if mode != SIGMA:
             g_rgb = ct(g_rgb, (n, 3))
-            g_feat = ct(g_feat, (n, ctx.p.spec.feature_dim))
+            g_feat = ct(g_feat, (n, p.spec.feature_dim))
+        if mode == TRANSIENT:
+            g_trans = ct(g_trans, (n, 5))
         bwd = field_bwd if ctx.raw else field_bwd_pre
-        d_x, d_dirs = bwd(ctx.p, ctx.full, x, dirs, g_sigma, g_rgb, g_feat)
-        return None, None, None, d_x, d_dirs
+        d_x, d_dirs, dw = bwd(p, mode, x, dirs, g_sigma, g_rgb, g_feat,
+                              g_trans, need_dw=ctx.need_dw)
+        d_w = d_b = None
+        if dw is not None:
+            nw = p.w.numel()
+            d_w, d_b = dw[:nw].to(p.spec.torch_dtype), dw[nw:]
+        return None, None, None, None, d_x, d_dirs, d_w, d_b
 
 
-def _check_options(spec: FieldSpec, sigma_only: bool, output_transient: bool,
-                   need_dw: bool) -> None:
-    if need_dw:
-        raise NotImplementedError(
-            "weight gradients through the fused field (need_dw=True) are "
-            "not ported; the kernels serve the frozen field")
-    if not sigma_only and spec.transient and output_transient:
-        raise NotImplementedError(
-            "the transient heads are not in the fused field kernels")
+def _mode(spec: FieldSpec, sigma_only: bool, output_transient: bool) -> int:
+    if sigma_only:
+        return SIGMA
+    return TRANSIENT if (spec.transient and output_transient) else FULL
 
 
-def _heads(spec: FieldSpec, lead, sigma, rgb, feat) -> dict:
+def _apply(raw: bool, spec: FieldSpec, packed: PackedField, lead, x, dirs,
+           mode: int, need_dw: bool) -> dict:
+    if need_dw and torch.is_grad_enabled() and not packed.w.requires_grad:
+        raise ValueError("need_dw=True with weights packed without "
+                         "autograd: pack_params under torch.no_grad() "
+                         "gives a frozen field")
+    sigma, rgb, feat, trans = _Field.apply(raw, packed, mode, need_dw, x,
+                                           dirs, packed.w, packed.b)
     out = {"static_sigma": sigma.reshape(lead)}
     if rgb is not None:
         out["static_rgb"] = rgb.reshape(*lead, 3)
         out["static_feat"] = feat.reshape(*lead, spec.feature_dim)
+    if trans is not None:
+        out["transient_sigma"] = trans[:, 0].reshape(lead)
+        out["transient_rgb"] = trans[:, 1:4].reshape(*lead, 3)
+        out["transient_beta"] = trans[:, 4].reshape(lead)
     return out
 
 
@@ -550,20 +731,21 @@ def fused_field_apply_pre(spec: FieldSpec, packed: PackedField,
                           output_transient: bool = True,
                           need_dw: bool = False) -> dict:
     """Drop-in for NeRFHNFF on EMBEDDED inputs: the signature of the
-    model's field fns, returning the same named heads in the pack dtype.
+    model's field fns, returning the same named heads (the transient ones
+    for a transient tower with output_transient) in the pack dtype.
 
     xyz_emb (..., E); dir_emb (..., Ed) broadcastable against xyz_emb's
-    leading shape. Gradients reach the embeddings, never the weights."""
-    _check_options(spec, sigma_only, output_transient, need_dw)
-    full = not sigma_only
+    leading shape. Gradients reach the embeddings and, with need_dw, the
+    packed weights."""
+    mode = _mode(spec, sigma_only, output_transient)
     cd = spec.torch_dtype
     lead = xyz_emb.shape[:-1]
     emb = xyz_emb.reshape(-1, spec.emb_xyz).to(cd).contiguous()
     embd = None
-    if full:
+    if mode != SIGMA:
         embd = dir_emb.expand(*lead, spec.emb_dir).reshape(
             -1, spec.emb_dir).to(cd).contiguous()
-    return _heads(spec, lead, *_Field.apply(False, packed, full, emb, embd))
+    return _apply(False, spec, packed, lead, emb, embd, mode, need_dw)
 
 
 def fused_field_apply(spec: FieldSpec, packed: PackedField,
@@ -573,11 +755,10 @@ def fused_field_apply(spec: FieldSpec, packed: PackedField,
     """Drop-in for NeRFHNFF on RAW inputs (the JAX package's
     fused_field_apply): pts (..., 3), dirs (..., 3) broadcastable against
     pts (unused when sigma_only). Returns the named heads in f32.
-    Gradients reach pts and dirs, never the weights."""
-    _check_options(spec, sigma_only, output_transient, need_dw)
-    full = not sigma_only
+    Gradients reach pts and dirs and, with need_dw, the packed weights."""
+    mode = _mode(spec, sigma_only, output_transient)
     lead = pts.shape[:-1]
     x = pts.reshape(-1, 3).float().contiguous()
     d = (dirs.expand(*lead, 3).reshape(-1, 3).float().contiguous()
-         if full else None)
-    return _heads(spec, lead, *_Field.apply(True, packed, full, x, d))
+         if mode != SIGMA else None)
+    return _apply(True, spec, packed, lead, x, d, mode, need_dw)

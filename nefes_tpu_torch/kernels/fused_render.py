@@ -90,8 +90,8 @@ def _render_bwd_plain(p: PackedField, emb, embd, z, g):
     d_shift = torch.cat([torch.zeros_like(d_delta[:, :1]), d_delta[:, :-1]],
                         dim=1)
     d_z = wgt * g_depth + d_shift - d_delta
-    d_emb, d_embd = tower_backward_plain(p, True, acts, d_sigma.reshape(-1),
-                                         d_rgbfeat)
+    d_emb, d_embd, _ = tower_backward_plain(p, True, acts,
+                                            d_sigma.reshape(-1), d_rgbfeat)
     return d_emb, d_embd, d_z
 
 

@@ -84,7 +84,8 @@ def refine_apr_single(model, dfnet: DFNet, image: torch.Tensor,
     # optax.adam defaults: b1 0.9, b2 0.999, eps 1e-8, no eps_root
     opt = torch.optim.Adam(params, lr=rcfg.learning_rate,
                            betas=(0.9, 0.999), eps=1e-8)
-    packed = model.pack_fused() if cfg.fused else None
+    with torch.no_grad():       # the frozen field: packed once
+        packed = model.pack_fused() if cfg.fused else None
     tgt_crop = _crop(target_feat.detach())
     img_crop = _crop(image)
     losses, psnrs, ssims = [], [], []

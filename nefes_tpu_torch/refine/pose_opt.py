@@ -44,20 +44,8 @@ def render_feature_image(model, pose34: torch.Tensor, hist: torch.Tensor,
     ones (cfg.fused_pre) or the raw-input ones: `packed` is
     model.pack_fused() (packed here when None)."""
     h, w, focal = hwf
-    if cfg.fused:
-        packed_c, packed_f = packed if packed is not None \
-            else model.pack_fused()
-        dw = cfg.fused_need_dw
-        if cfg.fused_pre:
-            coarse = model.coarse_pre_fn(packed_c, need_dw=dw)
-            fine = (model.fine_render_pre_fn(packed_f) if cfg.fused_render
-                    else model.fine_pre_fn(packed_f, need_dw=dw))
-        else:
-            coarse = model.coarse_raw_fn(packed_c, need_dw=dw)
-            fine = (model.fine_render_raw_fn(packed_f) if cfg.fused_render
-                    else model.fine_raw_fn(packed_f, need_dw=dw))
-    else:
-        coarse, fine = model.coarse_fn, model.fine_fn
+    coarse, fine = (model.field_fns(cfg, packed) if cfg.fused
+                    else (model.coarse_fn, model.fine_fn))
     out = render_image(coarse, fine, h, w, focal, pose34, near, far, cfg,
                        block_rays=block_rays)
     rgb = model.apply_exposure(hist[None], out["rgb"].reshape(1, -1, 3))
@@ -96,7 +84,8 @@ def refine_pose_single(model, init_pose: torch.Tensor,
     opt = torch.optim.Adam([{"params": [r], "lr": rcfg.lr_r},
                             {"params": [t], "lr": rcfg.lr_t}],
                            betas=(0.9, 0.999), eps=1e-8)
-    packed = model.pack_fused() if cfg.fused else None
+    with torch.no_grad():       # the frozen field: packed once
+        packed = model.pack_fused() if cfg.fused else None
     target_feat = target_feat.detach()
     losses = []
     for _ in range(rcfg.opt_iter):

@@ -53,7 +53,8 @@ class RenderConfig:
     # kernel path (kernels/): fused=True runs the field through the Hopper
     # kernels, on embeddings made here (fused_pre=True) or on raw points
     # and directions that the kernels embed (fused_pre=False).
-    # fused_need_dw=True (weight gradients, training) is not ported yet.
+    # fused_need_dw=True gives the weights their gradients through the
+    # kernels (training); False is the frozen field (refinement).
     fused: bool = False
     fused_need_dw: bool = True
     fused_pre: bool = False

@@ -6,8 +6,10 @@ sigma_only, output_transient)`` -> head dict, the JAX package's field fns
 minus their params slot. The ``*_pre_fn`` builders return the same
 signature over the pre-embedded kernels (kernels/), the ``*_raw_fn``
 builders ``fn(pts, dirs, sigma_only, output_transient)`` over the
-raw-input kernels; both are bound to weights packed once with
-``pack_fused``.
+raw-input kernels; both are bound to weights packed with ``pack_fused``,
+once per refinement (frozen, under torch.no_grad()) or once per training
+step (with autograd, for need_dw=True). ``field_fns`` picks the pair a
+RenderConfig asks for.
 """
 
 from __future__ import annotations
@@ -116,9 +118,11 @@ class NeFeSModel(nn.Module):
         return FieldSpec.from_model(self.cfg, typ, dtype=self.cfg.dtype_name)
 
     def pack_fused(self) -> tuple:
-        """(packed_coarse, packed_fine): the frozen weights in the kernels'
-        one layout, read by the pre-embedded and the raw-input kernels;
-        pack once per refinement, not per iteration."""
+        """(packed_coarse, packed_fine): the weights in the kernels' one
+        layout, read by the pre-embedded and the raw-input kernels, built
+        with autograd from the parameters. A refinement packs once, under
+        torch.no_grad(); a training step packs anew, so that the kernels'
+        weight gradients (need_dw=True) reach the parameters."""
         return (pack_params(self.coarse, self.fused_spec("coarse")),
                 pack_params(self.fine, self.fused_spec("fine")))
 
@@ -161,6 +165,31 @@ class NeFeSModel(nn.Module):
         the raw-input composite-fused render kernels."""
         return self._render_fn(fused_render_apply, packed)
 
+    def ray_field_fns(self, hist=None):
+        """(coarse_fn, fine_fn) for one image. The NFF field has no
+        per-image latent, so the bound methods, whatever the histogram
+        (the JAX package's field zoo binds per-image latents here)."""
+        return self.coarse_fn, self.fine_fn
+
+    def field_fns(self, cfg: RenderConfig, packed=None):
+        """(coarse_fn, fine_fn) for render_rays under cfg: the plain
+        fields or, with cfg.fused, the kernel fns bound to `packed`
+        (pack_fused(); packed here when None), pre-embedded (cfg.fused_pre)
+        or raw-input, with need_dw=cfg.fused_need_dw, the fine one
+        composite-fused with cfg.fused_render."""
+        if not cfg.fused:
+            return self.ray_field_fns()
+        packed_c, packed_f = packed if packed is not None \
+            else self.pack_fused()
+        dw = cfg.fused_need_dw
+        if cfg.fused_pre:
+            return (self.coarse_pre_fn(packed_c, need_dw=dw),
+                    self.fine_render_pre_fn(packed_f) if cfg.fused_render
+                    else self.fine_pre_fn(packed_f, need_dw=dw))
+        return (self.coarse_raw_fn(packed_c, need_dw=dw),
+                self.fine_render_raw_fn(packed_f) if cfg.fused_render
+                else self.fine_raw_fn(packed_f, need_dw=dw))
+
     # --- exposure and fusion ---
 
     def apply_exposure(self, hist: torch.Tensor,
@@ -172,13 +201,18 @@ class NeFeSModel(nn.Module):
         return affine_color_transform(self.exposure(hist), rgb)
 
     def apply_fusion(self, rgb_img: torch.Tensor, feat_img: torch.Tensor,
-                     bn_stats: str = "batch") -> torch.Tensor:
+                     bn_stats: str = "batch", train: bool = False):
         """rgb_img (B, H, W, 3), feat_img (B, H, W, F) -> fused features
-        (B, H, W, F) f32, at inference. bn_stats "batch" normalises with
-        this input's statistics and leaves the running ones untouched (the
-        reference's operating point: its BN is never put in eval mode);
-        "running" uses the running averages."""
+        (B, H, W, F) f32. At inference (train=False), bn_stats "batch"
+        normalises with this input's statistics and leaves the running
+        ones untouched (the reference's operating point: its BN is never
+        put in eval mode); "running" uses the running averages.
+        train=True (the stage-2 step) normalises with batch statistics and
+        returns (out, new running stats | None) for the step to apply, as
+        the JAX package's apply_fusion(train=True) does."""
         if bn_stats not in ("batch", "running"):
             raise ValueError(f"bn_stats {bn_stats!r}")
         x = torch.cat([rgb_img, feat_img.to(rgb_img.dtype)], dim=-1)
+        if train:
+            return self.fusion(x, train=True)
         return self.fusion(x, use_batch_stats=bn_stats == "batch")

@@ -5,13 +5,20 @@ their plain versions are held to the JAX package in test_torch_raw.py).
 1. Their plain PyTorch versions (what a wrapper runs for a CPU tensor)
    against the JAX package's Pallas kernels in interpret mode, values and
    gradients w.r.t. the embeddings and z, f32. Same arithmetic in another
-   summation order: values to 2e-5, gradients to 1e-4 of their scale.
+   summation order: values to 2e-5, gradients to 1e-4 of their scale. The
+   training variants (K1/K5 transient mode, K2/K6 with need_dw) through
+   autograd of the packed blobs, against jax.grad through pack_params
+   (as tests/test_fused_field.py does): heads to 2e-5, the gradients of
+   every parameter of the tower and of the inputs to 2e-4 of their
+   scale, that test's tolerance.
 2. The CUDA sources themselves, compiled for the host with the C++
    compiler under NEFES_EMULATE (one thread per block), against the plain
    versions in f32, to 1e-5 of scale: the kernels' indexing and tiling,
    with a ragged last tile and with whole tiles, and for K5-K8 the
    in-kernel embedding and its chain rule (sinf/cosf of the C library
-   against torch's), checked without a card.
+   against torch's), the transient heads, and the weight gradients of
+   K2/K6 (the persistent grid's partial slices and their reduction, with
+   several slices and one), checked without a card.
    The host build refuses bf16: bf16 runs on the tensor cores, which only
    the card has, so bf16 is checked by 3.
 3. On a card (marked cuda; skipped on a machine without one): each kernel
@@ -20,6 +27,7 @@ their plain versions are held to the JAX package in test_torch_raw.py).
 """
 
 import shutil
+from dataclasses import replace
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +37,7 @@ import torch
 
 from nefes_tpu.fields.embedder import embed as jembed
 from nefes_tpu.kernels.fused_field import FieldSpec as JSpec
+from nefes_tpu.kernels.fused_field import fused_field_apply as jfield_raw
 from nefes_tpu.kernels.fused_field import fused_field_apply_pre as jfield
 from nefes_tpu.kernels.fused_field import pack_params as jpack
 from nefes_tpu.kernels.fused_render import fused_render_apply_pre as jrender
@@ -36,7 +45,7 @@ from nefes_tpu_torch.fields.nerfh_nff import NeRFHNFF
 from nefes_tpu_torch.kernels import build
 from nefes_tpu_torch.kernels import fused_field as kf
 from nefes_tpu_torch.kernels import fused_render as kr
-from tests.torch_parity import close, configs, models, n, t
+from tests.torch_parity import close, configs, grads_by_name, models, n, t
 
 RNG = np.random.default_rng(1)
 
@@ -54,7 +63,8 @@ def field():
     jmodel, variables, tmodel = models(jcfg, tcfg)
     jspec = JSpec.from_model(jcfg, "fine", dtype="float32", tile=64)
     jw = jpack(variables["params"]["fine"], jspec, pre_embedded=True)
-    _, packed_f = tmodel.pack_fused()
+    with torch.no_grad():
+        _, packed_f = tmodel.pack_fused()
     return jcfg, jspec, jw, tmodel.fused_spec("fine"), packed_f
 
 
@@ -126,14 +136,102 @@ def test_render_plain_matches_pallas(field):
 
 
 def test_unported_options_raise(field):
+    """Every mode and need_dw are ported; what is left to refuse: weight
+    gradients of a field packed without autograd (a frozen pack would
+    drop them silently), and transient mode on a tower without the
+    transient heads."""
     _, _, _, spec, packed = field
     xe = torch.zeros(4, spec.emb_xyz)
     de = torch.zeros(4, spec.emb_dir)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="need_dw"):
         kf.fused_field_apply_pre(spec, packed, xe, de, need_dw=True)
-    with pytest.raises(NotImplementedError):
-        kf.fused_field_apply_pre(spec, packed, xe, de,
-                                 output_transient=True)
+    out = kf.fused_field_apply_pre(spec, packed, xe, de,
+                                   output_transient=True)
+    assert "transient_beta" in out
+    coarse = kf.PackedField(spec=replace(packed.spec, transient=False),
+                            weights=packed.weights, w=packed.w,
+                            wt=packed.wt, b=packed.b)
+    with pytest.raises(ValueError, match="transient"):
+        kf.field_fwd_pre(coarse, kf.TRANSIENT, xe, de)
+
+
+_GW = {"static_sigma": 0.3, "static_rgb": 1.7, "static_feat": 0.01,
+       "transient_sigma": 0.5, "transient_rgb": 0.8, "transient_beta": 0.4}
+
+
+@pytest.fixture(scope="module")
+def train_field():
+    """A fine tower (transient heads) in both packages, its JAX params and
+    the port's model, whose parameters take gradients."""
+    jcfg, tcfg = configs(depth=4, width=32, feature_dim=8, skips=(2,),
+                         xyz_freqs=6, dir_freqs=3)
+    _, variables, tmodel = models(jcfg, tcfg)
+    jspec = JSpec.from_model(jcfg, "fine", dtype="float32", tile=64)
+    return jcfg, tcfg, jspec, variables, tmodel
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["pre", "raw"])
+@pytest.mark.parametrize("sigma_only,transient", [
+    pytest.param(True, False, id="sigma"),
+    pytest.param(False, False, id="full"),
+    pytest.param(False, True, id="transient")])
+def test_field_training_variants_match_pallas(train_field, raw, sigma_only,
+                                              transient):
+    """K1/K2 (pre) or K5/K6 (raw) with need_dw=True, in each mode: the
+    heads, and the gradients of the tower's parameters and of the inputs,
+    through the packed blobs and autograd, against jax.grad through
+    pack_params and the Pallas kernels (interpret mode)."""
+    jcfg, tcfg, jspec, variables, tmodel = train_field
+    pts = RNG.normal(0, 0.7, (5, 13, 3)).astype(np.float32)  # ragged tile
+    vd = RNG.normal(0, 1, (5, 3)).astype(np.float32)
+    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
+    dirs = np.broadcast_to(vd[:, None], pts.shape).copy()
+    if raw:
+        xin = pts
+        din = dirs
+    else:
+        xin, din = _embeds_of(jcfg, pts, dirs)
+
+    def jloss(params, a, b):
+        w = jpack(params, jspec, pre_embedded=not raw)
+        apply = jfield_raw if raw else jfield
+        out = apply(jspec, w, a, None if (raw and sigma_only) else b,
+                    sigma_only=sigma_only, output_transient=transient,
+                    need_dw=True, interpret=True)
+        return sum(jnp.sum(v ** 2) * _GW[k] for k, v in out.items()), out
+
+    (_, want), (jg_p, jg_x, jg_d) = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(
+        variables["params"]["fine"], jnp.asarray(xin), jnp.asarray(din))
+    tmodel.zero_grad(set_to_none=True)
+    spec = tmodel.fused_spec("fine")
+    packed = kf.pack_params(tmodel.fine, spec)
+    xt, dt = t(xin, True), t(din, True)
+    apply = kf.fused_field_apply if raw else kf.fused_field_apply_pre
+    got = apply(spec, packed, xt, None if (raw and sigma_only) else dt,
+                sigma_only=sigma_only, output_transient=transient,
+                need_dw=True)
+    assert set(got) == set(want)
+    for k in want:
+        close(got[k], want[k], 2e-5, 2e-5, k)
+    sum((v ** 2).sum() * _GW[k] for k, v in got.items()).backward()
+    want_g = grads_by_name({"fine": jg_p}, variables, tcfg)
+    for name, prm in tmodel.fine.named_parameters():
+        key = f"fine.{name}"
+        if prm.grad is None:
+            # only the unused heads of this mode may go without
+            assert not np.abs(want_g[key]).any(), key
+            continue
+        _scaled_close(prm.grad, want_g[key], 2e-4, key)
+    _scaled_close(xt.grad, jg_x, 2e-4, "d_x")
+    if not sigma_only:
+        _scaled_close(dt.grad, jg_d, 2e-4, "d_dirs")
+
+
+def _embeds_of(jcfg, pts, dirs):
+    xe = np.asarray(jembed(jnp.asarray(pts), jcfg.xyz_embed))
+    de = np.asarray(jembed(jnp.asarray(dirs), jcfg.dir_embed))
+    return xe, de
 
 
 # --- the CUDA sources, built for the host ---
@@ -159,7 +257,7 @@ def _emulated_case():
     with torch.no_grad():
         for prm in tower.parameters():
             prm.copy_(torch.randn(prm.shape, generator=gen) * 0.3)
-    packed = kf.pack_params(tower, spec)
+        packed = kf.pack_params(tower, spec)
     return spec, packed, gen
 
 
@@ -186,6 +284,38 @@ def _inputs(gen, spec, N, raw):
 _KIND = {False: "pre", True: "raw"}
 
 
+def _host_bwd(lib, raw, p, mode, x, dirs, g, d, slices=0):
+    """Call the host-built K2/K6; with slices > 0 with dW, returning the
+    reduced f32 weight gradients."""
+    spec, cd = p.spec, p.spec.torch_dtype
+    bwd = getattr(lib, f"nefes_field_bwd_{_KIND[raw]}")
+    nw, nb = p.w.numel(), p.b.numel()
+    part = acts = None
+    if slices:
+        part = torch.zeros((slices, nw + nb))
+        acts = torch.empty(slices * lib.nefes_field_dw_scratch(spec.depth,
+                                                               spec.width),
+                           dtype=cd)
+    err = bwd(kf._DTYPE_CODE[cd], mode, x.shape[0], x.data_ptr(),
+              dirs.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(),
+              p.b.data_ptr(), *kf.dims(spec), *[v.data_ptr() for v in g],
+              *[v.data_ptr() for v in d], slices, nw, nb,
+              None if part is None else part.data_ptr(),
+              None if acts is None else acts.data_ptr(), None)
+    assert err == 0
+    if not slices:
+        return None
+    out = torch.empty(nw + nb)
+    assert lib.nefes_field_dw_reduce(slices, nw + nb, part.data_ptr(),
+                                     out.data_ptr(), None) == 0
+    return out
+
+
+def _cotangents(gen, N, F, hd):
+    return [_rand(gen, (N,), hd), _rand(gen, (N, 3), hd),
+            _rand(gen, (N, F), hd), _rand(gen, (N, 5), hd)]
+
+
 # N rows: 100 ends in a ragged tile of 36, 128 is two whole tiles of 64
 @pytest.mark.parametrize("N,raw", [
     pytest.param(100, False, id="float32"),
@@ -193,43 +323,71 @@ _KIND = {False: "pre", True: "raw"}
     pytest.param(100, True, id="raw-float32"),
     pytest.param(128, True, id="raw-float32-whole-tiles")])
 def test_field_source_matches_plain(N, raw, host_build):
-    """K1/K2, or with raw K5/K6, against their plain versions."""
+    """K1/K2, or with raw K5/K6, against their plain versions, in the
+    sigma, full and transient modes (the backward without dW)."""
     spec, p, gen = _emulated_case()
     lib = build.library("fused_field", emulate=True, build_dir=host_build)
     fwd = getattr(lib, f"nefes_field_fwd_{_KIND[raw]}")
-    bwd = getattr(lib, f"nefes_field_bwd_{_KIND[raw]}")
     plain_fwd = kf.field_fwd_plain if raw else kf.field_fwd_pre_plain
     plain_bwd = kf.field_bwd_plain if raw else kf.field_bwd_pre_plain
     cd, F, tol = spec.torch_dtype, spec.feature_dim, 1e-5
     # bf16 (code 1) is refused before any pointer is read
     assert fwd(1, 0, N, None, None, None, None, *kf.dims(spec), None, None,
-               None, None) != 0
+               None, None, None) != 0
     x, dirs, hd, (dx_w, dd_w) = _inputs(gen, spec, N, raw)
-    for full in (False, True):
+    for mode in (kf.SIGMA, kf.FULL, kf.TRANSIENT):
         outs = [torch.empty(N, dtype=hd), torch.empty((N, 3), dtype=hd),
-                torch.empty((N, F), dtype=hd)]
-        err = fwd(kf._DTYPE_CODE[cd], int(full), N, x.data_ptr(),
+                torch.empty((N, F), dtype=hd), torch.empty((N, 5), dtype=hd)]
+        err = fwd(kf._DTYPE_CODE[cd], mode, N, x.data_ptr(),
                   dirs.data_ptr(), p.w.data_ptr(), p.b.data_ptr(),
                   *kf.dims(spec), *[o.data_ptr() for o in outs], None)
         assert err == 0
-        want = plain_fwd(p, full, x, dirs)
+        want = plain_fwd(p, mode, x, dirs)
+        assert sum(w is not None for w in want) == (1, 3, 4)[mode]
         for o, w in zip(outs, want):
             if w is not None:
                 assert w.dtype == hd
                 _scaled_close(o, w, tol)
-        g = [_rand(gen, (N,), hd), _rand(gen, (N, 3), hd),
-             _rand(gen, (N, F), hd)]
+        g = _cotangents(gen, N, F, hd)
         d = [torch.empty((N, dx_w), dtype=hd),
              torch.empty((N, dd_w), dtype=hd)]
-        err = bwd(kf._DTYPE_CODE[cd], int(full), N, x.data_ptr(),
-                  dirs.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(),
-                  p.b.data_ptr(), *kf.dims(spec), *[v.data_ptr() for v in g],
-                  *[v.data_ptr() for v in d], None)
-        assert err == 0
-        want = plain_bwd(p, full, x, dirs, *g)
-        for o, w in zip(d, want):
+        assert _host_bwd(lib, raw, p, mode, x, dirs, g, d) is None
+        want = plain_bwd(p, mode, x, dirs, *g)
+        assert want[2] is None
+        for o, w in zip(d, want[:2]):
             if w is not None:
                 _scaled_close(o, w, tol)
+
+
+# slices: the persistent grid of the backward with dW; 3 slices over 2
+# tiles leaves a block with none, 2 over 3 a block with two
+@pytest.mark.parametrize("N,raw,slices", [
+    pytest.param(100, False, 1, id="float32-one-slice"),
+    pytest.param(128, False, 3, id="float32-idle-slice"),
+    pytest.param(150, True, 2, id="raw-float32-two-tiles-a-slice"),
+    pytest.param(128, True, 2, id="raw-float32-whole-tiles")])
+def test_field_source_dw_matches_plain(N, raw, slices, host_build):
+    """K2/K6 with need_dw, in each mode: the input cotangents and every
+    packed weight's f32 gradient (partial slices, then their sum) against
+    the plain versions."""
+    spec, p, gen = _emulated_case()
+    lib = build.library("fused_field", emulate=True, build_dir=host_build)
+    plain_bwd = kf.field_bwd_plain if raw else kf.field_bwd_pre_plain
+    F, tol = spec.feature_dim, 1e-5
+    x, dirs, hd, (dx_w, dd_w) = _inputs(gen, spec, N, raw)
+    nw = p.w.numel()
+    for mode in (kf.SIGMA, kf.FULL, kf.TRANSIENT):
+        g = _cotangents(gen, N, F, hd)
+        d = [torch.empty((N, dx_w), dtype=hd),
+             torch.empty((N, dd_w), dtype=hd)]
+        dw = _host_bwd(lib, raw, p, mode, x, dirs, g, d, slices)
+        want = plain_bwd(p, mode, x, dirs, *g, need_dw=True)
+        for o, w in zip(d, want[:2]):
+            if w is not None:
+                _scaled_close(o, w, tol)
+        assert dw.shape == want[2].shape == (nw + p.b.numel(),)
+        _scaled_close(dw[:nw], want[2][:nw], tol, f"dW mode {mode}")
+        _scaled_close(dw[nw:], want[2][nw:], tol, f"db mode {mode}")
 
 
 # S samples per ray: 70 is a whole tile and a ragged one (64 + 6), 128
@@ -279,8 +437,9 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_on_card(cuda, dtype):
-    """Each of K1-K8 against its plain version on the same card inputs,
-    by relative L2 error: bf16 1e-2, f32 1e-5. In bf16 the tensor cores
+    """Each of K1-K8, and the training variants of K1/K2/K5/K6, against
+    its plain version on the same card inputs, by relative L2 error: bf16
+    1e-2, f32 1e-5. In bf16 the tensor cores
     and cuBLAS sum in another order, so a hidden unit within one rounding
     of 0 can fall on the other side of the ReLU, and a backward then
     passes or drops that unit's cotangent: single entries may differ by
@@ -290,11 +449,15 @@ def test_kernels_match_plain_on_card(cuda, dtype):
                       dtype=kf._DTYPES[dtype])
     model = NeFeSModel(cfg, device=cuda,
                        generator=torch.Generator().manual_seed(0))
-    pc, pf = model.pack_fused()
+    with torch.no_grad():
+        pc, pf = model.pack_fused()
     spec = pf.spec
     cd, tol = spec.torch_dtype, (1e-5 if dtype == "float32" else 1e-2)
 
     def agree(a, b):
+        if b is None:
+            assert a is None
+            return
         a, b = a.float().cpu(), b.float().cpu()
         assert torch.isfinite(a).all()
         assert float((a - b).norm() / b.norm()) <= tol
@@ -337,4 +500,25 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     for a, b in zip(kr.render_bwd(pf, pts, dirs, z, gr),
                     kr.render_bwd_plain(pf, pts, dirs, z, gr)):
         agree(a, b)
+    # the training variants: transient mode, and the backward with dW in
+    # every mode (the coarse tower for sigma and full), both input kinds
+    T = kf.TRANSIENT
+    gt = torch.randn((R * S, 5), device=cuda)
+    for a, b in zip(kf.field_fwd(pf, T, pts, dirs),
+                    kf.field_fwd_plain(pf, T, pts, dirs)):
+        agree(a, b)
+    for a, b in zip(kf.field_fwd_pre(pf, T, emb, embd),
+                    kf.field_fwd_pre_plain(pf, T, emb, embd)):
+        agree(a, b)
+    for mode, p in ((kf.SIGMA, pc), (kf.FULL, pc), (T, pf)):
+        for a, b in zip(kf.field_bwd(p, mode, pts, dirs, *g, gt, need_dw=True),
+                        kf.field_bwd_plain(p, mode, pts, dirs, *g, gt,
+                                           need_dw=True)):
+            agree(a, b)
+        gp = [v.to(cd) for v in (*g, gt)]
+        for a, b in zip(kf.field_bwd_pre(p, mode, emb, embd, *gp,
+                                         need_dw=True),
+                        kf.field_bwd_pre_plain(p, mode, emb, embd, *gp,
+                                               need_dw=True)):
+            agree(a, b)
     torch.cuda.synchronize()

@@ -61,3 +61,20 @@ def close(got, want, rtol, atol, msg=""):
 
 def replace(cfg, **kw):
     return dataclasses.replace(cfg, **kw)
+
+
+def grads_by_name(jgrads: dict, variables, tcfg) -> dict:
+    """JAX gradients w.r.t. (a sub-tree of) variables["params"] -> {the
+    port's parameter name: numpy array}, mapped through the same
+    from_jax_variables that carries the weights across; parameters
+    outside the sub-tree get zeros."""
+    params = jax.tree.map(np.zeros_like,
+                          jax.tree.map(np.asarray, variables["params"]))
+    params.update(jax.tree.map(np.asarray, jgrads))
+    tree = {"params": params}
+    if "batch_stats" in variables:
+        tree["batch_stats"] = jax.tree.map(np.asarray,
+                                           variables["batch_stats"])
+    sd = from_jax_variables(tree, tcfg)
+    return {k: v.numpy() for k, v in sd.items()
+            if "running_" not in k and "num_batches" not in k}
