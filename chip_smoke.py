@@ -1,7 +1,7 @@
 """On-card smoke run of nefes_tpu_torch on one NVIDIA GPU (written for the
 H100: the kernels build for sm_90a).
 
-    python3 chip_smoke.py [--phases build,check,mode3,mode2,paths,train,time,profile]
+    python3 chip_smoke.py [--phases build,check,mode3,mode2,paths,train,time,micro,probe,profile]
 
 Phases:
   build  compile the CUDA kernels from csrc/ (nvcc, one process per
@@ -39,6 +39,19 @@ Phases:
          plain version's time and a bf16 torch.matmul chain over the same
          tower as a yardstick; the training variants at the fine training
          shape, and the coarse pass's two training launches
+  micro  the probe's kernelmicro (nefes_tpu_torch/runtime/probe.py) at the
+         fine-pass shape, N = 614,400 rows: K9 (bare bf16 8-layer chain)
+         at tiles 64 (the field kernels' block), 512, 2048, 8192, K10 (2 and 4 sub-tiles interleaved),
+         K11 (the sin/cos embedding alone) at each tile, K12 (square
+         chains of width 128 and 256), then K5, K1 and K1 + K2, each
+         timed beside its bound, its plain version and a bf16
+         torch.matmul chain; then K9-K12 against their plain versions at
+         every tile and width (relative L2; K11 bit for bit; K10 equal to
+         K9)
+  probe  the probe's kernel (K5/K6 against the plain field in f32 and
+         bf16, K7/K8 against the plain fine pass and compositor) and perf
+         (the pieces of a mode-3 iteration through K1, K3, K4; one timed
+         50-iteration refine) commands once
   profile torch.profiler over 3 train_raw steps and 5 iterations of mode 3
          and mode 2: the device's busy share of the wall time, device
          time per kernel
@@ -61,8 +74,6 @@ import traceback
 import numpy as np
 import torch
 
-PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (data sheet)
-PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 H, W, FOCAL = 60, 80, 525.505 / 8
 NEAR, FAR = 0.0, 4.0
 N_C, N_F = 64, 64
@@ -90,10 +101,15 @@ TRAIN_B, N_RAND, TRAIN_STEPS, PATH_STEPS, TRAIN_LR = 4, 1536, 20, 3, 5e-4
 PARAM_TOL = {"float32": 5e-6, "bfloat16": 1e-3}
 # Mode 2: the query at 7-Scenes H/2, rendered at a quarter of that
 IMG_H, IMG_W, FOCAL_FULL = 4 * H, 4 * W, 4 * FOCAL
-PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
+# The probe phase: K5's bf16 max-abs error from the plain f32 field within
+# PROBE_BAND times the plain bf16 field's, and the fused render's rgb
+# within PROBE_RGB_TOL (max-abs) of the unfused fine pass + compositor. On
+# an H100 the ratios read 0.06-0.79 and the rgb 2.6e-4 (PERF.md).
+PROBE_BAND, PROBE_RGB_TOL = 4.0, 3e-3
 # kernel -> (the TPU kernel it replaces, its CUDA source)
-_FF, _FR = ("nefes_tpu_torch/csrc/fused_field.cu",
-            "nefes_tpu_torch/csrc/fused_render.cu")
+_FF, _FR, _MC = ("nefes_tpu_torch/csrc/fused_field.cu",
+                 "nefes_tpu_torch/csrc/fused_render.cu",
+                 "nefes_tpu_torch/csrc/micro.cu")
 KERNELS = {
     "K1 field_fwd_pre": ("nefes_tpu/kernels/fused_field.py:686", _FF),
     "K2 field_bwd_pre": ("nefes_tpu/kernels/fused_field.py:712", _FF),
@@ -109,6 +125,11 @@ KERNELS = {
     "K2 field_bwd_pre +dW": ("nefes_tpu/kernels/fused_field.py:712", _FF),
     "K5 field_fwd transient": ("nefes_tpu/kernels/fused_field.py:597", _FF),
     "K6 field_bwd +dW": ("nefes_tpu/kernels/fused_field.py:622", _FF),
+    # the probe's micro-benchmarks (cmd_kernelmicro's pl.pallas_call sites)
+    "K9 chain": ("runtime/probe.py:1264", _MC),
+    "K10 chain_interleaved": ("runtime/probe.py:1298", _MC),
+    "K11 embed_micro": ("runtime/probe.py:1340", _MC),
+    "K12 chain_sq": ("runtime/probe.py:1374", _MC),
 }
 
 
@@ -120,7 +141,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="build,check,mode3,mode2,paths,train,time,"
-                    "profile")
+                    "micro,probe,profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run")
@@ -129,6 +150,8 @@ def main() -> int:
     from nefes_tpu_torch.kernels import build
     from nefes_tpu_torch.kernels import fused_field as kf
     from nefes_tpu_torch.kernels import fused_render as kr
+    from nefes_tpu_torch.kernels import micro as km
+    from nefes_tpu_torch.runtime import probe
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -374,9 +397,19 @@ def main() -> int:
     with torch.no_grad():
         _, target = render_feature_image(model, gt, hist, (H, W, FOCAL),
                                          NEAR, FAR, base)
-    all_kernels = (kf.field_fwd_pre, kf.field_bwd_pre, kr.render_fwd_pre,
-                   kr.render_bwd_pre, kf.field_fwd, kf.field_bwd,
-                   kr.render_fwd, kr.render_bwd)
+    # each kernel's wrapper by its name in KERNELS (the variants below are
+    # counted on the wrappers of K1, K2, K5 and K6)
+    wrappers = {
+        "K1 field_fwd_pre": kf.field_fwd_pre,
+        "K2 field_bwd_pre": kf.field_bwd_pre,
+        "K3 render_fwd_pre": kr.render_fwd_pre,
+        "K4 render_bwd_pre": kr.render_bwd_pre,
+        "K5 field_fwd": kf.field_fwd, "K6 field_bwd": kf.field_bwd,
+        "K7 render_fwd": kr.render_fwd, "K8 render_bwd": kr.render_bwd,
+        "K9 chain": km.chain, "K10 chain_interleaved": km.chain_interleaved,
+        "K11 embed_micro": km.embed_micro, "K12 chain_sq": km.chain_sq,
+    }
+    all_kernels = tuple(wrappers.values())
     # the training variants' own counters (also counted in `launches`)
     variants = {
         "K1 field_fwd_pre transient": (kf.field_fwd_pre,
@@ -392,6 +425,13 @@ def main() -> int:
         "train_pre": ("K1 field_fwd_pre", "K2 field_bwd_pre",
                       "K1 field_fwd_pre transient", "K2 field_bwd_pre +dW"),
         "train_unfused": (),
+        # the probe's commands: kernelmicro; kernel and perf
+        "micro": ("K9 chain", "K10 chain_interleaved", "K11 embed_micro",
+                  "K12 chain_sq", "K5 field_fwd", "K1 field_fwd_pre",
+                  "K2 field_bwd_pre"),
+        "probe": ("K5 field_fwd", "K6 field_bwd", "K7 render_fwd",
+                  "K8 render_bwd", "K1 field_fwd_pre", "K3 render_fwd_pre",
+                  "K4 render_bwd_pre"),
     })
 
     def snapshot_counts():
@@ -420,7 +460,7 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = {n: k.launches for n, k in zip(KERNELS, all_kernels)}
+        counts = {n: k.launches for n, k in wrappers.items()}
         counts.update({n: getattr(k, attr)
                        for n, (k, attr) in variants.items()})
         ran = {n for n, c in counts.items() if c}
@@ -740,7 +780,8 @@ def main() -> int:
         g_field, g_raw, g_ray = ins["g_field"], ins["g_raw"], ins["g_ray"]
         n_c, n_f, R = emb_c.shape[0], emb.shape[0], z.shape[0]
         sp = pf.spec
-        fl, el = tower_flops(sp), embed_ops(sp)
+        fl = probe.tower_flops(sp)
+        el = probe.embed_ops(sp.n_freqs_xyz, sp.n_freqs_dir)
         b2, b4 = 2, 4   # bytes of a bf16 and of an f32 value
         ray_out = R * (sp.rgbfeat + 2) * b4
         # name: (call, wrapper, plain version, yardstick, bf16 matmul
@@ -845,14 +886,12 @@ def main() -> int:
             plain_ms = time_ms(lambda: case(plain), reps=3)
             lib_ms = time_ms(lib_fn, reps=3)
             nbytes += train_bytes if name in variants else static_bytes
-            t_ops = (flops / PEAK_BF16_FLOPS + ew / PEAK_F32_FLOPS) * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
+            bound_ms, bound_by = probe.bound(flops, ew, nbytes)
             kernels[name].update(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_ms=bound_ms, bound_by=bound_by,
                 flops=flops + ew, bytes=nbytes)
-            log(f"{name}: {ms:.3f} ms (bound {max(t_ops, t_bytes):.4f} ms "
+            log(f"{name}: {ms:.3f} ms (bound {bound_ms:.4f} ms "
                 f"by {kernels[name]['bound_by']}: {flops / 1e9:.1f} GFLOP "
                 f"bf16 + {ew / 1e9:.3f} G f32 ops, {nbytes / 1e6:.1f} MB; "
                 f"{flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms, "
@@ -882,6 +921,90 @@ def main() -> int:
         time_coarse_training()
 
     phase("time", do_time_all)
+
+    # the row of each micro-benchmark kernel in the kernels line: K9 at
+    # tile 2048 (K10's tile), K10 with 4 sub-tiles, K11 at tile 2048, K12
+    # at width 128 (N rows); kernelmicro prints every tile and width
+    micro_rows = {"K9 chain": "chain8_tile2048_ms",
+                  "K10 chain_interleaved": "chain8_interleave4_ms",
+                  "K11 embed_micro": "embed_tile2048_ms",
+                  "K12 chain_sq": "sq_chain8_w128_ms"}
+
+    def do_micro():
+        from types import SimpleNamespace
+        # the JAX probe's tiles, and 64 rows: the field kernels' own
+        tiles = [64, 512, 2048, 8192]
+        out, secs, counts = counted("micro", lambda: probe.cmd_kernelmicro(
+            SimpleNamespace(device="cuda", tiles=tiles, out="")))
+        log(f"micro: kernelmicro in {secs:.1f} s, launches {counts}")
+        for name, key in micro_rows.items():
+            row = out["kernels"][key]
+            kernels[name].update(
+                {k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")},
+                launches=counts[name], path=f"probe kernelmicro ({key})")
+        # each kernel against its plain version, at every tile and width
+        # of the run (these launches are not the path's)
+        ins = probe.micro_inputs(dev, probe.H * probe.W * 128)
+        cw, x, pts = ins["chain"], ins["x"], ins["pts"]
+        bf = "bfloat16"
+        with torch.no_grad():
+            want = km.chain_plain(cw, x)
+            for tile in tiles:
+                compare("K9 chain", f"tile {tile}", bf,
+                        (km.chain(cw, x, tile),), (want,))
+            k9 = km.chain(cw, x, 2048)
+            for nb in (2, 4):
+                got = km.chain_interleaved(cw, x, 2048, nb)
+                compare("K10 chain_interleaved", f"x{nb} tile 2048", bf,
+                        (got,), (want,))
+                if not torch.equal(got, k9):
+                    raise AssertionError(f"K10 x{nb} differs from K9 at "
+                                         f"tile 2048")
+            del want, k9, got
+            want = km.embed_micro_plain(pts)
+            for tile in tiles:
+                got = km.embed_micro(pts, tile)
+                compare("K11 embed_micro", f"tile {tile}", bf, (got,),
+                        (want,))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K11 tile {tile}: not bit for bit")
+            log("K10 equals K9 at tile 2048; K11 equals its plain version "
+                "bit for bit at every tile")
+            for w_, tile in ((128, 2048), (256, 512)):
+                scw, sx = ins["sq"][w_]
+                compare("K12 chain_sq", f"w{w_} tile {tile}", bf,
+                        (km.chain_sq(scw, sx, tile),),
+                        (km.chain_plain(scw, sx),))
+        torch.cuda.empty_cache()
+
+    phase("micro", do_micro)
+
+    def do_probe():
+        from types import SimpleNamespace
+        (res_k, res_p), secs, counts = counted("probe", lambda: (
+            probe.cmd_kernel(SimpleNamespace(device="cuda", sweep=True)),
+            probe.cmd_perf(SimpleNamespace(device="cuda", refine_n=1))))
+        log(f"probe: kernel and perf in {secs:.1f} s, launches {counts}")
+        bad = [k for k, v in {**res_k, **res_p}.items()
+               if not (np.isfinite(v) and v >= 0)]
+        if bad:
+            raise AssertionError(f"probe: non-finite or negative {bad}")
+        # K5 bf16 must sit within the plain bf16 field's band around the
+        # plain f32 field (the JAX probe's criterion), here 4x its max-abs
+        for key in ("static_sigma", "static_rgb", "static_feat"):
+            e_k = res_k[f"{key}_maxerr_kern16"]
+            e_p = res_k[f"{key}_maxerr_plain16"]
+            if not e_k <= PROBE_BAND * e_p:
+                raise AssertionError(f"probe kernel: K5 {key} max-abs "
+                                     f"{e_k:.3e} from f32, plain bf16 "
+                                     f"{e_p:.3e}")
+        if not res_k["fused_render_rgb_maxerr"] <= PROBE_RGB_TOL:
+            raise AssertionError("probe kernel: fused render rgb differs "
+                                 "from the unfused fine pass")
+        torch.cuda.empty_cache()
+
+    phase("probe", do_probe)
 
     def profiled(what, fn):
         """Run fn under torch.profiler; log the wall time, the device's
@@ -1034,44 +1157,6 @@ def path_inputs(model, ro, rd, dev, gen=None) -> dict:
                 R * n_s, -1).contiguous()
             out["dirs" + key] = d.reshape(R * n_s, 3).contiguous()
     return out
-
-
-def tower_flops(spec) -> dict:
-    """Matrix-product operations per sample (2 per multiply-add) that each
-    kernel's function needs. K1: the trunk and the sigma head. K3: the
-    whole forward, with the dir layer and the 3+F rgb/feature head. The
-    backwards recompute the forward without the head (K2), or with only
-    the 3 rgb columns that the composite's weights need (K4), then
-    backprop through the whole tower to the inputs, which takes as many
-    products as the whole forward. K5-K8 do the products of K1 (sigma
-    mode), K2, K3 and K4, plus the elementwise embedding (embed_ops). The
-    training variants, transient mode: "fwd_t" the whole forward with the
-    transient branch (t1 over final and the dir embedding, t2, t3, the 5
-    heads); "bwd_dw_t" its recompute without the rgb head, the products
-    back to the inputs, and one product per weight for dW, each as many
-    as the whole forward."""
-    E, Ed, Wd, Hd, C = (spec.emb_xyz, spec.emb_dir, spec.width, spec.half,
-                        spec.rgbfeat)
-    trunk = E * Wd + (spec.depth - 1) * Wd * Wd + Wd
-    trunk += sum(E * Wd for i in spec.skips if 0 < i < spec.depth)
-    body = trunk + Wd * Wd + (Wd + Ed) * Hd
-    full = body + Hd * C
-    trans = (Wd + Ed) * Hd + 2 * Hd * Hd + Hd * 5
-    return {"K1": 2 * trunk, "K2": 2 * (body + full), "K3": 2 * full,
-            "K4": 2 * (body + Hd * 3 + full),
-            "fwd_t": 2 * (full + trans),
-            "bwd_dw_t": 2 * ((body + trans) + 2 * (full + trans))}
-
-
-def embed_ops(spec) -> dict:
-    """f32 elementwise operations per sample of the raw kernels'
-    embedding, each sin or cos counted as one: forward 3 phases and 6
-    sin/cos per band and coordinate (x only: "xyz_fwd"; x and the
-    direction: "fwd"); the chain rule back to the inputs, per band and
-    coordinate 2 sin/cos, 3 products and 2 sums ("bwd")."""
-    nx, nd = spec.n_freqs_xyz, spec.n_freqs_dir
-    return {"xyz_fwd": 3 * 3 * nx, "fwd": 3 * 3 * (nx + nd),
-            "bwd": 3 * 7 * (nx + nd)}
 
 
 def chain(p, mode, emb, embd, backward, dw=False):

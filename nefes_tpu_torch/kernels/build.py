@@ -28,7 +28,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 
 # library name -> its .cu source; every library also includes these headers
-SOURCES = {"fused_field": "fused_field.cu", "fused_render": "fused_render.cu"}
+SOURCES = {"fused_field": "fused_field.cu", "fused_render": "fused_render.cu",
+           "micro": "micro.cu"}
 HEADERS = ("tower.cuh", "host_emulation.h")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -122,6 +123,8 @@ _SIGNATURES = {
     "nefes_render_bwd_pre": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _P, _P, _P, _P, _P],
     "nefes_render_smem_bytes": [_I] * 8,
+    "nefes_micro_chain": [_I] * 7 + [_P] * 4,
+    "nefes_micro_embed": [_I, _I, _I, _P, _P, _P],
 }
 # the raw-input entry points take the same arguments as their pre-embedded
 # counterparts (points and directions in place of the embeddings)
