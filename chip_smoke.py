@@ -2,12 +2,15 @@
 H100: the kernels build for sm_90a).
 
     python3 chip_smoke.py [--phases build,check,mode3,mode2,paths,train,time,micro,probe,profile]
+        [--parent DIR]
 
 Phases:
   build  compile the CUDA kernels from csrc/ (nvcc, one process per
-         source, in parallel) into nefes_tpu_torch/_build/
+         source, in parallel) into nefes_tpu_torch/_build/; with --parent
+         also DIR's fused_render.cu, in parallel
   check  K1-K8 against their plain PyTorch versions on the card, at the
-         shapes of the refinement's main path, in bf16 and f32; and the
+         shapes of the refinement's main path, in bf16 and f32 (K4/K8 also
+         at 64 rays of a depth-4, 16-feature field); and the
          training variants at the training shapes: K1/K5 in transient
          mode, K2/K6 with weight gradients in sigma, full and transient
          mode (every dW and bias gradient checked)
@@ -38,7 +41,11 @@ Phases:
   time   each kernel's time (CUDA events, median) beside its bound, its
          plain version's time and a bf16 torch.matmul chain over the same
          tower as a yardstick; the training variants at the fine training
-         shape, and the coarse pass's two training launches
+         shape, and the coarse pass's two training launches. With
+         --parent DIR (an earlier tree, unpacked with git archive into a
+         git-ignored directory): the render kernels K3, K4, K7 and K8 of
+         DIR and of this tree in turns on the same inputs, each of DIR's
+         checked against its plain version first
   micro  the probe's kernelmicro (nefes_tpu_torch/runtime/probe.py) at the
          fine-pass shape, N = 614,400 rows: K9 (bare bf16 8-layer chain)
          at tiles 64 (the field kernels' block), 512, 2048, 8192, K10 (2 and 4 sub-tiles interleaved),
@@ -70,6 +77,7 @@ import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -106,6 +114,10 @@ IMG_H, IMG_W, FOCAL_FULL = 4 * H, 4 * W, 4 * FOCAL
 # within PROBE_RGB_TOL (max-abs) of the unfused fine pass + compositor. On
 # an H100 the ratios read 0.06-0.79 and the rgb 2.6e-4 (PERF.md).
 PROBE_BAND, PROBE_RGB_TOL = 4.0, 3e-3
+# The first version of K4/K8 (two tower forwards per sample, f32 tiles,
+# composite in one thread), at the time phase's shape: PERF.md's times, an
+# H100 80GB HBM3 at 700 W; the time phase prints them beside the new ones.
+EARLIER_MS = {"K4 render_bwd_pre": 42.796, "K8 render_bwd": 43.761}
 # kernel -> (the TPU kernel it replaces, its CUDA source)
 _FF, _FR, _MC = ("nefes_tpu_torch/csrc/fused_field.cu",
                  "nefes_tpu_torch/csrc/fused_render.cu",
@@ -142,6 +154,9 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="build,check,mode3,mode2,paths,train,time,"
                     "micro,probe,profile")
+    ap.add_argument("--parent", default=None,
+                    help="an earlier tree whose render kernels the time "
+                    "phase times beside this tree's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run")
@@ -183,14 +198,43 @@ def main() -> int:
             failed.append(name)
         log(f"== {name} done in {time.perf_counter() - t0:.1f} s")
 
+    parent = ({} if args.parent is None else
+              dict(build_dir=build.BUILD_DIR / "parent",
+                   csrc=Path(args.parent) / "nefes_tpu_torch" / "csrc"))
+
     def do_build():
+        from concurrent.futures import ThreadPoolExecutor
         t0 = time.perf_counter()
-        times = build.build_all()
+        with ThreadPoolExecutor(2) as ex:
+            jobs = [ex.submit(build.build_all)]
+            if parent:
+                jobs.append(ex.submit(build.build_all, names=("fused_render",),
+                                      **parent))
+            times = [j.result() for j in jobs]
         log(f"built in {time.perf_counter() - t0:.1f} s: {times}")
-        for name in build.SOURCES:
-            for line in build.build_log(name).splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+        logs = [(name, {}) for name in build.SOURCES]
+        if parent:
+            logs.append(("fused_render", parent))
+        for name, where in logs:
+            entry = ""
+            for line in build.build_log(name, **where).splitlines():
+                if "Compiling entry function" in line:
+                    entry = kernel_label(line)
+                elif "registers" in line or "spill" in line:
+                    log(f"  ptxas {'parent ' if where else ''}{name} "
+                        f"{entry}: {line.strip()}")
+        # K4/K8 at the main path's shape (D8/W128/F128, 128 samples):
+        # dynamic shared memory of a block and blocks per SM
+        from nefes_tpu_torch.train.model import ModelConfig
+        lib = build.library("fused_render")
+        dims = kf.dims(kf.FieldSpec.from_model(ModelConfig(), "fine"))
+        S = N_C + N_F
+        for dt, code in (("bf16", 1), ("f32", 0)):
+            log(f"K4/K8 render_bwd {dt} at {S} samples: "
+                f"{lib.nefes_render_smem_bytes(code, 1, S, *dims)} B of "
+                f"shared memory a block, blocks per SM K4 "
+                f"{lib.nefes_render_bwd_blocks_per_sm(code, 0, S, *dims)} "
+                f"K8 {lib.nefes_render_bwd_blocks_per_sm(code, 1, S, *dims)}")
 
     phase("build", do_build)
     if "build" in failed:
@@ -288,9 +332,37 @@ def main() -> int:
                 compare(name, mode, dt, got, case(plain))
                 del got
             check_training(dt, m)
+            check_render_small(dt)
         # the time phase reads the bf16 inputs only
         del state["inputs"]["float32"], state["train_inputs"]["float32"]
         torch.cuda.empty_cache()
+
+    def check_render_small(dt):
+        """K4/K8 at other dims (depth 4, skip at 2, 16 features; the card
+        test's model) on 64 rays x 128 samples of random inputs."""
+        cfg = ModelConfig(depth=4, width=128, feature_dim=16, skips=(2,),
+                          dtype=kf._DTYPES[dt])
+        small = NeFeSModel(cfg, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            pf = small.pack_fused()[1]
+        sp, cd = pf.spec, kf._DTYPES[dt]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        R, S = 64, N_C + N_F
+        emb = torch.randn((R * S, sp.emb_xyz), device=dev, generator=gen)
+        embd = torch.randn((R * S, sp.emb_dir), device=dev, generator=gen)
+        z = torch.sort(torch.rand((R, S), device=dev, generator=gen) * 4,
+                       1).values
+        pts = torch.randn((R * S, 3), device=dev, generator=gen) * 1.5
+        dirs = torch.nn.functional.normalize(
+            torch.randn((R * S, 3), device=dev, generator=gen), dim=-1)
+        g = torch.randn((R, sp.rgbfeat + 2), device=dev, generator=gen)
+        args = (pf, emb.to(cd), embd.to(cd), z, g)
+        compare("K4 render_bwd_pre", "D4/F16 R=64", dt,
+                kr.render_bwd_pre(*args), kr.render_bwd_pre_plain(*args))
+        args = (pf, pts, dirs, z, g)
+        compare("K8 render_bwd", "D4/F16 R=64", dt, kr.render_bwd(*args),
+                kr.render_bwd_plain(*args))
 
     def check_training(dt, m):
         """The training variants at the training shapes: K1/K5 transient
@@ -891,11 +963,52 @@ def main() -> int:
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 flops=flops + ew, bytes=nbytes)
-            log(f"{name}: {ms:.3f} ms (bound {bound_ms:.4f} ms "
+            earlier = (f" (first version {EARLIER_MS[name]:.3f} ms, "
+                       f"PERF.md)" if name in EARLIER_MS else "")
+            log(f"{name}: {ms:.3f} ms{earlier} (bound {bound_ms:.4f} ms "
                 f"by {kernels[name]['bound_by']}: {flops / 1e9:.1f} GFLOP "
                 f"bf16 + {ew / 1e9:.3f} G f32 ops, {nbytes / 1e6:.1f} MB; "
                 f"{flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms, "
                 f"bf16 matmul chain {lib_ms:.3f} ms")
+        if parent:
+            time_parent(rows)
+
+    def time_parent(rows):
+        """K3, K4, K7, K8 of the --parent tree beside this tree's, on the
+        time phase's inputs: each of the parent's against its plain
+        version (relative L2), then both in turns (parent, this, this,
+        parent; 5 rounds, the median of each one's 10 times), both called
+        the same way (render_call), so the host's share is the same."""
+        libs = {"parent": build.library("fused_render", **parent),
+                "this": build.library("fused_render")}
+        ins = state["inputs"]["bfloat16"]
+        for name in ("K3 render_fwd_pre", "K4 render_bwd_pre",
+                     "K7 render_fwd", "K8 render_bwd"):
+            case, plain = rows[name][0], rows[name][2]
+            got = render_call(libs["parent"], name, ins, dev)
+            want = case(plain)
+            if torch.is_tensor(want):       # a forward's one output
+                want = (want,)
+            l2 = max(float((a.float() - b.float()).norm() / b.float().norm())
+                     for a, b in zip(got, want))
+            if not l2 <= TOL["bfloat16"]:
+                raise AssertionError(f"parent {name}: rel_l2 {l2:.3e}")
+            del got, want
+            fns = {k: (lambda lib=lib: render_call(lib, name, ins, dev))
+                   for k, lib in libs.items()}
+            times = {k: [] for k in fns}
+            for f in (*fns.values(), *fns.values()):     # warm
+                f()
+            for _ in range(5):
+                for k in ("parent", "this", "this", "parent"):
+                    times[k].append(event_ms(fns[k]))
+            ms = {k: statistics.median(v) for k, v in times.items()}
+            log(f"{name} in turns: this tree {ms['this']:.3f} ms, parent "
+                f"{ms['parent']:.3f} ms ({ms['parent'] / ms['this']:.2f}x; "
+                f"parent rel_l2 {l2:.3e}); times this "
+                f"{[round(t, 3) for t in times['this']]} parent "
+                f"{[round(t, 3) for t in times['parent']]}")
+            torch.cuda.empty_cache()
 
     @torch.no_grad()
     def time_coarse_training():
@@ -1075,6 +1188,53 @@ def finish(failed, kernels, smi) -> int:
     return 0
 
 
+def kernel_label(line: str) -> str:
+    """A short name for ptxas's 'Compiling entry function' line: the
+    mangled name's kernel, and for the render kernels their dtype and
+    input kind."""
+    name = line.split("'")[1] if "'" in line else line.strip()
+    for kern in ("render_bwd_kernel", "render_fwd_kernel"):
+        if kern in name:
+            return (f"{kern}<{'bf16' if 'nv_bfloat16' in name else 'f32'},"
+                    f"{'raw' if 'Lb1' in name else 'pre'}>")
+    return name
+
+
+# each render kernel's entry point: (name, raw, backward)
+_RENDER_ENTRY = {"K3 render_fwd_pre": ("nefes_render_fwd_pre", False, False),
+            "K4 render_bwd_pre": ("nefes_render_bwd_pre", False, True),
+            "K7 render_fwd": ("nefes_render_fwd_raw", True, False),
+            "K8 render_bwd": ("nefes_render_bwd_raw", True, True)}
+
+
+def render_call(lib, name, ins, dev):
+    """One launch of render kernel `name` from the fused_render library
+    `lib` (this tree's or another's) on the main path's bf16 inputs `ins`
+    (the backward with their g_ray), with the arguments the wrappers pass
+    but none of their checks or launch counts; its outputs."""
+    from nefes_tpu_torch.kernels import fused_field as kf
+    fn, raw, backward = _RENDER_ENTRY[name]
+    pf = ins["packed"][1]
+    sp, z, f32 = pf.spec, ins["z"], torch.float32
+    R, S = z.shape
+    x, xd = (ins["pts"], ins["dirs"]) if raw else (ins["emb"], ins["embd"])
+    if backward:
+        width, dt = ((3, 3), f32) if raw else ((sp.emb_xyz, sp.emb_dir),
+                                               sp.torch_dtype)
+        outs = [torch.empty((R * S, n), dtype=dt, device=dev) for n in width]
+        outs.append(torch.empty((R, S), dtype=f32, device=dev))
+        args = (pf.w, pf.wt, pf.b, *kf.dims(sp), ins["g_ray"])
+    else:
+        outs = [torch.empty((R, sp.rgbfeat + 2), dtype=f32, device=dev)]
+        args = (pf.w, pf.b, *kf.dims(sp))
+    args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+    err = getattr(lib, fn)(kf._DTYPE_CODE[sp.torch_dtype], R, S,
+                           x.data_ptr(), xd.data_ptr(), z.data_ptr(), *args,
+                           *[o.data_ptr() for o in outs], kf._stream())
+    kf.raise_on(err, fn)
+    return outs
+
+
 def replace_cfg(cfg, **kw):
     from dataclasses import replace
     return replace(cfg, **kw)
@@ -1227,20 +1387,22 @@ def chain(p, mode, emb, embd, backward, dw=False):
     return d_emb, g_embd, dws
 
 
+def event_ms(fn) -> float:
+    """One call of fn, timed with CUDA events (ms)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
 def time_ms(fn, reps: int = 5) -> float:
     """Median of `reps` timed calls (CUDA events) after two warm calls."""
     for _ in range(2):
         fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return statistics.median(event_ms(fn) for _ in range(reps))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 // Composite-fused fine render on Hopper: K3 (forward) and K4 (frozen-field
-// recompute backward) on pre-embedded inputs, K7 and K8 on raw points and
+// backward) on pre-embedded inputs, K7 and K8 on raw points and
 // directions that each tile embeds itself.
 //
 // K3 replaces run_fwd / _render_fwd_kernel_pre of make_fused_render_pre
@@ -8,53 +8,63 @@
 // K7 replaces run_fwd / _render_fwd_kernel of make_fused_render
 // (fused_render.py:208-223, 116-133) and K8 its run_bwd /
 // _render_bwd_kernel (fused_render.py:225-244, 136-195): the same two
-// kernels with tower.cuh's embedding prologue in place of the row loads
-// and, in K8, its chain-rule epilogue giving d_pts and d_dirs per sample
-// (the phases recomputed, not kept: shared memory is as in K3/K4).
+// kernels with the embedding computed in the kernel in place of the row
+// loads and, in K8, the chain-rule epilogue giving d_pts and d_dirs per
+// sample (the phases recomputed from the points, not kept).
 //
-// One block renders one ray: the tower (tower.cuh) runs over the ray's S
-// samples in tiles of TR = 64, and the volume composite runs inside the
-// block. The TPU kernel's selector-matmul folds and triangular-matmul
-// cumsum are Mosaic layout workarounds; here the transmittance scan and
-// the backward's suffix sum are a serial loop over the ray's S samples in
-// one thread (microseconds, against the tower's milliseconds per block).
-// Bound on an H100: operations, as for the field kernels; the per-ray
-// output is only 3 + F + 2 floats.
+// One block renders one ray. The TPU kernel's selector-matmul folds and
+// triangular-matmul cumsum are Mosaic layout workarounds; here the
+// transmittance is a prefix sum over the ray's samples. Bound on an H100:
+// operations (about 0.33 MFLOP per sample forward, twice that backward);
+// the per-ray output is only 3 + F + 2 floats.
 //
-// K4 keeps no per-sample state between its two passes beyond sigma, rgb,
-// the composite weights and the sigma cotangent: pass 1 recomputes sigma
-// and rgb for every sample (the composite backward needs the whole ray),
-// pass 2 recomputes the tower per tile with its ReLU bits and runs the
-// tower backward.
+// K3/K7 (render_fwd_kernel): the tower of tower.cuh over the ray's S
+// samples in tiles of TR = 64, the composite in one thread.
+//
+// K4/K8 (render_bwd_kernel): render_bwd.cuh's path. What bounded the
+// first version (42.8 ms for 4,800 rays x 128 samples on an H100 at
+// 700 W, 0.94 % of the bound) was surplus and latency, not the tensor
+// cores: it ran the tower forward twice per sample (once for sigma and
+// rgb, once per tile for the ReLU bits), held a whole SM's shared memory
+// in f32 activations, ran the composite backward in one thread while 255
+// waited, and fed mma.sync from f32 shared memory with bank conflicts and
+// B from L1. Now pass 1 runs the forward once per sample and keeps, per
+// sample, the ReLU bits of every hidden layer and of the dir layer, the
+// sigma pre-activation and rgb (D8/W128: 34 words and 4 floats, 152
+// bytes); warp 0 runs the composite and its backward as warp scans; pass
+// 2 runs only the tower backward from that state. Each warp owns 16
+// samples through every layer, activations in bf16; the products are
+// mma.sync fed by ldmatrix from conflict-free padded rows, the weights
+// staged matrix by matrix by cp.async into two shared-memory stages, the
+// next loading while the current one's products run. The per-sample state
+// (172 bytes with the composite's) stays in shared memory for the whole
+// ray, beside the fixed stages and warp tiles: at D8/W128 a block holds
+// 269 samples in bf16 and 204 in f32 (K3/K7: 237 in either);
+// _check_render refuses more.
 //
 // Plain C interface, loaded with ctypes: each entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
-#include "tower.cuh"
+#include "render_bwd.cuh"
 
 namespace nefes {
 
-// per-ray buffers after the tower tile in shared memory
+// per-ray buffers of the forward after the tower tile in shared memory
 struct RaySmem {
   float* sig;    // S   sigma (post-softplus)
   float* z;      // S
   float* wgt;    // S   composite weights
-  float* rf;     // S x C rgb+features (forward) | S x 3 rgb (backward)
-  float* dsig;   // S   sigma cotangent (backward)
-  float* tmp;    // S   transmittance, then delta cotangent (backward)
+  float* rf;     // S x C rgb+features
 };
 
-__host__ __device__ inline size_t carve_ray(const Dims& d, bool backward, int S, char* base,
-                                            Smem* s, RaySmem* rs) {
-  size_t off = carve(d, backward, FULL, false, base, s);
-  const int C = 3 + d.F;
+__host__ __device__ inline size_t carve_ray(const Dims& d, int S, char* base, Smem* s,
+                                            RaySmem* rs) {
+  size_t off = carve(d, false, FULL, false, base, s);
   RaySmem t;
   t.sig = take(base, &off, S);
   t.z = take(base, &off, S);
   t.wgt = take(base, &off, S);
-  t.rf = take(base, &off, (size_t)S * (backward ? 3 : C));
-  t.dsig = backward ? take(base, &off, S) : nullptr;
-  t.tmp = backward ? take(base, &off, S) : nullptr;
+  t.rf = take(base, &off, (size_t)S * (3 + d.F));
   if (rs) *rs = t;
   return off;
 }
@@ -79,16 +89,13 @@ __device__ void ray_forward(const Tower<T>& tw, const Smem& s, const RaySmem& rs
 }
 
 // Composite weights w_i = alpha_i * T_i with log-space transmittance
-// T_i = exp(sum_{j<i} log(max(1 - alpha_j, 1e-10))); T_i goes to trans
-// when given. One thread.
-__device__ inline void composite_weights(const RaySmem& rs, int S, float* trans) {
+// T_i = exp(sum_{j<i} log(max(1 - alpha_j, 1e-10))). One thread.
+__device__ inline void composite_weights(const RaySmem& rs, int S) {
   float log_t = 0.f;
   for (int i = 0; i < S; ++i) {
     const float delta = i + 1 < S ? rs.z[i + 1] - rs.z[i] : DELTA_INF;
     const float alpha = 1.f - expf(-delta * rs.sig[i]);
-    const float t = expf(log_t);
-    if (trans) trans[i] = t;
-    rs.wgt[i] = alpha * t;
+    rs.wgt[i] = alpha * expf(log_t);
     log_t += logf(fmaxf(1.f - alpha, LOG_EPS));
   }
 }
@@ -101,13 +108,13 @@ render_fwd_kernel(Tower<T> tw, int S, const void* __restrict__ x, const void* __
   extern __shared__ __align__(16) char nefes_smem[];
   Smem s;
   RaySmem rs;
-  carve_ray(tw.d, false, S, nefes_smem, &s, &rs);
+  carve_ray(tw.d, S, nefes_smem, &s, &rs);
   const int ray = blockIdx.x;
   const int C = 3 + tw.d.F;
   for (int i = threadIdx.x; i < S; i += blockDim.x) rs.z[i] = z[(size_t)ray * S + i];
   ray_forward<T, RAW>(tw, s, rs, S, (size_t)ray * S, x, dirs, C);
 
-  if (threadIdx.x == 0) composite_weights(rs, S, nullptr);
+  if (threadIdx.x == 0) composite_weights(rs, S);
   __syncthreads();
   float* o = out + (size_t)ray * (C + 2);
   for (int c = threadIdx.x; c < C + 2; c += blockDim.x) {
@@ -126,64 +133,34 @@ render_fwd_kernel(Tower<T> tw, int S, const void* __restrict__ x, const void* __
 // channels, depth and acc feed the cotangent of the composite weights;
 // the features reach only the head.
 template <typename T, bool RAW>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 render_bwd_kernel(Tower<T> tw, int S, const void* __restrict__ x, const void* __restrict__ dirs,
                   const float* __restrict__ z, const float* __restrict__ g,
                   void* __restrict__ dx, void* __restrict__ ddirs, float* __restrict__ d_z) {
   extern __shared__ __align__(16) char nefes_smem[];
-  Smem s;
-  RaySmem rs;
-  carve_ray(tw.d, true, S, nefes_smem, &s, &rs);
-  const int ray = blockIdx.x;
-  const int C = 3 + tw.d.F;
-  const size_t sample0 = (size_t)ray * S;
-  const float* gr = g + (size_t)ray * (C + 2);
-  for (int i = threadIdx.x; i < S; i += blockDim.x) rs.z[i] = z[sample0 + i];
-  ray_forward<T, RAW>(tw, s, rs, S, sample0, x, dirs, 3);
+  RayBwd rb;
+  carve_bwd(tw.d, tw.L, sizeof(T), S, nefes_smem, &rb);
+  const int C = 3 + tw.d.F, tiles = (S + BT - 1) / BT, warp = threadIdx.x >> 5;
+  const size_t sample0 = (size_t)blockIdx.x * S;
+  Stager<T> st(tw, rb, tiles);
+  for (int i = threadIdx.x; i < S; i += blockDim.x) rb.z[i] = z[sample0 + i];
+  for (int c = threadIdx.x; c < C + 2; c += blockDim.x) rb.gr[c] = g[blockIdx.x * (C + 2) + c];
 
-  if (threadIdx.x == 0) {
-    composite_weights(rs, S, rs.tmp);
-    const float g_depth = gr[C], g_acc = gr[C + 1];
-    float suffix = 0.f;   // sum_{k > i} d_w_k * w_k
-    for (int i = S - 1; i >= 0; --i) {
-      const float* rgb = rs.rf + i * 3;
-      const float d_w = (rgb[0] * gr[0] + rgb[1] * gr[1] + rgb[2] * gr[2])
-                        + rs.z[i] * g_depth + g_acc;
-      const float delta = i + 1 < S ? rs.z[i + 1] - rs.z[i] : DELTA_INF;
-      const float sig = rs.sig[i];
-      const float alpha = 1.f - expf(-delta * sig);
-      const float d_alpha = d_w * rs.tmp[i] - suffix / fmaxf(1.f - alpha, LOG_EPS);
-      suffix += d_w * rs.wgt[i];
-      const float exp_term = expf(-delta * sig);
-      rs.dsig[i] = d_alpha * delta * exp_term;
-      // the last delta is the constant tail: no z cotangent
-      rs.tmp[i] = i + 1 < S ? d_alpha * sig * exp_term : 0.f;
-    }
-    // delta_i = z_{i+1} - z_i  =>  d_z_i = w_i g_depth + d_delta_{i-1} - d_delta_i
-    for (int i = 0; i < S; ++i)
-      d_z[sample0 + i] = (rs.wgt[i] * g_depth + (i > 0 ? rs.tmp[i - 1] : 0.f)) - rs.tmp[i];
-  }
+  for (int t = 0; t < tiles; ++t)
+    for (int wp = warp; wp < WARPS; wp += WARP_STEP)
+      warp_forward<T, RAW>(tw, rb, st, wp, t * BT + wp * WR, S, sample0, x, dirs);
   __syncthreads();
-
-  for (int t0 = 0; t0 < S; t0 += TR) {
-    const int valid = S - t0 < TR ? S - t0 : TR;
-    const size_t row0 = sample0 + t0;
-    tile_inputs<T, RAW>(tw.d, s, x, dirs, true, row0, valid);
-    tower_forward<T>(tw, s, FULL, true, 0, [](int, int, float) {});
-    const float* dsig = rs.dsig + t0;
-    const float* wgt = rs.wgt + t0;
-    tower_backward<T>(
-        tw, s, FULL, [=](int r) { return r < valid ? dsig[r] : 0.f; },
-        [=](int r, int c) { return r < valid ? wgt[r] * gr[c] : 0.f; }, NoGrad{},
-        DwOut<T>{nullptr, nullptr, nullptr});
-    tile_input_grads<T, RAW>(tw.d, s, x, dirs, true, dx, ddirs, row0, valid);
-  }
+  if (warp == 0) ray_composite(rb, S, C, d_z + sample0);
+  __syncthreads();
+  for (int t = 0; t < tiles; ++t)
+    for (int wp = warp; wp < WARPS; wp += WARP_STEP)
+      warp_backward<T, RAW>(tw, rb, st, wp, t * BT + wp * WR, S, sample0, x, dirs, dx, ddirs);
 }
 
 template <typename T, bool RAW>
 int launch_fwd(int R, int S, const void* x, const void* dirs, const float* z, const void* w,
                const float* b, Dims d, float* out, void* stream) {
-  const size_t smem = carve_ray(d, false, S, nullptr, nullptr, nullptr);
+  const size_t smem = carve_ray(d, S, nullptr, nullptr, nullptr);
   auto* kern = &render_fwd_kernel<T, RAW>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -196,7 +173,7 @@ template <typename T, bool RAW>
 int launch_bwd(int R, int S, const void* x, const void* dirs, const float* z, const void* w,
                const void* wt, const float* b, Dims d, const float* g, void* dx, void* ddirs,
                float* d_z, void* stream) {
-  const size_t smem = carve_ray(d, true, S, nullptr, nullptr, nullptr);
+  const size_t smem = carve_bwd(d, make_layout(d), sizeof(T), S, nullptr, nullptr);
   auto* kern = &render_bwd_kernel<T, RAW>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -271,9 +248,39 @@ extern "C" int nefes_render_bwd_raw(int dtype, int R, int S, const float* pts,
                                  stream);
 }
 
-// Shared-memory bytes one block of each kernel asks for.
-extern "C" int nefes_render_smem_bytes(int backward, int S, int depth, int width, int skipmask,
-                                       int E, int Ed, int F) {
+// Shared-memory bytes one block of each kernel asks for; dtype as above
+// (the forward's do not depend on it).
+extern "C" int nefes_render_smem_bytes(int dtype, int backward, int S, int depth, int width,
+                                       int skipmask, int E, int Ed, int F) {
   const Dims d{depth, width, skipmask, E, Ed, F};
-  return (int)nefes::carve_ray(d, backward != 0, S, nullptr, nullptr, nullptr);
+  return (int)(backward ? nefes::carve_bwd(d, nefes::make_layout(d), dtype == 1 ? 2 : 4, S,
+                                           nullptr, nullptr)
+                        : nefes::carve_ray(d, S, nullptr, nullptr, nullptr));
+}
+
+// Blocks of the backward (K4, or RAW K8) one SM holds at S samples per
+// ray, from the occupancy calculator; -1 on an error.
+extern "C" int nefes_render_bwd_blocks_per_sm(int dtype, int raw, int S, int depth, int width,
+                                              int skipmask, int E, int Ed, int F) {
+#ifdef NEFES_EMULATE
+  return 1;
+#else
+  const Dims d{depth, width, skipmask, E, Ed, F};
+  const size_t smem =
+      nefes::carve_bwd(d, nefes::make_layout(d), dtype == 1 ? 2 : 4, S, nullptr, nullptr);
+  auto blocks = [&](auto kern) {
+    int n = -1;
+    if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, nefes::NT, smem) != cudaSuccess)
+      return -1;
+    return n;
+  };
+  using bf16 = __nv_bfloat16;
+  if (dtype == 1)
+    return raw ? blocks(&nefes::render_bwd_kernel<bf16, true>)
+               : blocks(&nefes::render_bwd_kernel<bf16, false>);
+  return raw ? blocks(&nefes::render_bwd_kernel<float, true>)
+             : blocks(&nefes::render_bwd_kernel<float, false>);
+#endif
 }

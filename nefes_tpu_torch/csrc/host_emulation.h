@@ -16,7 +16,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __shared__
 #define __align__(n)
 

@@ -38,13 +38,17 @@
 // on the CUDA cores, each thread computing 4x4 micro-tiles with FMA. This
 // first version is far from the bound: the A fragments are rebuilt from
 // f32 shared memory with bank conflicts, the B fragments come from L1,
-// and one block of 256 threads holds a whole SM's shared memory in the
-// render kernels.
+// and in the render forward (K3/K7) one block of 256 threads holds a
+// whole SM's shared memory. The render backward (K4/K8) no longer uses
+// this path: render_bwd.cuh runs the forward once per sample, keeps the
+// backward's per-sample state (ReLU bits, sigma pre-activation, rgb) for
+// the whole ray, and runs its products from bf16 tiles with the weights
+// staged in shared memory.
 //
-// The backward stores no activations: it recomputes the forward for the
-// tile and keeps one ReLU bit per unit and layer, plus the dir-layer output
-// and the sigma pre-activation (and, in transient mode, the three 64-wide
-// transient layers and their head pre-activations). The dW products
+// The field backward stores no activations: it recomputes the forward for
+// the tile and keeps one ReLU bit per unit and layer, plus the dir-layer
+// output and the sigma pre-activation (and, in transient mode, the three
+// 64-wide transient layers and their head pre-activations). The dW products
 // contract over the tile's rows: bf16 on the tensor cores (mma.sync, as
 // the forward), f32 on the CUDA cores; the per-tile read-modify-write of
 // the partial slice costs one pass over the weights' gradients per tile.
@@ -502,24 +506,20 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 // are the full-precision sinf/cosf, whose argument reduction holds at the
 // hundreds of radians the top band reaches (the __sinf intrinsic does
 // not). Rows at or past `valid` read as zero.
+// Column c of the embedding of one point xr (3 f32), unrounded.
+__device__ __forceinline__ float embed_value(const float* __restrict__ xr, int c) {
+  if (c < 3) return xr[c];
+  const int k = (c - 3) / 6, m = (c - 3) - 6 * k;
+  const float ph = ldexpf(xr[m % 3], k);
+  return m < 3 ? sinf(ph) : cosf(ph);
+}
+
 template <typename T>
 __device__ __forceinline__ void embed_tile(float* dst, const float* __restrict__ x, size_t row0,
                                            int valid, int C) {
   for (int i = threadIdx.x; i < TR * C; i += blockDim.x) {
     const int r = i / C, c = i - r * C;
-    float v = 0.f;
-    if (r < valid) {
-      const float* xr = x + (row0 + r) * 3;
-      if (c < 3) {
-        v = xr[c];
-      } else {
-        const int k = (c - 3) / 6, m = (c - 3) - 6 * k;
-        const float ph = ldexpf(xr[m % 3], k);
-        v = m < 3 ? sinf(ph) : cosf(ph);
-      }
-      v = rnd<T>(v);
-    }
-    dst[i] = v;
+    dst[i] = r < valid ? rnd<T>(embed_value(x + (row0 + r) * 3, c)) : 0.f;
   }
 }
 
@@ -528,20 +528,23 @@ __device__ __forceinline__ void embed_tile(float* dst, const float* __restrict__
 // rows back to dx (rows, 3) f32, dx_i = de_i + sum_k 2^k (de_sin(k, i)
 // cos(2^k x_i) - de_cos(k, i) sin(2^k x_i)), the phases recomputed from x
 // rather than kept.
+// Coordinate j of one point's cotangent from its embedding's cotangent d
+// (C = 3 + 6 nf f32 values), the point's coordinate xv given.
+__device__ __forceinline__ float embed_grad(const float* d, float xv, int j, int C) {
+  float acc = d[j];
+  for (int k = 0; k < (C - 3) / 6; ++k) {
+    const float ph = ldexpf(xv, k);
+    acc += ldexpf(d[3 + 6 * k + j] * cosf(ph) - d[6 + 6 * k + j] * sinf(ph), k);
+  }
+  return acc;
+}
+
 __device__ __forceinline__ void embed_backward_tile(const float* de, const float* __restrict__ x,
                                                     float* __restrict__ dx, size_t row0,
                                                     int valid, int C) {
-  const int nf = (C - 3) / 6;
   for (int i = threadIdx.x; i < valid * 3; i += blockDim.x) {
     const int r = i / 3, j = i - 3 * r;
-    const float xv = x[(row0 + r) * 3 + j];
-    const float* d = de + r * C;
-    float acc = d[j];
-    for (int k = 0; k < nf; ++k) {
-      const float ph = ldexpf(xv, k);
-      acc += ldexpf(d[3 + 6 * k + j] * cosf(ph) - d[6 + 6 * k + j] * sinf(ph), k);
-    }
-    dx[(row0 + r) * 3 + j] = acc;
+    dx[(row0 + r) * 3 + j] = embed_grad(de + r * C, x[(row0 + r) * 3 + j], j, C);
   }
 }
 
@@ -969,11 +972,5 @@ __device__ void tower_backward(const Tower<T>& tw, const Smem& s, int mode, GSig
   }
   __syncthreads();
 }
-
-// A tower_backward gradient source that is never read (the render
-// kernels run in FULL mode without transient heads).
-struct NoGrad {
-  __device__ float operator()(int, int) const { return 0.f; }
-};
 
 }  // namespace nefes

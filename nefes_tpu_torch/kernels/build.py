@@ -9,7 +9,9 @@ runs at import time: the CPU tests import every module of the package.
 With ``emulate=True`` the same sources are compiled for the host with the
 C++ compiler under NEFES_EMULATE (csrc/host_emulation.h): every block then
 runs on one thread, which checks the kernels' arithmetic and indexing on
-the CPU.
+the CPU. ``csrc`` builds the sources of another tree's csrc/ instead (an
+earlier commit unpacked beside this one, to time its kernels against
+these), into a build directory of its own.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ BUILD_DIR = PKG / "_build"
 # library name -> its .cu source; every library also includes these headers
 SOURCES = {"fused_field": "fused_field.cu", "fused_render": "fused_render.cu",
            "micro": "micro.cu"}
-HEADERS = ("tower.cuh", "host_emulation.h")
+HEADERS = ("tower.cuh", "render_bwd.cuh", "host_emulation.h")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -49,43 +51,48 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib_path(name: str, emulate: bool, build_dir: Path) -> Path:
+def _lib_path(name: str, emulate: bool, build_dir: Path,
+              csrc: Path = CSRC) -> Path:
     h = hashlib.sha256()
     for f in (SOURCES[name], *HEADERS):
-        h.update((CSRC / f).read_bytes())
+        if (csrc / f).exists():     # an earlier tree may lack a header
+            h.update((csrc / f).read_bytes())
     h.update(" ".join(HOST_FLAGS if emulate else NVCC_FLAGS).encode())
     tag = "host" if emulate else "sm90a"
     return build_dir / f"lib{name}-{tag}-{h.hexdigest()[:12]}.so"
 
 
-def _command(name: str, emulate: bool, out: Path) -> list[str]:
-    src = str(CSRC / SOURCES[name])
+def _command(name: str, emulate: bool, out: Path, csrc: Path) -> list[str]:
+    src = str(csrc / SOURCES[name])
     if emulate:
         cxx = shutil.which("c++") or shutil.which("g++")
         if cxx is None:
             raise RuntimeError("no host C++ compiler for the emulated build")
-        return [cxx, *HOST_FLAGS, "-I", str(CSRC), "-o", str(out), src]
-    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), src]
+        return [cxx, *HOST_FLAGS, "-I", str(csrc), "-o", str(out), src]
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-o", str(out), src]
 
 
-def build_all(emulate: bool = False, build_dir: Path | None = None) -> dict:
-    """Compile every library that is missing, all compilers started
-    together. Returns {name: seconds} for the ones compiled (0.0 where the
-    library was already built); raises with the compiler's log on a
-    failure. The compiler output (nvcc -Xptxas -v: registers and shared
-    memory per kernel) is kept beside each library as a .log file."""
+def build_all(emulate: bool = False, build_dir: Path | None = None,
+              csrc: Path | None = None, names=tuple(SOURCES)) -> dict:
+    """Compile every library of `names` that is missing, all compilers
+    started together. Returns {name: seconds} for the ones compiled (0.0
+    where the library was already built); raises with the compiler's log
+    on a failure. The compiler output (nvcc -Xptxas -v: registers and
+    shared memory per kernel) is kept beside each library as a .log
+    file."""
     build_dir = Path(build_dir or BUILD_DIR)
+    csrc = Path(csrc or CSRC)
     build_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     times = {}
-    for name in SOURCES:
-        out = _lib_path(name, emulate, build_dir)
+    for name in names:
+        out = _lib_path(name, emulate, build_dir, csrc)
         if out.exists():
             times[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
-        procs[name] = (subprocess.Popen(_command(name, emulate, tmp),
+        procs[name] = (subprocess.Popen(_command(name, emulate, tmp, csrc),
                                         stdout=log, stderr=subprocess.STDOUT),
                        tmp, out, log, time.perf_counter())
     failed = []
@@ -104,8 +111,10 @@ def build_all(emulate: bool = False, build_dir: Path | None = None) -> dict:
     return times
 
 
-def build_log(name: str, emulate: bool = False) -> str:
-    p = _lib_path(name, emulate, BUILD_DIR).with_suffix(".log")
+def build_log(name: str, emulate: bool = False,
+              build_dir: Path | None = None, csrc: Path | None = None) -> str:
+    p = _lib_path(name, emulate, Path(build_dir or BUILD_DIR),
+                  Path(csrc or CSRC)).with_suffix(".log")
     return p.read_text() if p.exists() else ""
 
 
@@ -122,7 +131,8 @@ _SIGNATURES = {
                              _I, _I, _P, _P],
     "nefes_render_bwd_pre": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _P, _P, _P, _P, _P],
-    "nefes_render_smem_bytes": [_I] * 8,
+    "nefes_render_smem_bytes": [_I] * 9,
+    "nefes_render_bwd_blocks_per_sm": [_I] * 9,
     "nefes_micro_chain": [_I] * 7 + [_P] * 4,
     "nefes_micro_embed": [_I, _I, _I, _P, _P, _P],
 }
@@ -132,16 +142,18 @@ for _k in ("field_fwd", "field_bwd", "render_fwd", "render_bwd"):
     _SIGNATURES[f"nefes_{_k}_raw"] = _SIGNATURES[f"nefes_{_k}_pre"]
 
 
-def library(name: str, emulate: bool = False,
-            build_dir: Path | None = None) -> ctypes.CDLL:
-    """The loaded library `name` (built first if needed), with argtypes
-    set: every pointer and the stream as c_void_p, so ctypes does not cut
-    them to 32 bits."""
+def library(name: str, emulate: bool = False, build_dir: Path | None = None,
+            csrc: Path | None = None) -> ctypes.CDLL:
+    """The loaded library `name` (built first if needed, with every other
+    library of this tree; only `name` from another tree's `csrc`), with
+    argtypes set: every pointer and the stream as c_void_p, so ctypes does
+    not cut them to 32 bits."""
     bdir = Path(build_dir or BUILD_DIR)
-    path = _lib_path(name, emulate, bdir)
+    path = _lib_path(name, emulate, bdir, Path(csrc or CSRC))
     if path not in _loaded:
         if not path.exists():
-            build_all(emulate, bdir)
+            build_all(emulate, bdir, csrc,
+                      tuple(SOURCES) if csrc is None else (name,))
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in _SIGNATURES.items():
             if hasattr(lib, fn):

@@ -131,7 +131,8 @@ def _check_render(p: PackedField, x, dirs, z, backward: bool, raw: bool):
         check(dirs, "embd", (R * S, spec.emb_dir), cd, dev)
     check(z, "z", (R, S), torch.float32, dev)
     lib = build.library("fused_render")
-    smem = lib.nefes_render_smem_bytes(int(backward), S, *dims(spec))
+    smem = lib.nefes_render_smem_bytes(_DTYPE_CODE[cd], int(backward), S,
+                                       *dims(spec))
     if smem > 232448:
         raise ValueError(f"{S} samples per ray need {smem} bytes of shared "
                          "memory, above a block's 232448")

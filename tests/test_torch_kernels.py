@@ -18,7 +18,9 @@ their plain versions are held to the JAX package in test_torch_raw.py).
    in-kernel embedding and its chain rule (sinf/cosf of the C library
    against torch's), the transient heads, and the weight gradients of
    K2/K6 (the persistent grid's partial slices and their reduction, with
-   several slices and one), checked without a card.
+   several slices and one), checked without a card. The render kernels'
+   shared memory against a block's 232,448 bytes, and the build of
+   another tree's sources (chip_smoke.py --parent).
    The host build refuses bf16: bf16 runs on the tensor cores, which only
    the card has, so bf16 is checked by 3.
 3. On a card (marked cuda; skipped on a machine without one): each kernel
@@ -390,15 +392,25 @@ def test_field_source_dw_matches_plain(N, raw, slices, host_build):
         _scaled_close(dw[nw:], want[2][nw:], tol, f"db mode {mode}")
 
 
-# S samples per ray: 70 is a whole tile and a ragged one (64 + 6), 128
-# the main path's two whole tiles
+# S samples per ray: 70 is a whole tile and a ragged one (64 + 6) of the
+# forward and part of one backward block tile (128 samples, 16 a warp),
+# 128 the main path's, 192 three forward tiles and one and a half
+# backward block tiles (the per-ray state spans both), 1 a single sample
+# (the composite's warp scans hold one element)
 @pytest.mark.parametrize("S,raw", [
     pytest.param(70, False, id="float32"),
     pytest.param(128, False, id="float32-whole-tiles"),
+    pytest.param(192, False, id="float32-three-tiles"),
+    pytest.param(1, False, id="float32-one-sample"),
     pytest.param(70, True, id="raw-float32"),
-    pytest.param(128, True, id="raw-float32-whole-tiles")])
+    pytest.param(128, True, id="raw-float32-whole-tiles"),
+    pytest.param(192, True, id="raw-float32-three-tiles"),
+    pytest.param(1, True, id="raw-float32-one-sample")])
 def test_render_source_matches_plain(S, raw, host_build):
-    """K3/K4, or with raw K7/K8, against their plain versions."""
+    """K3/K4, or with raw K7/K8, against their plain versions. The
+    backward's composite sums its transmittance and suffix terms as warp
+    scans over chunks of 32 samples, the plain version sample by sample:
+    the two orders differ by f32 rounding, within the scaled 1e-5."""
     spec, p, gen = _emulated_case()
     lib = build.library("fused_render", emulate=True, build_dir=host_build)
     fwd = getattr(lib, f"nefes_render_fwd_{_KIND[raw]}")
@@ -423,6 +435,101 @@ def test_render_source_matches_plain(S, raw, host_build):
     assert err == 0
     for o, w in zip(d, plain_bwd(p, x, dirs, z, g)):
         _scaled_close(o, w, tol)
+
+
+# the shared memory of one K4/K8 block at the main path's shape (D8/W128,
+# 128 samples, bf16) as PERF.md states it
+K4_SMEM_BYTES = 208032
+BLOCK_SMEM_MAX = 232448
+
+
+def test_render_bwd_smem_fits_one_block(host_build):
+    """The backward's shared memory at the full-width ModelConfig() and
+    128 samples per ray: one block fits an H100 SM, in bf16 (the main
+    path) and in f32, and the bf16 figure is PERF.md's."""
+    from nefes_tpu_torch.train.model import ModelConfig
+    lib = build.library("fused_render", emulate=True, build_dir=host_build)
+    spec = kf.FieldSpec.from_model(ModelConfig(), "fine")
+    bf16 = lib.nefes_render_smem_bytes(1, 1, 128, *kf.dims(spec))
+    f32 = lib.nefes_render_smem_bytes(0, 1, 128, *kf.dims(spec))
+    assert bf16 == K4_SMEM_BYTES <= BLOCK_SMEM_MAX
+    assert bf16 < f32 <= BLOCK_SMEM_MAX
+    # the per-ray state grows with S; the forward keeps its own carve-up
+    assert lib.nefes_render_smem_bytes(1, 1, 192, *kf.dims(spec)) > bf16
+    assert lib.nefes_render_smem_bytes(1, 0, 128, *kf.dims(spec)) != bf16
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_check_render_raises_past_the_smem_budget(backward, host_build,
+                                                  monkeypatch):
+    """_check_render passes an S whose block fits 232,448 bytes and
+    raises for one that does not, before any launch."""
+    spec, p, gen = _emulated_case()
+    lib = build.library("fused_render", emulate=True, build_dir=host_build)
+    monkeypatch.setattr(kr.build, "library", lambda name: lib)
+    fits = [S for S in (256, 1024, 4096)
+            if lib.nefes_render_smem_bytes(0, int(backward), S,
+                                           *kf.dims(spec)) <= BLOCK_SMEM_MAX]
+    assert fits == [256, 1024]
+    for S in (1024, 4096):
+        x, dirs, _, _ = _inputs(gen, spec, S, False)
+        z = torch.sort(torch.rand((1, S), generator=gen), 1).values
+        if S in fits:
+            kr._check_render(p, x, dirs, z, backward, False)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                kr._check_render(p, x, dirs, z, backward, False)
+
+
+# The most samples per ray one block holds at the full-width ModelConfig()
+# (D8/W128/F128), as PERF.md states them, for K3/K7 (backward False: the
+# per-ray rgb and features in f32) and K4/K8 (True: the per-sample state
+# of the one-forward backward beside the weight stages and warp tiles)
+MAX_SAMPLES = {("bfloat16", False): 237, ("bfloat16", True): 269,
+               ("float32", False): 237, ("float32", True): 204}
+
+
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_render_max_samples_at_full_width(dt, host_build, monkeypatch):
+    """At the full-width ModelConfig(), the largest S per ray whose block
+    fits 232,448 bytes is PERF.md's figure for each kernel: _check_render
+    passes it and raises one sample beyond, before any launch."""
+    from nefes_tpu_torch.train.model import ModelConfig, NeFeSModel
+    lib = build.library("fused_render", emulate=True, build_dir=host_build)
+    monkeypatch.setattr(kr.build, "library", lambda name: lib)
+    model = NeFeSModel(ModelConfig(dtype=kf._DTYPES[dt]), device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        p = model.pack_fused()[1]
+    gen = torch.Generator().manual_seed(2)
+    for backward in (False, True):
+        top = MAX_SAMPLES[dt, backward]
+        for S in (top, top + 1):
+            x, dirs, _, _ = _inputs(gen, p.spec, S, False)
+            z = torch.sort(torch.rand((1, S), generator=gen), 1).values
+            if S == top:
+                kr._check_render(p, x, dirs, z, backward, False)
+            else:
+                with pytest.raises(ValueError, match="shared memory"):
+                    kr._check_render(p, x, dirs, z, backward, False)
+
+
+def test_build_of_another_tree(host_build, tmp_path):
+    """build.library with csrc= compiles that tree's source alone into
+    its own directory (how chip_smoke.py --parent builds an earlier
+    fused_render.cu): a copy of csrc/ with one entry point added."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    with open(csrc / "fused_render.cu", "a") as f:
+        f.write('\nextern "C" int nefes_tree_mark() { return 7; }\n')
+    out = tmp_path / "build"
+    lib = build.library("fused_render", emulate=True, build_dir=out,
+                        csrc=csrc)
+    assert lib.nefes_tree_mark() == 7
+    assert [q.name.split("-")[0] for q in out.glob("*.so")] == [
+        "libfused_render"]
+    ours = build.library("fused_render", emulate=True, build_dir=host_build)
+    assert not hasattr(ours, "nefes_tree_mark")
 
 
 # --- on the card ---
