@@ -7,10 +7,13 @@ H100: the kernels build for sm_90a).
 Phases:
   build  compile the CUDA kernels from csrc/ (nvcc, one process per
          source, in parallel) into nefes_tpu_torch/_build/; with --parent
-         also DIR's fused_render.cu, in parallel
+         also DIR's fused_render.cu, in parallel; the render kernels'
+         shared memory a block, blocks per SM and the backward's global
+         scratch a ray
   check  K1-K8 against their plain PyTorch versions on the card, at the
-         shapes of the refinement's main path, in bf16 and f32 (K4/K8 also
-         at 64 rays of a depth-4, 16-feature field); and the
+         shapes of the refinement's main path, in bf16 and f32 (K3/K4/K7/K8
+         also at 64 rays of a depth-4, 16-feature field, and at full width
+         at 256, 384 and 1024 samples a ray); and the
          training variants at the training shapes: K1/K5 in transient
          mode, K2/K6 with weight gradients in sigma, full and transient
          mode (every dW and bias gradient checked)
@@ -114,10 +117,16 @@ IMG_H, IMG_W, FOCAL_FULL = 4 * H, 4 * W, 4 * FOCAL
 # within PROBE_RGB_TOL (max-abs) of the unfused fine pass + compositor. On
 # an H100 the ratios read 0.06-0.79 and the rgb 2.6e-4 (PERF.md).
 PROBE_BAND, PROBE_RGB_TOL = 4.0, 3e-3
-# The first version of K4/K8 (two tower forwards per sample, f32 tiles,
-# composite in one thread), at the time phase's shape: PERF.md's times, an
-# H100 80GB HBM3 at 700 W; the time phase prints them beside the new ones.
-EARLIER_MS = {"K4 render_bwd_pre": 42.796, "K8 render_bwd": 43.761}
+# The first version of K3/K4/K7/K8 (f32 tiles through tower.cuh, weights
+# through L1, composite in one thread; K4/K8 two tower forwards per
+# sample), at the time phase's shape: PERF.md's times, an H100 80GB HBM3
+# at 700 W; the time phase prints them beside the new ones.
+EARLIER_MS = {"K3 render_fwd_pre": 16.172, "K4 render_bwd_pre": 42.796,
+              "K7 render_fwd": 14.576, "K8 render_bwd": 43.761}
+# The check phase's render kernels at full width: samples a ray (the
+# backward's per-sample state past a block's shared memory from 205 in
+# f32 and 270 in bf16) and rays
+WIDE_S, WIDE_R = (256, 384, 1024), 64
 # kernel -> (the TPU kernel it replaces, its CUDA source)
 _FF, _FR, _MC = ("nefes_tpu_torch/csrc/fused_field.cu",
                  "nefes_tpu_torch/csrc/fused_render.cu",
@@ -223,18 +232,25 @@ def main() -> int:
                 elif "registers" in line or "spill" in line:
                     log(f"  ptxas {'parent ' if where else ''}{name} "
                         f"{entry}: {line.strip()}")
-        # K4/K8 at the main path's shape (D8/W128/F128, 128 samples):
-        # dynamic shared memory of a block and blocks per SM
+        # the render kernels at full width (D8/W128/F128), at the main
+        # path's 128 samples and the check phase's: dynamic shared memory
+        # of a block, blocks per SM, the backward's global scratch a ray
         from nefes_tpu_torch.train.model import ModelConfig
         lib = build.library("fused_render")
         dims = kf.dims(kf.FieldSpec.from_model(ModelConfig(), "fine"))
-        S = N_C + N_F
         for dt, code in (("bf16", 1), ("f32", 0)):
-            log(f"K4/K8 render_bwd {dt} at {S} samples: "
-                f"{lib.nefes_render_smem_bytes(code, 1, S, *dims)} B of "
-                f"shared memory a block, blocks per SM K4 "
-                f"{lib.nefes_render_bwd_blocks_per_sm(code, 0, S, *dims)} "
-                f"K8 {lib.nefes_render_bwd_blocks_per_sm(code, 1, S, *dims)}")
+            for S in (N_C + N_F, *WIDE_S):
+                for pair, bwd in (("K3/K7 render_fwd", 0),
+                                  ("K4/K8 render_bwd", 1)):
+                    blocks = [lib.nefes_render_blocks_per_sm(
+                        code, bwd, raw, S, *dims) for raw in (0, 1)]
+                    scratch = lib.nefes_render_bwd_scratch_bytes(code, S,
+                                                                 *dims)
+                    scratch = f", scratch {scratch} B a ray" if bwd else ""
+                    log(f"{pair} {dt} at {S} samples: "
+                        f"{lib.nefes_render_smem_bytes(code, bwd, S, *dims)}"
+                        f" B of shared memory a block, blocks per SM "
+                        f"{blocks[0]} / {blocks[1]} (pre / raw){scratch}")
 
     phase("build", do_build)
     if "build" in failed:
@@ -333,22 +349,15 @@ def main() -> int:
                 del got
             check_training(dt, m)
             check_render_small(dt)
+            check_render_wide(dt)
         # the time phase reads the bf16 inputs only
         del state["inputs"]["float32"], state["train_inputs"]["float32"]
         torch.cuda.empty_cache()
 
-    def check_render_small(dt):
-        """K4/K8 at other dims (depth 4, skip at 2, 16 features; the card
-        test's model) on 64 rays x 128 samples of random inputs."""
-        cfg = ModelConfig(depth=4, width=128, feature_dim=16, skips=(2,),
-                          dtype=kf._DTYPES[dt])
-        small = NeFeSModel(cfg, device=dev,
-                           generator=torch.Generator().manual_seed(0))
-        with torch.no_grad():
-            pf = small.pack_fused()[1]
+    def render_cases(mode, dt, pf, R, S, gen):
+        """K3/K4/K7/K8 against their plain versions on R rays of S random
+        samples (pre-embedded rows, points at the scale of a scene)."""
         sp, cd = pf.spec, kf._DTYPES[dt]
-        gen = torch.Generator(device=dev).manual_seed(5)
-        R, S = 64, N_C + N_F
         emb = torch.randn((R * S, sp.emb_xyz), device=dev, generator=gen)
         embd = torch.randn((R * S, sp.emb_dir), device=dev, generator=gen)
         z = torch.sort(torch.rand((R, S), device=dev, generator=gen) * 4,
@@ -357,12 +366,40 @@ def main() -> int:
         dirs = torch.nn.functional.normalize(
             torch.randn((R * S, 3), device=dev, generator=gen), dim=-1)
         g = torch.randn((R, sp.rgbfeat + 2), device=dev, generator=gen)
-        args = (pf, emb.to(cd), embd.to(cd), z, g)
-        compare("K4 render_bwd_pre", "D4/F16 R=64", dt,
-                kr.render_bwd_pre(*args), kr.render_bwd_pre_plain(*args))
-        args = (pf, pts, dirs, z, g)
-        compare("K8 render_bwd", "D4/F16 R=64", dt, kr.render_bwd(*args),
-                kr.render_bwd_plain(*args))
+        for (kfwd, kbwd), x, xd, fns in (
+                (("K3 render_fwd_pre", "K4 render_bwd_pre"), emb.to(cd),
+                 embd.to(cd), (kr.render_fwd_pre, kr.render_fwd_pre_plain,
+                               kr.render_bwd_pre, kr.render_bwd_pre_plain)),
+                (("K7 render_fwd", "K8 render_bwd"), pts, dirs,
+                 (kr.render_fwd, kr.render_fwd_plain, kr.render_bwd,
+                  kr.render_bwd_plain))):
+            fwd, fwd_plain, bwd, bwd_plain = fns
+            compare(kfwd, mode, dt, (fwd(pf, x, xd, z),),
+                    (fwd_plain(pf, x, xd, z),))
+            compare(kbwd, mode, dt, bwd(pf, x, xd, z, g),
+                    bwd_plain(pf, x, xd, z, g))
+
+    def check_render_small(dt):
+        """K3/K4/K7/K8 at other dims (depth 4, skip at 2, 16 features; the
+        card test's model) on 64 rays x 128 samples of random inputs."""
+        cfg = ModelConfig(depth=4, width=128, feature_dim=16, skips=(2,),
+                          dtype=kf._DTYPES[dt])
+        small = NeFeSModel(cfg, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            pf = small.pack_fused()[1]
+        render_cases("D4/F16 R=64", dt, pf, 64, N_C + N_F,
+                     torch.Generator(device=dev).manual_seed(5))
+
+    def check_render_wide(dt):
+        """K3/K4/K7/K8 at full width on WIDE_R rays of each WIDE_S samples
+        a ray: the forward's transmittance carried over block tiles, the
+        backward's per-sample state in its global scratch."""
+        pf = state["inputs"][dt]["packed"][1]
+        gen = torch.Generator(device=dev).manual_seed(6)
+        for S in WIDE_S:
+            render_cases(f"S={S} R={WIDE_R}", dt, pf, WIDE_R, S, gen)
+            torch.cuda.empty_cache()
 
     def check_training(dt, m):
         """The training variants at the training shapes: K1/K5 transient
@@ -852,7 +889,7 @@ def main() -> int:
         g_field, g_raw, g_ray = ins["g_field"], ins["g_raw"], ins["g_ray"]
         n_c, n_f, R = emb_c.shape[0], emb.shape[0], z.shape[0]
         sp = pf.spec
-        fl = probe.tower_flops(sp)
+        fl = probe.tower_flops(sp, samples=z.shape[1])
         el = probe.embed_ops(sp.n_freqs_xyz, sp.n_freqs_dir)
         b2, b4 = 2, 4   # bytes of a bf16 and of an f32 value
         ray_out = R * (sp.rgbfeat + 2) * b4
@@ -1190,13 +1227,17 @@ def finish(failed, kernels, smi) -> int:
 
 def kernel_label(line: str) -> str:
     """A short name for ptxas's 'Compiling entry function' line: the
-    mangled name's kernel, and for the render kernels their dtype and
-    input kind."""
+    mangled name's kernel, and for the render kernels their dtype, input
+    kind and, for a backward, where it keeps its per-sample state."""
+    import re
     name = line.split("'")[1] if "'" in line else line.strip()
     for kern in ("render_bwd_kernel", "render_fwd_kernel"):
         if kern in name:
+            flags = re.findall(r"Lb([01])", name)   # RAW, then GLOBAL
+            where = (",global" if flags[1:] == ["1"] else ",smem"
+                     if flags[1:] else "")
             return (f"{kern}<{'bf16' if 'nv_bfloat16' in name else 'f32'},"
-                    f"{'raw' if 'Lb1' in name else 'pre'}>")
+                    f"{'raw' if flags[:1] == ['1'] else 'pre'}{where}>")
     return name
 
 
@@ -1211,8 +1252,11 @@ def render_call(lib, name, ins, dev):
     """One launch of render kernel `name` from the fused_render library
     `lib` (this tree's or another's) on the main path's bf16 inputs `ins`
     (the backward with their g_ray), with the arguments the wrappers pass
-    but none of their checks or launch counts; its outputs."""
+    but none of their checks or launch counts; its outputs. A backward
+    from before the global scratch (no nefes_render_bwd_scratch_bytes)
+    takes no scratch argument."""
     from nefes_tpu_torch.kernels import fused_field as kf
+    from nefes_tpu_torch.kernels import fused_render as kr
     fn, raw, backward = _RENDER_ENTRY[name]
     pf = ins["packed"][1]
     sp, z, f32 = pf.spec, ins["z"], torch.float32
@@ -1228,9 +1272,13 @@ def render_call(lib, name, ins, dev):
         outs = [torch.empty((R, sp.rgbfeat + 2), dtype=f32, device=dev)]
         args = (pf.w, pf.b, *kf.dims(sp))
     args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+    ptrs = [o.data_ptr() for o in outs]
+    if backward and hasattr(lib, "nefes_render_bwd_scratch_bytes"):
+        scratch = kr.bwd_scratch(lib, pf, R, S, dev)
+        ptrs.append(kf._ptr(scratch))
     err = getattr(lib, fn)(kf._DTYPE_CODE[sp.torch_dtype], R, S,
                            x.data_ptr(), xd.data_ptr(), z.data_ptr(), *args,
-                           *[o.data_ptr() for o in outs], kf._stream())
+                           *ptrs, kf._stream())
     kf.raise_on(err, fn)
     return outs
 

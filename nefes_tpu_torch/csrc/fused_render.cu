@@ -12,35 +12,39 @@
 // loads and, in K8, the chain-rule epilogue giving d_pts and d_dirs per
 // sample (the phases recomputed from the points, not kept).
 //
-// One block renders one ray. The TPU kernel's selector-matmul folds and
-// triangular-matmul cumsum are Mosaic layout workarounds; here the
-// transmittance is a prefix sum over the ray's samples. Bound on an H100:
-// operations (about 0.33 MFLOP per sample forward, twice that backward);
-// the per-ray output is only 3 + F + 2 floats.
+// One block renders one ray, on render_bwd.cuh's warp path. The TPU
+// kernel's selector-matmul folds and triangular-matmul cumsum are Mosaic
+// layout workarounds; here the transmittance is a prefix sum over the
+// ray's samples, as warp scans. Bound on an H100: operations (about 0.33
+// MFLOP per sample forward, twice that backward); the per-ray output is
+// only 3 + F + 2 floats.
 //
-// K3/K7 (render_fwd_kernel): the tower of tower.cuh over the ray's S
-// samples in tiles of TR = 64, the composite in one thread.
+// K3/K7 (render_fwd_kernel): the block walks its ray in block tiles of BT
+// = 128 samples. Each warp runs its 16 rows to the dir layer
+// (warp_forward, keeping nothing for a backward); warp 0 turns the tile's
+// sigmas into composite weights, carrying the log transmittance from tile
+// to tile; each warp adds its rows' w de, w z and w into its f32 partials.
+// The rgb/feature head is linear, so it runs once per ray on the weighted
+// sum: sum_s w_s (de_s W + b) = (sum_s w_s de_s) W + (sum_s w_s) b, 64 x
+// 131 multiply-adds a ray in place of one 16 x 64 x 131 product a warp
+// and tile. What bounded the first version (16.0 ms for 4,800 rays x 128
+// samples on an H100 at 700 W, 5.5 x a cuBLAS chain of the same products)
+// was its f32 tiles of 64 rows through tower.cuh, weights read through L1,
+// the whole SM's shared memory held per ray (the rgb and features of every
+// sample) and the composite run in one thread while 255 waited. The block
+// keeps O(BT) state, whatever the ray's length: no sample limit.
 //
-// K4/K8 (render_bwd_kernel): render_bwd.cuh's path. What bounded the
-// first version (42.8 ms for 4,800 rays x 128 samples on an H100 at
-// 700 W, 0.94 % of the bound) was surplus and latency, not the tensor
-// cores: it ran the tower forward twice per sample (once for sigma and
-// rgb, once per tile for the ReLU bits), held a whole SM's shared memory
-// in f32 activations, ran the composite backward in one thread while 255
-// waited, and fed mma.sync from f32 shared memory with bank conflicts and
-// B from L1. Now pass 1 runs the forward once per sample and keeps, per
-// sample, the ReLU bits of every hidden layer and of the dir layer, the
-// sigma pre-activation and rgb (D8/W128: 34 words and 4 floats, 152
-// bytes); warp 0 runs the composite and its backward as warp scans; pass
-// 2 runs only the tower backward from that state. Each warp owns 16
-// samples through every layer, activations in bf16; the products are
-// mma.sync fed by ldmatrix from conflict-free padded rows, the weights
-// staged matrix by matrix by cp.async into two shared-memory stages, the
-// next loading while the current one's products run. The per-sample state
-// (172 bytes with the composite's) stays in shared memory for the whole
-// ray, beside the fixed stages and warp tiles: at D8/W128 a block holds
-// 269 samples in bf16 and 204 in f32 (K3/K7: 237 in either);
-// _check_render refuses more.
+// K4/K8 (render_bwd_kernel): pass 1 runs the forward once per sample
+// (warp_forward, KEEP) and keeps, per sample, the ReLU bits of every
+// hidden layer and of the dir layer, the sigma pre-activation and rgb
+// (D8/W128: 34 words and 4 floats, 152 bytes); warp 0 runs the composite
+// and its backward as warp scans; pass 2 runs only the tower backward from
+// that state. The per-sample state (172 bytes with the composite's) stays
+// in shared memory for the whole ray, beside the fixed stages and warp
+// tiles, while it fits: at D8/W128 a block holds 269 samples in bf16 and
+// 204 in f32. Past that the block keeps it in its slice of a global
+// scratch of state_bytes a ray that the caller allocates
+// (nefes_render_bwd_scratch_bytes), so the backward too takes any S.
 //
 // Plain C interface, loaded with ctypes: each entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
@@ -49,81 +53,75 @@
 
 namespace nefes {
 
-// per-ray buffers of the forward after the tower tile in shared memory
-struct RaySmem {
-  float* sig;    // S   sigma (post-softplus)
-  float* z;      // S
-  float* wgt;    // S   composite weights
-  float* rf;     // S x C rgb+features
-};
-
-__host__ __device__ inline size_t carve_ray(const Dims& d, int S, char* base, Smem* s,
-                                            RaySmem* rs) {
-  size_t off = carve(d, false, FULL, false, base, s);
-  RaySmem t;
-  t.sig = take(base, &off, S);
-  t.z = take(base, &off, S);
-  t.wgt = take(base, &off, S);
-  t.rf = take(base, &off, (size_t)S * (3 + d.F));
-  if (rs) *rs = t;
-  return off;
-}
-
-// Run the forward tower over the ray's samples, tile by tile, keeping
-// sigma and the first rf_cols columns of the rgb/feature head per sample.
-// x, dirs: the (R*S, E) / (R*S, Ed) embeddings in T, or RAW the (R*S, 3)
-// f32 points and directions.
-template <typename T, bool RAW>
-__device__ void ray_forward(const Tower<T>& tw, const Smem& s, const RaySmem& rs, int S,
-                            size_t sample0, const void* x, const void* dirs, int rf_cols) {
-  for (int t0 = 0; t0 < S; t0 += TR) {
-    const int valid = S - t0 < TR ? S - t0 : TR;
-    tile_inputs<T, RAW>(tw.d, s, x, dirs, true, sample0 + t0, valid);
-    float* rf = rs.rf;
-    tower_forward<T>(tw, s, FULL, false, rf_cols, [=](int r, int c, float v) {
-      if (r < valid) rf[(t0 + r) * rf_cols + c] = v;
-    });
-    for (int r = threadIdx.x; r < valid; r += blockDim.x) rs.sig[t0 + r] = softplus(s.zs[r]);
-    __syncthreads();
+// Warp wp's rows [s0, s0 + 16) of a tile: their composite weights w (the
+// tile's, from the warp's first row) times the dir layer's output de, z
+// and 1, added into the warp's f32 partials part (H + 2). Lane c owns
+// column c, summing its rows in order.
+template <typename T>
+__device__ __forceinline__ void warp_accumulate(const Dims& d, const RayBufs& rb, int wp, int s0,
+                                                int S, const float* w, const float* z) {
+  const int H = d.width / 2, ldh = ld_of(H);
+  const int vr = S - s0 < 0 ? 0 : (S - s0 < WR ? S - s0 : WR);
+  const T* de = warp_de<T>(d, rb, wp);
+  float* part = rb.part + wp * (H + 2);
+  for (int c = threadIdx.x & (LANES - 1); c < H + 2; c += LANES) {
+    float acc = 0.f;
+    for (int r = 0; r < vr; ++r)
+      acc = fmaf(w[r], c < H ? to_f<T>(de[r * ldh + c]) : (c == H ? z[s0 + r] : 1.f), acc);
+    part[c] += acc;
   }
+  __syncwarp();
 }
 
-// Composite weights w_i = alpha_i * T_i with log-space transmittance
-// T_i = exp(sum_{j<i} log(max(1 - alpha_j, 1e-10))). One thread.
-__device__ inline void composite_weights(const RaySmem& rs, int S) {
-  float log_t = 0.f;
-  for (int i = 0; i < S; ++i) {
-    const float delta = i + 1 < S ? rs.z[i + 1] - rs.z[i] : DELTA_INF;
-    const float alpha = 1.f - expf(-delta * rs.sig[i]);
-    rs.wgt[i] = alpha * expf(log_t);
-    log_t += logf(fmaxf(1.f - alpha, LOG_EPS));
-  }
-}
-
-// out (R, C + 2) f32: [sum_s w_s * rgbfeat_s | depth | acc]
+// out (R, C + 2) f32: [sum_s w_s rgbfeat_s | depth | acc]
 template <typename T, bool RAW>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 render_fwd_kernel(Tower<T> tw, int S, const void* __restrict__ x, const void* __restrict__ dirs,
                   const float* __restrict__ z, float* __restrict__ out) {
   extern __shared__ __align__(16) char nefes_smem[];
-  Smem s;
-  RaySmem rs;
-  carve_ray(tw.d, S, nefes_smem, &s, &rs);
-  const int ray = blockIdx.x;
-  const int C = 3 + tw.d.F;
-  for (int i = threadIdx.x; i < S; i += blockDim.x) rs.z[i] = z[(size_t)ray * S + i];
-  ray_forward<T, RAW>(tw, s, rs, S, (size_t)ray * S, x, dirs, C);
-
-  if (threadIdx.x == 0) composite_weights(rs, S);
+  RayBufs rb;
+  carve_block(tw.d, tw.L, sizeof(T), false, 0, nefes_smem, &rb);
+  const int H = tw.d.width / 2, P = H + 2, C = 3 + tw.d.F;
+  const int tiles = (S + BT - 1) / BT, warp = threadIdx.x >> 5;
+  const size_t sample0 = (size_t)blockIdx.x * S;
+  const float* zr = z + sample0;
+  Stager<T> st(tw, rb, tiles, false);
+  for (int i = threadIdx.x; i < WARPS * P; i += blockDim.x) rb.part[i] = 0.f;
+  float carry = 0.f;   // warp 0: the log transmittance past the tiles so far
+  for (int t = 0; t < tiles; ++t) {
+    const int t0 = t * BT, t1 = S - t0 < BT ? S : t0 + BT;
+    for (int wp = warp; wp < WARPS; wp += WARP_STEP)
+      warp_forward<T, RAW, false>(tw, rb, st, wp, t0 + wp * WR, S, sample0, x, dirs,
+                                  rb.tzs + wp * WR);
+    __syncthreads();
+    if (warp == 0)
+      carry = composite_scan(t0, t1, S, zr, [&](int i) { return rb.tzs[i - t0]; }, carry,
+                             rb.scan, [&](int i, float alpha, float tr) {
+                               rb.twgt[i - t0] = alpha * tr;
+                             });
+    __syncthreads();
+    for (int wp = warp; wp < WARPS; wp += WARP_STEP)
+      warp_accumulate<T>(tw.d, rb, wp, t0 + wp * WR, S, rb.twgt + wp * WR, zr);
+  }
   __syncthreads();
-  float* o = out + (size_t)ray * (C + 2);
-  for (int c = threadIdx.x; c < C + 2; c += blockDim.x) {
+  for (int c = threadIdx.x; c < P; c += blockDim.x) {
     float acc = 0.f;
-    for (int i = 0; i < S; ++i) {
-      const float v = c < C ? rs.rf[i * C + c] : (c == C ? rs.z[i] : 1.f);
-      acc = fmaf(rs.wgt[i], v, acc);
+    for (int wp = 0; wp < WARPS; ++wp) acc += rb.part[wp * P + c];
+    rb.tot[c] = acc;
+  }
+  __syncthreads();
+  // the head on the weighted sums: f32 accumulation, as per sample
+  const T* rw = tw.w + tw.L.rgb_w;
+  const float* rbias = tw.b + tw.L.rgb_b;
+  float* o = out + (size_t)blockIdx.x * (C + 2);
+  for (int c = threadIdx.x; c < C + 2; c += blockDim.x) {
+    if (c >= C) {
+      o[c] = rb.tot[H + c - C];
+      continue;
     }
-    o[c] = acc;
+    float acc = 0.f;
+    for (int q = 0; q < H; ++q) acc = fmaf(rb.tot[q], to_f<T>(rw[q * C + c]), acc);
+    o[c] = fmaf(rb.tot[H + 1], rbias[c], acc);
   }
 }
 
@@ -131,24 +129,30 @@ render_fwd_kernel(Tower<T> tw, int S, const void* __restrict__ x, const void* __
 // d_emb (R*S, E), d_embd (R*S, Ed) in T or, RAW, d_pts and d_dirs
 // (R*S, 3) f32; and d_z (R, S) f32. Stop-gradient rule: only the rgb
 // channels, depth and acc feed the cotangent of the composite weights;
-// the features reach only the head.
-template <typename T, bool RAW>
+// the features reach only the head. GLOBAL: the per-sample state lies in
+// scratch, R slices of state_bytes, one a ray (past what shared memory
+// holds); else in shared memory, where the compiler then knows it is.
+template <typename T, bool RAW, bool GLOBAL>
 __global__ void __launch_bounds__(NT, 1)
 render_bwd_kernel(Tower<T> tw, int S, const void* __restrict__ x, const void* __restrict__ dirs,
                   const float* __restrict__ z, const float* __restrict__ g,
-                  void* __restrict__ dx, void* __restrict__ ddirs, float* __restrict__ d_z) {
+                  void* __restrict__ dx, void* __restrict__ ddirs, float* __restrict__ d_z,
+                  char* __restrict__ scratch) {
   extern __shared__ __align__(16) char nefes_smem[];
-  RayBwd rb;
-  carve_bwd(tw.d, tw.L, sizeof(T), S, nefes_smem, &rb);
+  RayBufs rb;
+  carve_block(tw.d, tw.L, sizeof(T), true, GLOBAL ? 0 : S, nefes_smem, &rb);
+  if (GLOBAL) carve_state(tw.d, S, scratch + blockIdx.x * state_bytes(tw.d, S), 0, &rb);
   const int C = 3 + tw.d.F, tiles = (S + BT - 1) / BT, warp = threadIdx.x >> 5;
   const size_t sample0 = (size_t)blockIdx.x * S;
-  Stager<T> st(tw, rb, tiles);
+  Stager<T> st(tw, rb, tiles, true);
   for (int i = threadIdx.x; i < S; i += blockDim.x) rb.z[i] = z[sample0 + i];
   for (int c = threadIdx.x; c < C + 2; c += blockDim.x) rb.gr[c] = g[blockIdx.x * (C + 2) + c];
 
   for (int t = 0; t < tiles; ++t)
-    for (int wp = warp; wp < WARPS; wp += WARP_STEP)
-      warp_forward<T, RAW>(tw, rb, st, wp, t * BT + wp * WR, S, sample0, x, dirs);
+    for (int wp = warp; wp < WARPS; wp += WARP_STEP) {
+      const int s0 = t * BT + wp * WR;
+      warp_forward<T, RAW, true>(tw, rb, st, wp, s0, S, sample0, x, dirs, rb.zs + s0);
+    }
   __syncthreads();
   if (warp == 0) ray_composite(rb, S, C, d_z + sample0);
   __syncthreads();
@@ -157,10 +161,23 @@ render_bwd_kernel(Tower<T> tw, int S, const void* __restrict__ x, const void* __
       warp_backward<T, RAW>(tw, rb, st, wp, t * BT + wp * WR, S, sample0, x, dirs, dx, ddirs);
 }
 
+// Shared-memory bytes of one block of the forward (bwd false) or of the
+// backward at S samples a ray, in a pack dtype of ts bytes.
+inline size_t block_smem(const Dims& d, int ts, bool bwd, int S) {
+  const Layout L = make_layout(d);
+  return carve_block(d, L, ts, bwd, bwd && state_in_smem(d, L, ts, S) ? S : 0, nullptr, nullptr);
+}
+
+// Bytes of global scratch one ray of the backward takes at S samples: 0
+// while its per-sample state fits in shared memory.
+inline size_t scratch_bytes(const Dims& d, int ts, int S) {
+  return state_in_smem(d, make_layout(d), ts, S) ? 0 : state_bytes(d, S);
+}
+
 template <typename T, bool RAW>
 int launch_fwd(int R, int S, const void* x, const void* dirs, const float* z, const void* w,
                const float* b, Dims d, float* out, void* stream) {
-  const size_t smem = carve_ray(d, S, nullptr, nullptr, nullptr);
+  const size_t smem = block_smem(d, sizeof(T), false, S);
   auto* kern = &render_fwd_kernel<T, RAW>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -172,14 +189,16 @@ int launch_fwd(int R, int S, const void* x, const void* dirs, const float* z, co
 template <typename T, bool RAW>
 int launch_bwd(int R, int S, const void* x, const void* dirs, const float* z, const void* w,
                const void* wt, const float* b, Dims d, const float* g, void* dx, void* ddirs,
-               float* d_z, void* stream) {
-  const size_t smem = carve_bwd(d, make_layout(d), sizeof(T), S, nullptr, nullptr);
-  auto* kern = &render_bwd_kernel<T, RAW>;
+               float* d_z, void* scratch, void* stream) {
+  const bool global = scratch_bytes(d, sizeof(T), S) > 0;
+  if (global && scratch == nullptr) return -2;   // the state needs the caller's scratch
+  const size_t smem = block_smem(d, sizeof(T), true, S);
+  auto* kern = global ? &render_bwd_kernel<T, RAW, true> : &render_bwd_kernel<T, RAW, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   NEFES_LAUNCH(kern, R, smem, stream, make_tower<T>(w, wt, b, d), S, x, dirs, z, g, dx, ddirs,
-               d_z);
+               d_z, static_cast<char*>(scratch));
   return (int)cudaGetLastError();
 }
 
@@ -195,21 +214,43 @@ int render_fwd(int dtype, int R, int S, const void* x, const void* dirs, const f
 template <bool RAW>
 int render_bwd(int dtype, int R, int S, const void* x, const void* dirs, const float* z,
                const void* w, const void* wt, const float* b, Dims d, const float* g, void* dx,
-               void* ddirs, float* d_z, void* stream) {
+               void* ddirs, float* d_z, void* scratch, void* stream) {
   if (R <= 0) return 0;
   if (dtype == 1 && !HAS_BF16) return -1;
   return dtype == 1 ? launch_bwd<__nv_bfloat16, RAW>(R, S, x, dirs, z, w, wt, b, d, g, dx,
-                                                     ddirs, d_z, stream)
+                                                     ddirs, d_z, scratch, stream)
                     : launch_bwd<float, RAW>(R, S, x, dirs, z, w, wt, b, d, g, dx, ddirs, d_z,
-                                             stream);
+                                             scratch, stream);
 }
+
+#ifndef NEFES_EMULATE
+// Blocks of the forward or the backward one SM holds at S samples a ray,
+// from the occupancy calculator; -1 on an error.
+template <typename T, bool RAW>
+int blocks_per_sm(const Dims& d, bool backward, int S) {
+  const size_t smem = block_smem(d, sizeof(T), backward, S);
+  auto blocks = [&](auto kern) {
+    int n = -1;
+    if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, NT, smem) != cudaSuccess)
+      return -1;
+    return n;
+  };
+  if (!backward) return blocks(&render_fwd_kernel<T, RAW>);
+  return scratch_bytes(d, sizeof(T), S) ? blocks(&render_bwd_kernel<T, RAW, true>)
+                                        : blocks(&render_bwd_kernel<T, RAW, false>);
+}
+#endif
 
 }  // namespace nefes
 
 using nefes::Dims;
 
 // dtype: 0 = float32, 1 = bfloat16 (pack dtype of weights, embeddings and
-// embedding cotangents); z, out, g and d_z are float32.
+// embedding cotangents); z, out, g and d_z are float32. The backward's
+// scratch: nefes_render_bwd_scratch_bytes(dtype, S, ...) bytes a ray, on
+// the card, or null where that is 0.
 extern "C" int nefes_render_fwd_pre(int dtype, int R, int S, const void* emb, const void* embd,
                                     const float* z, const void* w, const float* b, int depth,
                                     int width, int skipmask, int E, int Ed, int F, float* out,
@@ -222,10 +263,10 @@ extern "C" int nefes_render_bwd_pre(int dtype, int R, int S, const void* emb, co
                                     const float* z, const void* w, const void* wt,
                                     const float* b, int depth, int width, int skipmask, int E,
                                     int Ed, int F, const float* g, void* d_emb, void* d_embd,
-                                    float* d_z, void* stream) {
+                                    float* d_z, void* scratch, void* stream) {
   return nefes::render_bwd<false>(dtype, R, S, emb, embd, z, w, wt, b,
                                   Dims{depth, width, skipmask, E, Ed, F}, g, d_emb, d_embd, d_z,
-                                  stream);
+                                  scratch, stream);
 }
 
 // The raw-input kernels: pts, dirs (R*S, 3) f32 (dirs per sample), and
@@ -242,45 +283,43 @@ extern "C" int nefes_render_bwd_raw(int dtype, int R, int S, const float* pts,
                                     const float* dirs, const float* z, const void* w,
                                     const void* wt, const float* b, int depth, int width,
                                     int skipmask, int E, int Ed, int F, const float* g,
-                                    float* d_pts, float* d_dirs, float* d_z, void* stream) {
+                                    float* d_pts, float* d_dirs, float* d_z, void* scratch,
+                                    void* stream) {
   return nefes::render_bwd<true>(dtype, R, S, pts, dirs, z, w, wt, b,
                                  Dims{depth, width, skipmask, E, Ed, F}, g, d_pts, d_dirs, d_z,
-                                 stream);
+                                 scratch, stream);
 }
 
-// Shared-memory bytes one block of each kernel asks for; dtype as above
-// (the forward's do not depend on it).
+// Shared-memory bytes one block of each kernel asks for at S samples a
+// ray; dtype as above (the forward's do not depend on S).
 extern "C" int nefes_render_smem_bytes(int dtype, int backward, int S, int depth, int width,
                                        int skipmask, int E, int Ed, int F) {
-  const Dims d{depth, width, skipmask, E, Ed, F};
-  return (int)(backward ? nefes::carve_bwd(d, nefes::make_layout(d), dtype == 1 ? 2 : 4, S,
-                                           nullptr, nullptr)
-                        : nefes::carve_ray(d, S, nullptr, nullptr, nullptr));
+  return (int)nefes::block_smem(Dims{depth, width, skipmask, E, Ed, F}, dtype == 1 ? 2 : 4,
+                                backward, S);
 }
 
-// Blocks of the backward (K4, or RAW K8) one SM holds at S samples per
-// ray, from the occupancy calculator; -1 on an error.
-extern "C" int nefes_render_bwd_blocks_per_sm(int dtype, int raw, int S, int depth, int width,
+// Bytes of global scratch the backward takes per ray at S samples: 0
+// while a block keeps the per-sample state in shared memory.
+extern "C" int nefes_render_bwd_scratch_bytes(int dtype, int S, int depth, int width,
                                               int skipmask, int E, int Ed, int F) {
+  return (int)nefes::scratch_bytes(Dims{depth, width, skipmask, E, Ed, F}, dtype == 1 ? 2 : 4,
+                                   S);
+}
+
+// Blocks of the forward or the backward (K3/K4, or raw K7/K8) one SM holds
+// at S samples a ray, from the occupancy calculator; -1 on an error.
+extern "C" int nefes_render_blocks_per_sm(int dtype, int backward, int raw, int S, int depth,
+                                          int width, int skipmask, int E, int Ed, int F) {
 #ifdef NEFES_EMULATE
   return 1;
 #else
-  const Dims d{depth, width, skipmask, E, Ed, F};
-  const size_t smem =
-      nefes::carve_bwd(d, nefes::make_layout(d), dtype == 1 ? 2 : 4, S, nullptr, nullptr);
-  auto blocks = [&](auto kern) {
-    int n = -1;
-    if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, nefes::NT, smem) != cudaSuccess)
-      return -1;
-    return n;
-  };
+  using nefes::blocks_per_sm;
   using bf16 = __nv_bfloat16;
+  const Dims d{depth, width, skipmask, E, Ed, F};
   if (dtype == 1)
-    return raw ? blocks(&nefes::render_bwd_kernel<bf16, true>)
-               : blocks(&nefes::render_bwd_kernel<bf16, false>);
-  return raw ? blocks(&nefes::render_bwd_kernel<float, true>)
-             : blocks(&nefes::render_bwd_kernel<float, false>);
+    return raw ? blocks_per_sm<bf16, true>(d, backward, S)
+               : blocks_per_sm<bf16, false>(d, backward, S);
+  return raw ? blocks_per_sm<float, true>(d, backward, S)
+             : blocks_per_sm<float, false>(d, backward, S);
 #endif
 }

@@ -1,19 +1,26 @@
-// The render backward's own tower path (K4 render_bwd_pre, K8 render_bwd
-// in fused_render.cu; no other kernel includes this header): per-warp
-// tiles of 16 samples, bf16 activations in shared memory, products on the
-// tensor cores with mma.sync fed by ldmatrix, the tower's weights staged
-// matrix by matrix into shared memory by cp.async, double-buffered, and
-// the volume composite and its backward as warp scans.
+// The render kernels' own tower path (K3 render_fwd_pre, K4
+// render_bwd_pre, K7 render_fwd and K8 render_bwd in fused_render.cu; no
+// other kernel includes this header): per-warp tiles of 16 samples, bf16
+// activations in shared memory, products on the tensor cores with
+// mma.sync fed by ldmatrix, the tower's weights staged matrix by matrix
+// into shared memory by cp.async, double-buffered, and the volume
+// composite (and its backward) as warp scans.
 //
 // A block renders one ray in block tiles of BT = 128 samples: warp w owns
 // the tile's rows [16 w, 16 w + 16) through every layer, so the layers
 // need no barrier between warps; the only block barrier of a product is
-// the stage's (every warp reads the same staged matrix). Pass 1 runs the
-// forward over every sample of the ray and keeps, per sample, what the
-// frozen backward reads: the ReLU bits of each hidden layer and of the dir
-// layer, the sigma pre-activation and the three rgb values. Warp 0 then
-// runs the composite and its backward. Pass 2 runs only the backward, from
-// that state: no forward is recomputed.
+// the stage's (every warp reads the same staged matrix). warp_forward runs
+// a warp's rows to the dir layer and the sigma head; the backward (KEEP)
+// also keeps, per sample, what the frozen backward reads: the ReLU bits of
+// each hidden layer and of the dir layer, the sigma pre-activation and the
+// three rgb values. The forward kernel streams the composite tile by tile
+// and keeps nothing per sample past its tile. The backward runs
+// warp_forward over the whole ray, warp 0 then runs the composite and its
+// backward, and pass 2 runs only the backward from the kept state: no
+// forward is recomputed. That state stays in shared memory while it fits
+// beside the stages and warp tiles (at D8/W128: 269 samples in bf16, 204
+// in f32); past that the block keeps it in its slice of a global scratch
+// that the caller allocates (state_bytes a ray).
 //
 // Products (bf16): out(16 x N) = A(16 x K) B(K x N) per warp, in chunks of
 // 64 columns, m16n8k16 with f32 accumulators. A comes from shared memory
@@ -121,11 +128,15 @@ struct Mat {
   bool nk;
 };
 
-// Shared memory of one block of the backward.
-struct RayBwd {
+// Shared memory of one block of a render kernel (and, for the backward
+// past the budget, its slice of the global scratch).
+struct RayBufs {
   char* wbuf[2];    // the two weight stages (staged only)
   char* warps;      // WARPS per-warp regions of wbytes each
   size_t wbytes;
+  float* scan;      // 32 the composite's scan
+  // the backward's
+  float* gr;        // C + 2 the ray's output cotangent
   uint32_t* mask;   // S x mw: ReLU bits of every hidden layer, then the dir layer's
   int mw;
   float* zs;        // S sigma pre-activation
@@ -135,8 +146,11 @@ struct RayBwd {
   float* trans;     // S transmittance
   float* dzs;       // S cotangent of zs
   float* dd;        // S cotangent of delta
-  float* gr;        // C + 2 the ray's output cotangent
-  float* scan;      // 32 the composite's scan
+  // the forward's
+  float* tzs;       // BT the tile's sigma pre-activations
+  float* twgt;      // BT the tile's composite weights
+  float* part;      // WARPS x (H + 2) per-warp sums of w de, w z and w
+  float* tot;       // H + 2 their sum over the warps
 };
 
 // Bytes of one warp's region and the offsets of its buffers: xe (the
@@ -159,12 +173,36 @@ __host__ __device__ inline WarpLayout warp_layout(const Dims& d, int ts) {
   return w;
 }
 
-// Carve the block's shared memory (ts: bytes of the pack dtype; a 2-byte
-// pack stages its weights); returns the bytes used. base == nullptr:
-// size only (host side).
-__host__ __device__ inline size_t carve_bwd(const Dims& d, const Layout& L, int ts, int S,
-                                            char* base, RayBwd* rb) {
-  RayBwd t;
+// The backward's per-sample state of S samples, carved from base at
+// offset off; returns the offset past it.
+__host__ __device__ inline size_t carve_state(const Dims& d, int S, char* base, size_t off,
+                                              RayBufs* t) {
+  t->mw = d.depth * ((d.width + 31) / 32) + (d.width / 2 + 31) / 32;
+  t->mask = reinterpret_cast<uint32_t*>(take(base, &off, (size_t)S * t->mw));
+  t->zs = take(base, &off, S);
+  t->rgb = take(base, &off, (size_t)S * 3);
+  t->z = take(base, &off, S);
+  t->wgt = take(base, &off, S);
+  t->trans = take(base, &off, S);
+  t->dzs = take(base, &off, S);
+  t->dd = take(base, &off, S);
+  return off;
+}
+
+// Bytes of the backward's per-sample state of one ray of S samples.
+__host__ __device__ inline size_t state_bytes(const Dims& d, int S) {
+  RayBufs t;
+  return carve_state(d, S, nullptr, 0, &t);
+}
+
+// Carve one block's shared memory for the forward (bwd false) or the
+// backward, whose per-sample state of S_smem samples follows in shared
+// memory (0: the state lies in the global scratch). ts: bytes of the pack
+// dtype; a 2-byte pack stages its weights. Returns the bytes used; base
+// == nullptr: size only (host side).
+__host__ __device__ inline size_t carve_block(const Dims& d, const Layout& L, int ts, bool bwd,
+                                              int S_smem, char* base, RayBufs* rb) {
+  RayBufs t{};
   size_t off = 0;
   auto bytes = [&](size_t n) {
     char* p = base ? base + off : nullptr;
@@ -173,7 +211,7 @@ __host__ __device__ inline size_t carve_bwd(const Dims& d, const Layout& L, int 
   };
   size_t stage = 0;
   if (ts == 2) {
-    for (int b = 0; b < 2; ++b)
+    for (int b = 0; b <= (bwd ? 1 : 0); ++b)
       for (int k = 0; mat_at(d, L, b, k).off >= 0; ++k) {
         const size_t e = staged_elems(mat_at(d, L, b, k));
         stage = stage > e ? stage : e;
@@ -183,19 +221,28 @@ __host__ __device__ inline size_t carve_bwd(const Dims& d, const Layout& L, int 
   t.wbuf[1] = bytes(stage * ts);
   t.wbytes = warp_layout(d, ts).total;
   t.warps = bytes(WARPS * t.wbytes);
-  t.mw = d.depth * ((d.width + 31) / 32) + (d.width / 2 + 31) / 32;
-  t.mask = reinterpret_cast<uint32_t*>(take(base, &off, (size_t)S * t.mw));
-  t.zs = take(base, &off, S);
-  t.rgb = take(base, &off, (size_t)S * 3);
-  t.z = take(base, &off, S);
-  t.wgt = take(base, &off, S);
-  t.trans = take(base, &off, S);
-  t.dzs = take(base, &off, S);
-  t.dd = take(base, &off, S);
-  t.gr = take(base, &off, 3 + d.F + 2);
   t.scan = take(base, &off, 32);
+  if (bwd) {
+    t.gr = take(base, &off, 3 + d.F + 2);
+    if (S_smem > 0) off = carve_state(d, S_smem, base, off, &t);
+  } else {
+    const int P = d.width / 2 + 2;
+    t.tzs = take(base, &off, BT);
+    t.twgt = take(base, &off, BT);
+    t.part = take(base, &off, (size_t)WARPS * P);
+    t.tot = take(base, &off, P);
+  }
   if (rb) *rb = t;
   return off;
+}
+
+// A block's shared memory on an H100 (and the most one may ask for)
+constexpr size_t SMEM_MAX = 232448;
+
+// Whether the backward's block keeps the per-sample state of its S
+// samples in shared memory (else in the global scratch).
+__host__ __device__ inline bool state_in_smem(const Dims& d, const Layout& L, int ts, int S) {
+  return carve_block(d, L, ts, true, S, nullptr, nullptr) <= SMEM_MAX;
 }
 
 // ---- the card's primitives (no-ops in the host build, which never stages)
@@ -249,9 +296,10 @@ __device__ void stage_copy(const MatDesc& m, const T* __restrict__ src, T* dst) 
 
 // The weight pipeline of one block: every thread calls get() for every
 // product in the same order, so g counts the matrices of the whole kernel
-// (the forward's list per block tile, then the backward's per block
-// tile). get() waits for matrix g, makes it visible to the block (the
-// barrier also means every warp is done with matrix g - 1), starts the
+// (the forward's list per block tile, then, in the backward, the
+// backward's per block tile). get() waits for matrix g, makes it visible
+// to the block (the barrier also means every warp is done with matrix
+// g - 1), starts the
 // copy of matrix g + 1 into the other stage and returns matrix g; the copy
 // overlaps g's products. Unstaged, get() hands out the global matrix. The
 // tower is an argument of each call, not a member, and the stage is
@@ -263,10 +311,10 @@ struct Stager {
   T* buf1;
   int tiles, n_fwd, n_bwd, g;
 
-  __device__ Stager(const Tower<T>& tw, const RayBwd& rb, int tiles_)
+  __device__ Stager(const Tower<T>& tw, const RayBufs& rb, int tiles_, bool bwd)
       : buf0(reinterpret_cast<T*>(rb.wbuf[0])), buf1(reinterpret_cast<T*>(rb.wbuf[1])),
-        tiles(tiles_), n_fwd(mat_count(tw.d, tw.L, false)), n_bwd(mat_count(tw.d, tw.L, true)),
-        g(0) {
+        tiles(tiles_), n_fwd(mat_count(tw.d, tw.L, false)),
+        n_bwd(bwd ? mat_count(tw.d, tw.L, true) : 0), g(0) {
     if (kStaged<T>) fetch(tw, 0);
   }
 
@@ -429,7 +477,7 @@ struct WarpBufs {
 };
 
 template <typename T>
-__device__ inline WarpBufs<T> warp_bufs(const Dims& d, const RayBwd& rb, int wp) {
+__device__ inline WarpBufs<T> warp_bufs(const Dims& d, const RayBufs& rb, int wp) {
   const WarpLayout w = warp_layout(d, sizeof(T));
   char* base = rb.warps + wp * rb.wbytes;
   return {reinterpret_cast<T*>(base), reinterpret_cast<T*>(base + w.xe),
@@ -470,22 +518,33 @@ __device__ inline void warp_rows_in(T* dst, int ld, const void* src, size_t s, i
   }
 }
 
-// Pass 1 for one warp: the forward over the ray's samples [s0, s0 + 16)
-// (vr of them valid), keeping the backward's per-sample state in rb.
+// The buffer of warp wp's region in which warp_forward leaves the dir
+// layer's output de (16 x H, row stride ld_of(H)): the hidden layers
+// alternate between ha and hb, and de overwrites the last one's input.
+template <typename T>
+__device__ inline const T* warp_de(const Dims& d, const RayBufs& rb, int wp) {
+  const WarpBufs<T> wb = warp_bufs<T>(d, rb, wp);
+  return (d.depth & 1) ? wb.hb : wb.ha;
+}
+
+// The forward of one warp over the ray's samples [s0, s0 + 16) (vr of
+// them valid): the sigma pre-activations into zs[0, vr), the dir layer's
+// output de left in warp_de(). KEEP (the backward's pass 1): also the
+// backward's per-sample state in rb, the ReLU bits and the rgb head.
 // Both passes are inlined into the kernel: a call passes the tower, the
 // stager and the epilogues through local memory, a stack frame that cost
 // the bf16 K4 more than a third of its time on an H100.
-template <typename T, bool RAW>
-__device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBwd& rb, Stager<T>& st,
+template <typename T, bool RAW, bool KEEP>
+__device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBufs& rb, Stager<T>& st,
                                              int wp, int s0, int S, size_t sample0, const void* x,
-                                             const void* dirs) {
+                                             const void* dirs, float* zs) {
   const Dims& d = tw.d;
   const Layout& L = tw.L;
   const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, C = 3 + d.F, nw = (W + 31) / 32;
   const int ldw = ld_of(W), ldh = ld_of(H), lde = ld_of(E), ldd = ld_of(Ed);
   const int vr = S - s0 < 0 ? 0 : (S - s0 < WR ? S - s0 : WR);
   const WarpBufs<T> wb = warp_bufs<T>(d, rb, wp);
-  uint32_t* bits = rb.mask + (size_t)s0 * rb.mw;
+  uint32_t* bits = KEEP ? rb.mask + (size_t)s0 * rb.mw : nullptr;
   warp_rows_in<T, RAW>(wb.xe, lde, x, sample0 + s0, vr, E);
   warp_rows_in<T, RAW>(wb.xd, ldd, dirs, sample0 + s0, vr, Ed);
   __syncwarp();
@@ -516,7 +575,7 @@ __device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBwd& r
                  [=](int r, int c, float acc) { bias_relu(r, c, rnd<T>(acc)); });
     }
     __syncwarp();
-    keep_bits(ho, ldw, W, vr, bits + i * nw, rb.mw);
+    if (KEEP) keep_bits(ho, ldw, W, vr, bits + i * nw, rb.mw);
     hn = h;
     h = ho;
   }
@@ -528,7 +587,7 @@ __device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBwd& r
     for (int r = threadIdx.x & (LANES - 1); r < vr; r += LANES) {
       float acc = 0.f;
       for (int c = 0; c < W; ++c) acc = fmaf(to_f<T>(h[r * ldw + c]), to_f<T>(sw[c]), acc);
-      rb.zs[s0 + r] = acc + sb;
+      zs[r] = acc + sb;
     }
   }
   // final = h @ fin_w + fin_b (no activation), into hn
@@ -555,10 +614,10 @@ __device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBwd& r
                });
   }
   __syncwarp();
-  keep_bits(de, ldh, H, vr, bits + d.depth * nw, rb.mw);
-  // rgb head (the three rgb columns; the features never reach the
-  // composite's backward): f32 accumulation plus f32 bias
-  {
+  if constexpr (KEEP) {
+    keep_bits(de, ldh, H, vr, bits + d.depth * nw, rb.mw);
+    // rgb head (the three rgb columns; the features never reach the
+    // composite's backward): f32 accumulation plus f32 bias
     const T* rw = tw.w + L.rgb_w;
     const float* rbias = tw.b + L.rgb_b;
     for (int j = threadIdx.x & (LANES - 1); j < vr * 3; j += LANES) {
@@ -576,7 +635,7 @@ __device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBwd& r
 // output cotangent rb.gr; writes the embedding cotangents (or, RAW, the
 // point and direction cotangents) of the valid rows.
 template <typename T, bool RAW>
-__device__ __forceinline__ void warp_backward(const Tower<T>& tw, const RayBwd& rb, Stager<T>& st,
+__device__ __forceinline__ void warp_backward(const Tower<T>& tw, const RayBufs& rb, Stager<T>& st,
                                               int wp, int s0, int S, size_t sample0, const void* x,
                                               const void* dirs, void* dx, void* ddirs) {
   const Dims& d = tw.d;
@@ -714,49 +773,60 @@ __device__ inline void warp_scan32(float* a, bool backward) {
 #endif
 }
 
-// Warp 0 of the block: composite weights w_i = alpha_i T_i (T_i the exp of
-// the exclusive prefix sum of log(max(1 - alpha_j, 1e-10))) and, from the
-// ray's cotangent gr, the cotangents of zs (rb.dzs), of the deltas (rb.dd)
-// and of z (d_z). Summation order: chunks of 32 samples, each a Kogge-Stone
-// scan (warp_scan32) added to the running total of the chunks before it
-// (after it, for the suffix sums sum_{k > i} d_w_k w_k); the serial loop
-// of the plain version adds one sample at a time, so the two differ by f32
-// rounding only.
-__device__ __forceinline__ void ray_composite(const RayBwd& rb, int S, int C,
+// One warp: the composite weights of samples [i0, i1) of a ray of S
+// (i0 a multiple of 32): w_i = alpha_i T_i, T_i the exp of carry plus the
+// exclusive prefix sum from i0 of log(max(1 - alpha_j, 1e-10)), each
+// handed to out(i, alpha_i, T_i); returns the carry past i1. zs_at(i):
+// sample i's sigma pre-activation; z: the ray's depths. Summation order:
+// chunks of 32 samples, each a Kogge-Stone scan (warp_scan32) added to the
+// running total of the chunks before it, so the forward's tile-by-tile
+// calls add in the backward's order; the serial loop of the plain version
+// adds one sample at a time, so the two differ by f32 rounding only.
+template <typename Zs, typename Out>
+__device__ __forceinline__ float composite_scan(int i0, int i1, int S, const float* z, Zs zs_at,
+                                                float carry, float* scan, Out out) {
+  const int lane0 = threadIdx.x & (LANES - 1);
+  auto alpha_at = [&](int i) {
+    const float delta = i + 1 < S ? z[i + 1] - z[i] : DELTA_INF;
+    return 1.f - expf(-delta * softplus(zs_at(i)));
+  };
+  for (int c0 = i0; c0 < i1; c0 += 32) {
+    for (int l = lane0; l < 32; l += LANES) {
+      const int i = c0 + l;
+      scan[l] = i < i1 ? logf(fmaxf(1.f - alpha_at(i), LOG_EPS)) : 0.f;
+    }
+    __syncwarp();
+    warp_scan32(scan, false);
+    for (int l = lane0; l < 32 && c0 + l < i1; l += LANES)
+      out(c0 + l, alpha_at(c0 + l), expf(l ? carry + scan[l - 1] : carry));
+    carry += scan[31];
+    __syncwarp();
+  }
+  return carry;
+}
+
+// Warp 0 of the backward's block: the composite weights (composite_scan
+// over the whole ray into rb.wgt, rb.trans) and, from the ray's cotangent
+// gr, the cotangents of zs (rb.dzs), of the deltas (rb.dd) and of z (d_z),
+// the suffix sums sum_{k > i} d_w_k w_k in chunks of 32 added to the
+// running total of the chunks after them.
+__device__ __forceinline__ void ray_composite(const RayBufs& rb, int S, int C,
                                               float* __restrict__ d_z) {
   const int lane0 = threadIdx.x & (LANES - 1);
   float* scan = rb.scan;
   auto delta_at = [&](int i) { return i + 1 < S ? rb.z[i + 1] - rb.z[i] : DELTA_INF; };
-  float carry = 0.f;
-  for (int c0 = 0; c0 < S; c0 += 32) {
-    for (int l = lane0; l < 32; l += LANES) {
-      const int i = c0 + l;
-      float v = 0.f;
-      if (i < S) {
-        const float alpha = 1.f - expf(-delta_at(i) * softplus(rb.zs[i]));
-        v = logf(fmaxf(1.f - alpha, LOG_EPS));
-      }
-      scan[l] = v;
-    }
-    __syncwarp();
-    warp_scan32(scan, false);
-    for (int l = lane0; l < 32 && c0 + l < S; l += LANES) {
-      const int i = c0 + l;
-      const float alpha = 1.f - expf(-delta_at(i) * softplus(rb.zs[i]));
-      const float t = expf(l ? carry + scan[l - 1] : carry);
-      rb.trans[i] = t;
-      rb.wgt[i] = alpha * t;
-    }
-    carry += scan[31];
-    __syncwarp();
-  }
+  composite_scan(0, S, S, rb.z, [&](int i) { return rb.zs[i]; }, 0.f, scan,
+                 [&](int i, float alpha, float t) {
+                   rb.trans[i] = t;
+                   rb.wgt[i] = alpha * t;
+                 });
   const float* gr = rb.gr;
   const float g_depth = gr[C], g_acc = gr[C + 1];
   auto d_w_at = [&](int i) {
     const float* rgb = rb.rgb + i * 3;
     return (rgb[0] * gr[0] + rgb[1] * gr[1] + rgb[2] * gr[2]) + rb.z[i] * g_depth + g_acc;
   };
-  carry = 0.f;
+  float carry = 0.f;
   for (int c0 = (S - 1) / 32 * 32; c0 >= 0; c0 -= 32) {
     for (int l = lane0; l < 32; l += LANES) {
       const int i = c0 + l;

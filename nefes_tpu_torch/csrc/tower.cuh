@@ -1,5 +1,6 @@
-// Shared device code of the NeRFH-NFF tower kernels (fused_field.cu,
-// fused_render.cu): the MLP tower with its heads (and, in transient mode,
+// Shared device code of the NeRFH-NFF tower kernels (fused_field.cu;
+// fused_render.cu takes its dims, layout and embedding through
+// render_bwd.cuh): the MLP tower with its heads (and, in transient mode,
 // the NeRF-W transient branch), and its recompute backward, with or
 // without the weight gradients, over one tile of TR samples per block,
 // fed either pre-embedded rows or raw f32 points and directions that the
@@ -37,13 +38,10 @@
 // (f32 accumulation, rounded in the epilogue as before); f32 products run
 // on the CUDA cores, each thread computing 4x4 micro-tiles with FMA. This
 // first version is far from the bound: the A fragments are rebuilt from
-// f32 shared memory with bank conflicts, the B fragments come from L1,
-// and in the render forward (K3/K7) one block of 256 threads holds a
-// whole SM's shared memory. The render backward (K4/K8) no longer uses
-// this path: render_bwd.cuh runs the forward once per sample, keeps the
-// backward's per-sample state (ReLU bits, sigma pre-activation, rgb) for
-// the whole ray, and runs its products from bf16 tiles with the weights
-// staged in shared memory.
+// f32 shared memory with bank conflicts and the B fragments come from L1.
+// The render kernels (K3/K4, K7/K8) no longer use this path:
+// render_bwd.cuh runs their products per warp from bf16 tiles with the
+// weights staged in shared memory, the backward's forward once per sample.
 //
 // The field backward stores no activations: it recomputes the forward for
 // the tile and keeps one ReLU bit per unit and layer, plus the dir-layer

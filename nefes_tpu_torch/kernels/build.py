@@ -130,9 +130,10 @@ _SIGNATURES = {
     "nefes_render_fwd_pre": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _P, _P],
     "nefes_render_bwd_pre": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _P, _P, _P, _P, _P],
+                             _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "nefes_render_smem_bytes": [_I] * 9,
-    "nefes_render_bwd_blocks_per_sm": [_I] * 9,
+    "nefes_render_bwd_scratch_bytes": [_I] * 8,
+    "nefes_render_blocks_per_sm": [_I] * 10,
     "nefes_micro_chain": [_I] * 7 + [_P] * 4,
     "nefes_micro_embed": [_I, _I, _I, _P, _P, _P],
 }
@@ -159,5 +160,11 @@ def library(name: str, emulate: bool = False, build_dir: Path | None = None,
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
+        if (name == "fused_render"
+                and not hasattr(lib, "nefes_render_bwd_scratch_bytes")):
+            # an earlier tree's backward (chip_smoke.py --parent), from
+            # before its global scratch: no scratch argument
+            for fn in ("nefes_render_bwd_pre", "nefes_render_bwd_raw"):
+                getattr(lib, fn).argtypes = _SIGNATURES[fn][:-2] + [_P]
         _loaded[path] = lib
     return _loaded[path]

@@ -19,7 +19,10 @@ a 1e2 tail, alpha = 1 - exp(-delta·sigma), transmittance exp of the
 exclusive cumsum of log(max(1 - alpha, 1e-10)), no noise, no transient
 heads. Output per ray: [rgb (3) | features (F) | depth | acc], f32. In the
 backward the feature channels never reach the weights' cotangent (the
-stop-gradient rule of the compositor): only rgb, depth and acc do.
+stop-gradient rule of the compositor): only rgb, depth and acc do. The
+kernels take any number of samples per ray: the forward keeps one block
+tile of state, and the backward keeps its per-sample state in a global
+scratch (bwd_scratch) past what a block's shared memory holds.
 """
 
 from __future__ import annotations
@@ -119,7 +122,7 @@ def render_bwd_plain(p: PackedField, pts, dirs, z, g):
             embed_backward_plain(d_embd, dirs, spec.n_freqs_dir), d_z)
 
 
-def _check_render(p: PackedField, x, dirs, z, backward: bool, raw: bool):
+def _check_render(p: PackedField, x, dirs, z, raw: bool) -> None:
     spec, dev, cd = p.spec, x.device, p.spec.torch_dtype
     R, S = z.shape
     check_packed(p, dev)
@@ -130,13 +133,16 @@ def _check_render(p: PackedField, x, dirs, z, backward: bool, raw: bool):
         check(x, "emb", (R * S, spec.emb_xyz), cd, dev)
         check(dirs, "embd", (R * S, spec.emb_dir), cd, dev)
     check(z, "z", (R, S), torch.float32, dev)
-    lib = build.library("fused_render")
-    smem = lib.nefes_render_smem_bytes(_DTYPE_CODE[cd], int(backward), S,
-                                       *dims(spec))
-    if smem > 232448:
-        raise ValueError(f"{S} samples per ray need {smem} bytes of shared "
-                         "memory, above a block's 232448")
-    return lib
+
+
+def bwd_scratch(lib, p: PackedField, R: int, S: int, device):
+    """The render backward's global scratch for R rays of S samples: None
+    while a block keeps the per-sample state in shared memory (at the
+    full-width tower up to 269 samples in bf16, 204 in f32), else one
+    slice a ray from the caching allocator."""
+    n = lib.nefes_render_bwd_scratch_bytes(_DTYPE_CODE[p.spec.torch_dtype], S,
+                                           *dims(p.spec))
+    return torch.empty(R * n, dtype=torch.uint8, device=device) if n else None
 
 
 def render_fwd_pre(p: PackedField, emb, embd, z):
@@ -146,7 +152,8 @@ def render_fwd_pre(p: PackedField, emb, embd, z):
         return render_fwd_pre_plain(p, emb, embd, z)
     if emb.device.type != "cuda":
         raise ValueError(f"no kernel for device {emb.device}")
-    lib = _check_render(p, emb, embd, z, False, False)
+    _check_render(p, emb, embd, z, False)
+    lib = build.library("fused_render")
     R, S = z.shape
     out = torch.empty((R, p.spec.rgbfeat + 2), dtype=torch.float32,
                       device=emb.device)
@@ -165,10 +172,12 @@ def render_bwd_pre(p: PackedField, emb, embd, z, g):
         return render_bwd_pre_plain(p, emb, embd, z, g)
     if emb.device.type != "cuda":
         raise ValueError(f"no kernel for device {emb.device}")
-    lib = _check_render(p, emb, embd, z, True, False)
+    _check_render(p, emb, embd, z, False)
+    lib = build.library("fused_render")
     R, S = z.shape
     spec, dev, cd = p.spec, emb.device, p.spec.torch_dtype
     check(g, "g", (R, spec.rgbfeat + 2), torch.float32, dev)
+    scratch = bwd_scratch(lib, p, R, S, dev)
     d_emb = torch.empty((R * S, spec.emb_xyz), dtype=cd, device=dev)
     d_embd = torch.empty((R * S, spec.emb_dir), dtype=cd, device=dev)
     d_z = torch.empty((R, S), dtype=torch.float32, device=dev)
@@ -176,7 +185,7 @@ def render_bwd_pre(p: PackedField, emb, embd, z, g):
         _DTYPE_CODE[cd], R, S, emb.data_ptr(), embd.data_ptr(),
         z.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(),
         *dims(spec), g.data_ptr(), d_emb.data_ptr(), d_embd.data_ptr(),
-        d_z.data_ptr(), _stream())
+        d_z.data_ptr(), _ptr(scratch), _stream())
     render_bwd_pre.launches += 1
     raise_on(err, "render_bwd_pre")
     return d_emb, d_embd, d_z
@@ -189,7 +198,8 @@ def render_fwd(p: PackedField, pts, dirs, z):
         return render_fwd_plain(p, pts, dirs, z)
     if pts.device.type != "cuda":
         raise ValueError(f"no kernel for device {pts.device}")
-    lib = _check_render(p, pts, dirs, z, False, True)
+    _check_render(p, pts, dirs, z, True)
+    lib = build.library("fused_render")
     R, S = z.shape
     out = torch.empty((R, p.spec.rgbfeat + 2), dtype=torch.float32,
                       device=pts.device)
@@ -208,10 +218,12 @@ def render_bwd(p: PackedField, pts, dirs, z, g):
         return render_bwd_plain(p, pts, dirs, z, g)
     if pts.device.type != "cuda":
         raise ValueError(f"no kernel for device {pts.device}")
-    lib = _check_render(p, pts, dirs, z, True, True)
+    _check_render(p, pts, dirs, z, True)
+    lib = build.library("fused_render")
     R, S = z.shape
     spec, dev, f32 = p.spec, pts.device, torch.float32
     check(g, "g", (R, spec.rgbfeat + 2), f32, dev)
+    scratch = bwd_scratch(lib, p, R, S, dev)
     d_pts = torch.empty((R * S, 3), dtype=f32, device=dev)
     d_dirs = torch.empty((R * S, 3), dtype=f32, device=dev)
     d_z = torch.empty((R, S), dtype=f32, device=dev)
@@ -219,7 +231,7 @@ def render_bwd(p: PackedField, pts, dirs, z, g):
         _DTYPE_CODE[spec.torch_dtype], R, S, pts.data_ptr(), dirs.data_ptr(),
         z.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(),
         *dims(spec), g.data_ptr(), d_pts.data_ptr(), d_dirs.data_ptr(),
-        d_z.data_ptr(), _stream())
+        d_z.data_ptr(), _ptr(scratch), _stream())
     render_bwd.launches += 1
     raise_on(err, "render_bwd")
     return d_pts, d_dirs, d_z

@@ -63,15 +63,19 @@ def bound(flops: float, ew_ops: float, nbytes: float) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def tower_flops(spec) -> dict:
+def tower_flops(spec, samples: int = 1) -> dict:
     """Matrix-product operations per sample (2 per multiply-add) that each
-    field kernel's function needs. K1: the trunk and the sigma head. K3:
-    the whole forward, with the dir layer and the 3+F rgb/feature head.
-    The backwards recompute the forward without the head (K2), or with
-    only the 3 rgb columns that the composite's weights need (K4), then
-    backprop through the whole tower to the inputs, which takes as many
-    products as the whole forward. K5-K8 do the products of K1 (sigma
-    mode), K2, K3 and K4, plus the elementwise embedding (embed_ops). The
+    field kernel's function needs. K1: the trunk and the sigma head.
+    "full": the whole forward, with the dir layer and the 3+F rgb/feature
+    head (the field kernels' full mode). K3: the forward to the dir layer
+    per sample and the linear rgb/feature head once per ray of `samples`
+    samples, on the ray's weighted sum of the dir layer's outputs (the
+    composite's weights sum through it). The backwards recompute the
+    forward without the head (K2), or with only the 3 rgb columns that the
+    composite's weights need (K4), then backprop through the whole tower
+    to the inputs, which takes as many products as the whole forward.
+    K5-K8 do the products of K1 (sigma mode) or "full", K2, K3 and K4,
+    plus the elementwise embedding (embed_ops). The
     training variants, transient mode: "fwd_t" the whole forward with the
     transient branch (t1 over final and the dir embedding, t2, t3, the 5
     heads); "bwd_dw_t" its recompute without the rgb head, the products
@@ -84,7 +88,8 @@ def tower_flops(spec) -> dict:
     body = trunk + Wd * Wd + (Wd + Ed) * Hd
     full = body + Hd * C
     trans = (Wd + Ed) * Hd + 2 * Hd * Hd + Hd * 5
-    return {"K1": 2 * trunk, "K2": 2 * (body + full), "K3": 2 * full,
+    return {"K1": 2 * trunk, "K2": 2 * (body + full), "full": 2 * full,
+            "K3": 2 * (body + Hd * C / samples),
             "K4": 2 * (body + Hd * 3 + full),
             "fwd_t": 2 * (full + trans),
             "bwd_dw_t": 2 * ((body + trans) + 2 * (full + trans))}
@@ -285,9 +290,9 @@ def cmd_kernelmicro(args) -> dict:
             device=dev) * 1e3
     # the field kernels' rate, to set beside the bare chain's (K9)
     fl = tower_flops(pf.spec)
-    for key, per_row in (("full_kernel_tile64_ms", fl["K3"]),
-                         ("pre_kernel_fwd_ms", fl["K3"]),
-                         ("pre_kernel_fwdbwd_ms", fl["K3"] + fl["K2"])):
+    for key, per_row in (("full_kernel_tile64_ms", fl["full"]),
+                         ("pre_kernel_fwd_ms", fl["full"]),
+                         ("pre_kernel_fwdbwd_ms", fl["full"] + fl["K2"])):
         print(f"  {key}: {N * per_row / 1e9:.1f} GFLOP bf16, "
               f"{N * per_row / results[key] / 1e9:.2f} TFLOP/s", flush=True)
 

@@ -18,9 +18,11 @@ their plain versions are held to the JAX package in test_torch_raw.py).
    in-kernel embedding and its chain rule (sinf/cosf of the C library
    against torch's), the transient heads, and the weight gradients of
    K2/K6 (the persistent grid's partial slices and their reduction, with
-   several slices and one), checked without a card. The render kernels'
-   shared memory against a block's 232,448 bytes, and the build of
-   another tree's sources (chip_smoke.py --parent).
+   several slices and one), checked without a card. The render kernels at
+   the full-width tower and up to 1,024 samples a ray (the backward's
+   per-sample state past a block's 232,448 bytes of shared memory, in its
+   global scratch), and the build of another tree's sources
+   (chip_smoke.py --parent).
    The host build refuses bf16: bf16 runs on the tensor cores, which only
    the card has, so bf16 is checked by 3.
 3. On a card (marked cuda; skipped on a machine without one): each kernel
@@ -392,48 +394,72 @@ def test_field_source_dw_matches_plain(N, raw, slices, host_build):
         _scaled_close(dw[nw:], want[2][nw:], tol, f"db mode {mode}")
 
 
-# S samples per ray: 70 is a whole tile and a ragged one (64 + 6) of the
-# forward and part of one backward block tile (128 samples, 16 a warp),
-# 128 the main path's, 192 three forward tiles and one and a half
-# backward block tiles (the per-ray state spans both), 1 a single sample
-# (the composite's warp scans hold one element)
+def _render_fwd_host(lib, raw, p, x, dirs, z):
+    """K3 (or raw K7) of the host build: (R, C + 2)."""
+    R, S = z.shape
+    out = torch.empty((R, p.spec.rgbfeat + 2))
+    err = getattr(lib, f"nefes_render_fwd_{_KIND[raw]}")(
+        kf._DTYPE_CODE[p.spec.torch_dtype], R, S, x.data_ptr(),
+        dirs.data_ptr(), z.data_ptr(), p.w.data_ptr(), p.b.data_ptr(),
+        *kf.dims(p.spec), out.data_ptr(), None)
+    assert err == 0
+    return out
+
+
+def _render_bwd_host(lib, raw, p, x, dirs, z, g, scratch=True):
+    """K4 (or raw K8) of the host build, with the global scratch the
+    wrapper allocates (none with scratch=False): its outputs, or its
+    error code where it refuses."""
+    R, S = z.shape
+    spec = p.spec
+    hd, (dx_w, dd_w) = ((torch.float32, (3, 3)) if raw else
+                        (spec.torch_dtype, (spec.emb_xyz, spec.emb_dir)))
+    d = [torch.empty((R * S, dx_w), dtype=hd),
+         torch.empty((R * S, dd_w), dtype=hd), torch.empty((R, S))]
+    buf = kr.bwd_scratch(lib, p, R, S, "cpu") if scratch else None
+    err = getattr(lib, f"nefes_render_bwd_{_KIND[raw]}")(
+        kf._DTYPE_CODE[spec.torch_dtype], R, S, x.data_ptr(), dirs.data_ptr(),
+        z.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(),
+        *kf.dims(spec), g.data_ptr(), *[v.data_ptr() for v in d],
+        kf._ptr(buf), None)
+    return d if err == 0 else err
+
+
+# S samples per ray: 70 is part of one block tile (128 samples, 16 a
+# warp), 128 the main path's, 192 one and a half block tiles, 320 two and
+# a half (the forward's transmittance carried from tile to tile; the
+# backward's per-sample state spans them), 1 a single sample (the
+# composite's warp scans hold one element)
 @pytest.mark.parametrize("S,raw", [
     pytest.param(70, False, id="float32"),
     pytest.param(128, False, id="float32-whole-tiles"),
     pytest.param(192, False, id="float32-three-tiles"),
+    pytest.param(320, False, id="float32-block-tiles"),
     pytest.param(1, False, id="float32-one-sample"),
     pytest.param(70, True, id="raw-float32"),
     pytest.param(128, True, id="raw-float32-whole-tiles"),
     pytest.param(192, True, id="raw-float32-three-tiles"),
+    pytest.param(320, True, id="raw-float32-block-tiles"),
     pytest.param(1, True, id="raw-float32-one-sample")])
 def test_render_source_matches_plain(S, raw, host_build):
     """K3/K4, or with raw K7/K8, against their plain versions. The
-    backward's composite sums its transmittance and suffix terms as warp
-    scans over chunks of 32 samples, the plain version sample by sample:
-    the two orders differ by f32 rounding, within the scaled 1e-5."""
+    composite sums its transmittance (and the backward its suffix terms)
+    as warp scans over chunks of 32 samples, the forward's K3/K7 the
+    rgb/feature head once on the ray's weighted sum of the dir layer, the
+    plain version sample by sample: the orders differ by f32 rounding,
+    within the scaled 1e-5."""
     spec, p, gen = _emulated_case()
     lib = build.library("fused_render", emulate=True, build_dir=host_build)
-    fwd = getattr(lib, f"nefes_render_fwd_{_KIND[raw]}")
-    bwd = getattr(lib, f"nefes_render_bwd_{_KIND[raw]}")
     plain_fwd = kr.render_fwd_plain if raw else kr.render_fwd_pre_plain
     plain_bwd = kr.render_bwd_plain if raw else kr.render_bwd_pre_plain
-    cd, R, C, tol = spec.torch_dtype, 4, spec.rgbfeat, 1e-5
-    x, dirs, hd, (dx_w, dd_w) = _inputs(gen, spec, R * S, raw)
+    R, C, tol = 4, spec.rgbfeat, 1e-5
+    x, dirs, _, _ = _inputs(gen, spec, R * S, raw)
     z = torch.sort(torch.rand((R, S), generator=gen) * 4, 1).values
-    out = torch.empty((R, C + 2))
-    err = fwd(kf._DTYPE_CODE[cd], R, S, x.data_ptr(), dirs.data_ptr(),
-              z.data_ptr(), p.w.data_ptr(), p.b.data_ptr(), *kf.dims(spec),
-              out.data_ptr(), None)
-    assert err == 0
-    _scaled_close(out, plain_fwd(p, x, dirs, z), tol)
+    _scaled_close(_render_fwd_host(lib, raw, p, x, dirs, z),
+                  plain_fwd(p, x, dirs, z), tol)
     g = torch.randn((R, C + 2), generator=gen)
-    d = [torch.empty((R * S, dx_w), dtype=hd),
-         torch.empty((R * S, dd_w), dtype=hd), torch.empty((R, S))]
-    err = bwd(kf._DTYPE_CODE[cd], R, S, x.data_ptr(), dirs.data_ptr(),
-              z.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(),
-              *kf.dims(spec), g.data_ptr(), *[v.data_ptr() for v in d], None)
-    assert err == 0
-    for o, w in zip(d, plain_bwd(p, x, dirs, z, g)):
+    for o, w in zip(_render_bwd_host(lib, raw, p, x, dirs, z, g),
+                    plain_bwd(p, x, dirs, z, g)):
         _scaled_close(o, w, tol)
 
 
@@ -459,59 +485,48 @@ def test_render_bwd_smem_fits_one_block(host_build):
     assert lib.nefes_render_smem_bytes(1, 0, 128, *kf.dims(spec)) != bf16
 
 
-@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
-def test_check_render_raises_past_the_smem_budget(backward, host_build,
-                                                  monkeypatch):
-    """_check_render passes an S whose block fits 232,448 bytes and
-    raises for one that does not, before any launch."""
-    spec, p, gen = _emulated_case()
-    lib = build.library("fused_render", emulate=True, build_dir=host_build)
-    monkeypatch.setattr(kr.build, "library", lambda name: lib)
-    fits = [S for S in (256, 1024, 4096)
-            if lib.nefes_render_smem_bytes(0, int(backward), S,
-                                           *kf.dims(spec)) <= BLOCK_SMEM_MAX]
-    assert fits == [256, 1024]
-    for S in (1024, 4096):
-        x, dirs, _, _ = _inputs(gen, spec, S, False)
-        z = torch.sort(torch.rand((1, S), generator=gen), 1).values
-        if S in fits:
-            kr._check_render(p, x, dirs, z, backward, False)
-        else:
-            with pytest.raises(ValueError, match="shared memory"):
-                kr._check_render(p, x, dirs, z, backward, False)
-
-
-# The most samples per ray one block holds at the full-width ModelConfig()
-# (D8/W128/F128), as PERF.md states them, for K3/K7 (backward False: the
-# per-ray rgb and features in f32) and K4/K8 (True: the per-sample state
-# of the one-forward backward beside the weight stages and warp tiles)
-MAX_SAMPLES = {("bfloat16", False): 237, ("bfloat16", True): 269,
-               ("float32", False): 237, ("float32", True): 204}
-
-
-@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
-def test_render_max_samples_at_full_width(dt, host_build, monkeypatch):
-    """At the full-width ModelConfig(), the largest S per ray whose block
-    fits 232,448 bytes is PERF.md's figure for each kernel: _check_render
-    passes it and raises one sample beyond, before any launch."""
+@pytest.fixture(scope="module")
+def full_width():
+    """The fine tower of the full-width ModelConfig() (D8/W128/F128) in
+    f32, packed."""
     from nefes_tpu_torch.train.model import ModelConfig, NeFeSModel
-    lib = build.library("fused_render", emulate=True, build_dir=host_build)
-    monkeypatch.setattr(kr.build, "library", lambda name: lib)
-    model = NeFeSModel(ModelConfig(dtype=kf._DTYPES[dt]), device="cpu",
+    model = NeFeSModel(ModelConfig(dtype=torch.float32), device="cpu",
                        generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
-        p = model.pack_fused()[1]
-    gen = torch.Generator().manual_seed(2)
-    for backward in (False, True):
-        top = MAX_SAMPLES[dt, backward]
-        for S in (top, top + 1):
-            x, dirs, _, _ = _inputs(gen, p.spec, S, False)
-            z = torch.sort(torch.rand((1, S), generator=gen), 1).values
-            if S == top:
-                kr._check_render(p, x, dirs, z, backward, False)
-            else:
-                with pytest.raises(ValueError, match="shared memory"):
-                    kr._check_render(p, x, dirs, z, backward, False)
+        return model.pack_fused()[1]
+
+
+# At the full-width tower in f32 a K4/K8 block keeps the per-sample state
+# of up to 204 samples in shared memory: 256 and 1,024 put it in the
+# global scratch. K3/K7 keep one block tile whatever S is.
+@pytest.mark.parametrize("S", [256, 1024])
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K7", "K8"])
+def test_render_full_width_matches_plain(kernel, S, full_width, host_build):
+    """One ray of S samples at the full-width tower in f32: the wrappers'
+    checks take it, the block's shared memory stays within 232,448 bytes,
+    and the kernel (host build) equals its plain version to the scaled
+    1e-5. The backward refuses to launch without the scratch it needs."""
+    p, raw = full_width, kernel in ("K7", "K8")
+    lib = build.library("fused_render", emulate=True, build_dir=host_build)
+    gen = torch.Generator().manual_seed(S)
+    x, dirs, _, _ = _inputs(gen, p.spec, S, raw)
+    z = torch.sort(torch.rand((1, S), generator=gen) * 4, 1).values
+    kr._check_render(p, x, dirs, z, raw)
+    backward = kernel in ("K4", "K8")
+    assert lib.nefes_render_smem_bytes(0, int(backward), S,
+                                       *kf.dims(p.spec)) <= BLOCK_SMEM_MAX
+    if not backward:
+        plain = kr.render_fwd_plain if raw else kr.render_fwd_pre_plain
+        _scaled_close(_render_fwd_host(lib, raw, p, x, dirs, z),
+                      plain(p, x, dirs, z), 1e-5)
+        return
+    g = torch.randn((1, p.spec.rgbfeat + 2), generator=gen)
+    assert lib.nefes_render_bwd_scratch_bytes(0, S, *kf.dims(p.spec)) > 0
+    assert _render_bwd_host(lib, raw, p, x, dirs, z, g, scratch=False) != 0
+    plain = kr.render_bwd_plain if raw else kr.render_bwd_pre_plain
+    for o, w in zip(_render_bwd_host(lib, raw, p, x, dirs, z, g),
+                    plain(p, x, dirs, z, g)):
+        _scaled_close(o, w, 1e-5)
 
 
 def test_build_of_another_tree(host_build, tmp_path):
@@ -545,8 +560,9 @@ def cuda():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_on_card(cuda, dtype):
     """Each of K1-K8, and the training variants of K1/K2/K5/K6, against
-    its plain version on the same card inputs, by relative L2 error: bf16
-    1e-2, f32 1e-5. In bf16 the tensor cores
+    its plain version on the same card inputs (K3/K4/K7/K8 also at the
+    full width and 384 samples a ray), by relative L2 error: bf16 1e-2,
+    f32 1e-5. In bf16 the tensor cores
     and cuBLAS sum in another order, so a hidden unit within one rounding
     of 0 can fall on the other side of the ReLU, and a backward then
     passes or drops that unit's cotangent: single entries may differ by
@@ -627,5 +643,28 @@ def test_kernels_match_plain_on_card(cuda, dtype):
                                          need_dw=True),
                         kf.field_bwd_pre_plain(p, mode, emb, embd, *gp,
                                                need_dw=True)):
+            agree(a, b)
+    # K3/K4/K7/K8 at the full-width ModelConfig() and 384 samples a ray:
+    # the backward's per-sample state past a block's shared memory, in its
+    # global scratch
+    wide = NeFeSModel(ModelConfig(dtype=cd), device=cuda,
+                      generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        pw = wide.pack_fused()[1]
+    sw, S = pw.spec, 384
+    emb = torch.randn((R * S, sw.emb_xyz), device=cuda).to(cd)
+    embd = torch.randn((R * S, sw.emb_dir), device=cuda).to(cd)
+    pts = torch.randn((R * S, 3), device=cuda) * 1.5
+    dirs = torch.nn.functional.normalize(torch.randn((R * S, 3),
+                                                     device=cuda), dim=-1)
+    z = torch.sort(torch.rand((R, S), device=cuda) * 4, 1).values
+    gr = torch.randn((R, sw.rgbfeat + 2), device=cuda)
+    for x, xd, fwd, fwd_plain, bwd, bwd_plain in (
+            (emb, embd, kr.render_fwd_pre, kr.render_fwd_pre_plain,
+             kr.render_bwd_pre, kr.render_bwd_pre_plain),
+            (pts, dirs, kr.render_fwd, kr.render_fwd_plain, kr.render_bwd,
+             kr.render_bwd_plain)):
+        agree(fwd(pw, x, xd, z), fwd_plain(pw, x, xd, z))
+        for a, b in zip(bwd(pw, x, xd, z, gr), bwd_plain(pw, x, xd, z, gr)):
             agree(a, b)
     torch.cuda.synchronize()
