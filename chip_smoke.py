@@ -7,11 +7,15 @@ H100: the kernels build for sm_90a).
 Phases:
   build  compile the CUDA kernels from csrc/ (nvcc, one process per
          source, in parallel) into nefes_tpu_torch/_build/; with --parent
-         also DIR's fused_render.cu, in parallel; the render kernels'
+         also DIR's fused_render.cu and fused_field.cu, in parallel; each
+         kernel's ptxas registers and stack frame; the render kernels'
          shared memory a block, blocks per SM and the backward's global
-         scratch a ray
+         scratch a ray; K1/K5's shared memory a block and blocks per SM in
+         sigma and full mode
   check  K1-K8 against their plain PyTorch versions on the card, at the
-         shapes of the refinement's main path, in bf16 and f32 (K3/K4/K7/K8
+         shapes of the refinement's main path, in bf16 and f32 (K1/K5 in
+         sigma mode, without dirs, and in full mode, also at a sample
+         count that is not a multiple of 128; K3/K4/K7/K8
          also at 64 rays of a depth-4, 16-feature field, and at full width
          at 256, 384 and 1024 samples a ray); and the
          training variants at the training shapes: K1/K5 in transient
@@ -44,14 +48,16 @@ Phases:
   time   each kernel's time (CUDA events, median) beside its bound, its
          plain version's time and a bf16 torch.matmul chain over the same
          tower as a yardstick; the training variants at the fine training
-         shape, and the coarse pass's two training launches. With
-         --parent DIR (an earlier tree, unpacked with git archive into a
-         git-ignored directory): the render kernels K3, K4, K7 and K8 of
-         DIR and of this tree in turns on the same inputs, each of DIR's
-         checked against its plain version first
+         shape, and the coarse pass's training launches. K1 and K5 in
+         turns with themselves on one block per block tile instead of the
+         persistent grid; with --parent DIR (an earlier tree, unpacked with
+         git archive into a git-ignored directory) also DIR's, and the
+         render kernels K3, K4, K7 and K8 of DIR and of this tree in turns
+         on the same inputs, each of DIR's checked against its plain
+         version first
   micro  the probe's kernelmicro (nefes_tpu_torch/runtime/probe.py) at the
          fine-pass shape, N = 614,400 rows: K9 (bare bf16 8-layer chain)
-         at tiles 64 (the field kernels' block), 512, 2048, 8192, K10 (2 and 4 sub-tiles interleaved),
+         at tiles 64 (the first design's field block), 512, 2048, 8192, K10 (2 and 4 sub-tiles interleaved),
          K11 (the sin/cos embedding alone) at each tile, K12 (square
          chains of width 128 and 256), then K5, K1 and K1 + K2, each
          timed beside its bound, its plain version and a bf16
@@ -117,16 +123,23 @@ IMG_H, IMG_W, FOCAL_FULL = 4 * H, 4 * W, 4 * FOCAL
 # within PROBE_RGB_TOL (max-abs) of the unfused fine pass + compositor. On
 # an H100 the ratios read 0.06-0.79 and the rgb 2.6e-4 (PERF.md).
 PROBE_BAND, PROBE_RGB_TOL = 4.0, 3e-3
-# The first version of K3/K4/K7/K8 (f32 tiles through tower.cuh, weights
-# through L1, composite in one thread; K4/K8 two tower forwards per
-# sample), at the time phase's shape: PERF.md's times, an H100 80GB HBM3
-# at 700 W; the time phase prints them beside the new ones.
-EARLIER_MS = {"K3 render_fwd_pre": 16.172, "K4 render_bwd_pre": 42.796,
+# The first version of K1/K5 and K3/K4/K7/K8 (f32 tiles through
+# tower.cuh, weights through L1; the render kernels' composite in one
+# thread, K4/K8 two tower forwards per sample), at the time phase's shape:
+# PERF.md's times, an H100 80GB HBM3 at 700 W; the time phase prints them
+# beside the new ones.
+EARLIER_MS = {"K1 field_fwd_pre": 3.589, "K5 field_fwd": 3.739,
+              "K3 render_fwd_pre": 16.172, "K4 render_bwd_pre": 42.796,
               "K7 render_fwd": 14.576, "K8 render_bwd": 43.761}
 # The check phase's render kernels at full width: samples a ray (the
 # backward's per-sample state past a block's shared memory from 205 in
 # f32 and 270 in bf16) and rays
 WIDE_S, WIDE_R = (256, 384, 1024), 64
+# The check phase's K1/K5 also at the main path's sample counts less this,
+# which is not a multiple of the 128-sample block tile
+RAGGED = 37
+# the libraries of an earlier tree (--parent) that the time phase times
+PARENT_LIBS = ("fused_render", "fused_field")
 # kernel -> (the TPU kernel it replaces, its CUDA source)
 _FF, _FR, _MC = ("nefes_tpu_torch/csrc/fused_field.cu",
                  "nefes_tpu_torch/csrc/fused_render.cu",
@@ -164,8 +177,8 @@ def main() -> int:
                     default="build,check,mode3,mode2,paths,train,time,"
                     "micro,probe,profile")
     ap.add_argument("--parent", default=None,
-                    help="an earlier tree whose render kernels the time "
-                    "phase times beside this tree's")
+                    help="an earlier tree whose K1, K5 and render kernels "
+                    "the time phase times beside this tree's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run")
@@ -217,13 +230,13 @@ def main() -> int:
         with ThreadPoolExecutor(2) as ex:
             jobs = [ex.submit(build.build_all)]
             if parent:
-                jobs.append(ex.submit(build.build_all, names=("fused_render",),
+                jobs.append(ex.submit(build.build_all, names=PARENT_LIBS,
                                       **parent))
             times = [j.result() for j in jobs]
         log(f"built in {time.perf_counter() - t0:.1f} s: {times}")
         logs = [(name, {}) for name in build.SOURCES]
         if parent:
-            logs.append(("fused_render", parent))
+            logs += [(name, parent) for name in PARENT_LIBS]
         for name, where in logs:
             entry = ""
             for line in build.build_log(name, **where).splitlines():
@@ -251,6 +264,18 @@ def main() -> int:
                         f"{lib.nefes_render_smem_bytes(code, bwd, S, *dims)}"
                         f" B of shared memory a block, blocks per SM "
                         f"{blocks[0]} / {blocks[1]} (pre / raw){scratch}")
+        # the field forward K1/K5 on the coarse tower, by mode
+        flib = build.library("fused_field")
+        cdims = kf.dims(kf.FieldSpec.from_model(ModelConfig(), "coarse"))
+        for dt, code in (("bf16", 1), ("f32", 0)):
+            for mode in (kf.SIGMA, kf.FULL):
+                blocks = [flib.nefes_field_blocks_per_sm(code, mode, raw,
+                                                         *cdims)
+                          for raw in (0, 1)]
+                log(f"K1/K5 field_fwd {('sigma', 'full')[mode]} {dt}: "
+                    f"{flib.nefes_field_smem_bytes(code, mode, *cdims)} B "
+                    f"of shared memory a block, blocks per SM {blocks[0]} "
+                    f"/ {blocks[1]} (pre / raw)")
 
     phase("build", do_build)
     if "build" in failed:
@@ -314,11 +339,28 @@ def main() -> int:
             ins.update(g_field=g_field, g_raw=g_raw, g_ray=g_ray)
             pts_c, pts, dirs, z = (ins["pts_c"], ins["pts"], ins["dirs"],
                                    ins["z"])
+            # sample counts that are not a multiple of a block tile
+            rc, rf = n_c - RAGGED, n_f - RAGGED
             # (kernel, mode, wrapper, plain version, call)
             cases = [
                 ("K1 field_fwd_pre", "sigma", kf.field_fwd_pre,
                  kf.field_fwd_pre_plain,
                  lambda f: f(pc, False, ins["emb_c"], None)[:1]),
+                ("K1 field_fwd_pre", "full", kf.field_fwd_pre,
+                 kf.field_fwd_pre_plain,
+                 lambda f: f(pf, True, ins["emb"], ins["embd"])),
+                ("K1 field_fwd_pre", f"sigma N={rc}", kf.field_fwd_pre,
+                 kf.field_fwd_pre_plain,
+                 lambda f: f(pc, False, ins["emb_c"][:rc], None)[:1]),
+                ("K1 field_fwd_pre", f"full N={rf}", kf.field_fwd_pre,
+                 kf.field_fwd_pre_plain,
+                 lambda f: f(pf, True, ins["emb"][:rf], ins["embd"][:rf])),
+                ("K5 field_fwd", f"sigma N={rc}", kf.field_fwd,
+                 kf.field_fwd_plain,
+                 lambda f: f(pc, False, pts_c[:rc], None)[:1]),
+                ("K5 field_fwd", f"full N={rf}", kf.field_fwd,
+                 kf.field_fwd_plain,
+                 lambda f: f(pf, True, pts[:rf], dirs[:rf])),
                 ("K2 field_bwd_pre", "full", kf.field_bwd_pre,
                  kf.field_bwd_pre_plain,
                  lambda f: f(pf, True, ins["emb"], ins["embd"], *g_field)),
@@ -1007,50 +1049,69 @@ def main() -> int:
                 f"bf16 + {ew / 1e9:.3f} G f32 ops, {nbytes / 1e6:.1f} MB; "
                 f"{flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms, "
                 f"bf16 matmul chain {lib_ms:.3f} ms")
-        if parent:
-            time_parent(rows)
+        time_turns(rows)
 
-    def time_parent(rows):
-        """K3, K4, K7, K8 of the --parent tree beside this tree's, on the
-        time phase's inputs: each of the parent's against its plain
-        version (relative L2), then both in turns (parent, this, this,
-        parent; 5 rounds, the median of each one's 10 times), both called
-        the same way (render_call), so the host's share is the same."""
-        libs = {"parent": build.library("fused_render", **parent),
-                "this": build.library("fused_render")}
+    def time_turns(rows):
+        """Kernels in turns on the time phase's inputs, each variant
+        called the same way (field_call, render_call), so the host's share
+        is the same: K1 and K5 (sigma mode) on their persistent grid and on
+        one block per block tile (whose outputs must be equal); with
+        --parent also the parent tree's K1 and K5 and, of both trees, K3,
+        K4, K7 and K8, each of the parent's checked against its plain
+        version first (relative L2). 5 rounds of the variants in order and
+        then in reverse (this, tile, tile, this or parent, this, this,
+        parent, ...), the median of each one's 10 times."""
         ins = state["inputs"]["bfloat16"]
-        for name in ("K3 render_fwd_pre", "K4 render_bwd_pre",
-                     "K7 render_fwd", "K8 render_bwd"):
-            case, plain = rows[name][0], rows[name][2]
-            got = render_call(libs["parent"], name, ins, dev)
-            want = case(plain)
-            if torch.is_tensor(want):       # a forward's one output
-                want = (want,)
-            l2 = max(float((a.float() - b.float()).norm() / b.float().norm())
-                     for a, b in zip(got, want))
-            if not l2 <= TOL["bfloat16"]:
-                raise AssertionError(f"parent {name}: rel_l2 {l2:.3e}")
-            del got, want
-            fns = {k: (lambda lib=lib: render_call(lib, name, ins, dev))
-                   for k, lib in libs.items()}
-            times = {k: [] for k in fns}
+        names = list(_FIELD_ENTRY)
+        if parent:
+            names += list(_RENDER_ENTRY)
+        for name in names:
+            field = name in _FIELD_ENTRY
+            src, call = (("fused_field", field_call) if field
+                         else ("fused_render", render_call))
+            this = build.library(src)
+            fns = {}
+            if parent:
+                lib = build.library(src, **parent)
+                got = call(lib, name, ins, dev)
+                want = rows[name][0](rows[name][2])
+                if torch.is_tensor(want):       # a forward's one output
+                    want = (want,)
+                l2 = max(float((a.float() - b.float()).norm()
+                               / b.float().norm())
+                         for a, b in zip(got, want))
+                if not l2 <= TOL["bfloat16"]:
+                    raise AssertionError(f"parent {name}: rel_l2 {l2:.3e}")
+                log(f"parent {name}: rel_l2 {l2:.3e} against plain")
+                del got, want
+                fns["parent"] = lambda lib=lib: call(lib, name, ins, dev)
+            fns["this"] = lambda: call(this, name, ins, dev)
+            if field:
+                fns["tile"] = lambda: field_call(this, name, ins, dev, 0)
+                if not torch.equal(fns["tile"]()[0], fns["this"]()[0]):
+                    raise AssertionError(f"{name}: one block per block "
+                                         f"tile differs from the grid")
+            keys = list(fns)
+            times = {k: [] for k in keys}
             for f in (*fns.values(), *fns.values()):     # warm
                 f()
             for _ in range(5):
-                for k in ("parent", "this", "this", "parent"):
+                for k in keys + keys[::-1]:
                     times[k].append(event_ms(fns[k]))
             ms = {k: statistics.median(v) for k, v in times.items()}
-            log(f"{name} in turns: this tree {ms['this']:.3f} ms, parent "
-                f"{ms['parent']:.3f} ms ({ms['parent'] / ms['this']:.2f}x; "
-                f"parent rel_l2 {l2:.3e}); times this "
-                f"{[round(t, 3) for t in times['this']]} parent "
-                f"{[round(t, 3) for t in times['parent']]}")
+            label = {"this": "this tree", "parent": "parent",
+                     "tile": "this tree on one block per block tile"}
+            log(f"{name} in turns: " + ", ".join(
+                f"{label[k]} {ms[k]:.3f} ms ({ms[k] / ms['this']:.3f}x)"
+                for k in keys) + "; times " + "; ".join(
+                f"{k} {[round(t, 3) for t in times[k]]}" for k in keys))
             torch.cuda.empty_cache()
 
     @torch.no_grad()
     def time_coarse_training():
         """The coarse pass of a training step (full mode, half the fine
-        samples): K5 forward and K6 with dW, their ms."""
+        samples): K5 forward (and K1 on the embeddings) and K6 with dW,
+        their ms."""
         tr = state["train_inputs"]["bfloat16"]
         pc = tr["packed"][0]
         n_c = tr["pts_c"].shape[0]
@@ -1060,11 +1121,14 @@ def main() -> int:
         saved = snapshot_counts()
         fwd = time_ms(lambda: kf.field_fwd(pc, kf.FULL, tr["pts_c"],
                                            tr["dirs_c"]))
+        fwd_pre = time_ms(lambda: kf.field_fwd_pre(pc, kf.FULL, tr["emb_c"],
+                                                   tr["embd_c"]))
         bwd = time_ms(lambda: kf.field_bwd(pc, kf.FULL, tr["pts_c"],
                                            tr["dirs_c"], *g, need_dw=True))
         restore_counts(saved)
         log(f"coarse training pass ({n_c} samples, full mode): K5 field_fwd "
-            f"{fwd:.3f} ms, K6 field_bwd +dW {bwd:.3f} ms")
+            f"{fwd:.3f} ms (K1 field_fwd_pre {fwd_pre:.3f} ms), K6 "
+            f"field_bwd +dW {bwd:.3f} ms")
 
     def do_time_all():
         do_time()
@@ -1082,7 +1146,8 @@ def main() -> int:
 
     def do_micro():
         from types import SimpleNamespace
-        # the JAX probe's tiles, and 64 rows: the field kernels' own
+        # the JAX probe's tiles, and 64 rows: the field kernels' first
+        # design's (transient mode, K2/K6)
         tiles = [64, 512, 2048, 8192]
         out, secs, counts = counted("micro", lambda: probe.cmd_kernelmicro(
             SimpleNamespace(device="cuda", tiles=tiles, out="")))
@@ -1227,16 +1292,23 @@ def finish(failed, kernels, smi) -> int:
 
 def kernel_label(line: str) -> str:
     """A short name for ptxas's 'Compiling entry function' line: the
-    mangled name's kernel, and for the render kernels their dtype, input
-    kind and, for a backward, where it keeps its per-sample state."""
+    mangled name's kernel, and for the warp-path kernels their dtype, input
+    kind and the field forward's mode or, for a render backward, where it
+    keeps its per-sample state."""
     import re
     name = line.split("'")[1] if "'" in line else line.strip()
+    dt = "bf16" if "nv_bfloat16" in name else "f32"
+    if "field_warp_kernel" in name:
+        flags = re.findall(r"Lb([01])", name)   # RAW, then HEADS
+        return (f"field_warp_kernel<{dt},"
+                f"{'raw' if flags[:1] == ['1'] else 'pre'},"
+                f"{'full' if flags[1:2] == ['1'] else 'sigma'}>")
     for kern in ("render_bwd_kernel", "render_fwd_kernel"):
         if kern in name:
             flags = re.findall(r"Lb([01])", name)   # RAW, then GLOBAL
             where = (",global" if flags[1:] == ["1"] else ",smem"
                      if flags[1:] else "")
-            return (f"{kern}<{'bf16' if 'nv_bfloat16' in name else 'f32'},"
+            return (f"{kern}<{dt},"
                     f"{'raw' if flags[:1] == ['1'] else 'pre'}{where}>")
     return name
 
@@ -1281,6 +1353,41 @@ def render_call(lib, name, ins, dev):
                            *ptrs, kf._stream())
     kf.raise_on(err, fn)
     return outs
+
+
+# each field forward's entry point on the main path: (name, raw)
+_FIELD_ENTRY = {"K1 field_fwd_pre": ("nefes_field_fwd_pre", False),
+                "K5 field_fwd": ("nefes_field_fwd_raw", True)}
+
+
+def field_call(lib, name, ins, dev, blocks=None):
+    """One launch of K1 or K5 in sigma mode, as the main path's coarse
+    pass makes it, from the fused_field library `lib` (this tree's, or an
+    earlier one's, whose forward takes no wt and no blocks) on the main
+    path's bf16 inputs `ins`, with none of the wrapper's checks or launch
+    counts; blocks: this tree's grid (None: the wrapper's persistent
+    grid, 0: one block per block tile). Returns [sigma]."""
+    from nefes_tpu_torch.kernels import fused_field as kf
+    fn, raw = _FIELD_ENTRY[name]
+    pc = ins["packed"][0]
+    sp = pc.spec
+    x = ins["pts_c"] if raw else ins["emb_c"]
+    n = x.shape[0]
+    sigma = torch.empty(n, dtype=torch.float32 if raw else sp.torch_dtype,
+                        device=dev)
+    if hasattr(lib, "nefes_field_smem_bytes"):
+        if blocks is None:
+            blocks = kf.fwd_blocks(lib, pc, kf.SIGMA, raw, n, dev)
+        weights, tail = (pc.w, pc.wt, pc.b), (blocks,)
+    else:
+        weights, tail = (pc.w, pc.b), ()
+    err = getattr(lib, fn)(kf._DTYPE_CODE[sp.torch_dtype], kf.SIGMA, n,
+                           x.data_ptr(), None,
+                           *[t.data_ptr() for t in weights], *kf.dims(sp),
+                           sigma.data_ptr(), None, None, None, *tail,
+                           kf._stream())
+    kf.raise_on(err, fn)
+    return [sigma]
 
 
 def replace_cfg(cfg, **kw):

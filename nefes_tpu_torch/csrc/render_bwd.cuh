@@ -1,19 +1,21 @@
-// The render kernels' own tower path (K3 render_fwd_pre, K4
-// render_bwd_pre, K7 render_fwd and K8 render_bwd in fused_render.cu; no
-// other kernel includes this header): per-warp tiles of 16 samples, bf16
+// The warp path of the tower kernels: per-warp tiles of 16 samples, bf16
 // activations in shared memory, products on the tensor cores with
 // mma.sync fed by ldmatrix, the tower's weights staged matrix by matrix
 // into shared memory by cp.async, double-buffered, and the volume
-// composite (and its backward) as warp scans.
+// composite (and its backward) as warp scans. Two sources include this
+// header: fused_render.cu (K3 render_fwd_pre, K4 render_bwd_pre, K7
+// render_fwd, K8 render_bwd) and fused_field.cu, whose forward K1/K5 runs
+// warp_forward in sigma and full mode (field_warp_kernel; transient mode
+// and the backwards K2/K6 stay on tower.cuh).
 //
 // A block renders one ray in block tiles of BT = 128 samples: warp w owns
 // the tile's rows [16 w, 16 w + 16) through every layer, so the layers
 // need no barrier between warps; the only block barrier of a product is
 // the stage's (every warp reads the same staged matrix). warp_forward runs
-// a warp's rows to the dir layer and the sigma head; the backward (KEEP)
-// also keeps, per sample, what the frozen backward reads: the ReLU bits of
-// each hidden layer and of the dir layer, the sigma pre-activation and the
-// three rgb values. The forward kernel streams the composite tile by tile
+// a warp's rows to the sigma head and (DIR) on to the dir layer; the
+// backward (KEEP) also keeps, per sample, what the frozen backward reads:
+// the ReLU bits of each hidden layer and of the dir layer, the sigma
+// pre-activation and the three rgb values. The forward kernel streams the composite tile by tile
 // and keeps nothing per sample past its tile. The backward runs
 // warp_forward over the whole ray, warp 0 then runs the composite and its
 // backward, and pass 2 runs only the backward from the kept state: no
@@ -70,6 +72,12 @@ __host__ __device__ constexpr int ld_of(int cols) { return pad16(cols) + 8; }
 template <typename T>
 constexpr bool kStaged = HAS_BF16 && std::is_same<T, __nv_bfloat16>::value;
 
+// The forward sequences a block stages, each in the order its products
+// read the matrices: to the sigma head (the field forward's sigma mode),
+// to the dir layer (the render kernels), to the rgb/feature head (the
+// field forward's full mode). They share their prefix, mat_at's forward.
+enum Seq { SEQ_SIGMA, SEQ_DIR, SEQ_HEADS };
+
 // One matrix of the packed blobs as a product reads it: rows x cols,
 // row-major at offset `off` of w (or wt); nk: stored (N, K) rather than
 // (K, N).
@@ -114,6 +122,40 @@ __host__ __device__ inline int mat_count(const Dims& d, const Layout& L, bool bw
   return n;
 }
 
+// The k-th matrix of forward sequence FWD (off = -1 past the last): the
+// hidden layers as mat_at's forward lists them, then (SEQ_HEADS) final,
+// the dir layer's two and the rgb/feature head, which reads wt, (C, H) as
+// (N, K), since w's rows of C values are not 16-byte aligned. Listed, not
+// counted from mat_at: the stager calls it for every matrix it copies.
+template <Seq FWD>
+__host__ __device__ inline MatDesc fwd_mat(const Dims& d, const Layout& L, int k) {
+  if constexpr (FWD == SEQ_DIR) {
+    return mat_at(d, L, false, k);
+  } else {
+    const int W = d.width, H = W / 2;
+    int n = 0;
+    if (k == n++) return {L.we[0], d.E, W, false, false};
+    for (int i = 1; i < d.depth; ++i) {
+      if (k == n++) return {L.wh[i], W, W, false, false};
+      if (((d.skipmask >> i) & 1) && k == n++) return {L.we[i], d.E, W, false, false};
+    }
+    if (FWD == SEQ_HEADS) {
+      if (k == n++) return {L.fin_w, W, W, false, false};
+      if (k == n++) return {L.dir_wh, W, H, false, false};
+      if (k == n++) return {L.dir_wd, d.Ed, H, false, false};
+      if (k == n++) return {L.rgb_w, 3 + d.F, H, true, true};
+    }
+    return {-1, 0, 0, false, false};
+  }
+}
+
+template <Seq FWD>
+__host__ __device__ inline int fwd_count(const Dims& d, const Layout& L) {
+  int n = 0;
+  while (fwd_mat<FWD>(d, L, n).off >= 0) ++n;
+  return n;
+}
+
 // elements of one staged matrix
 __host__ __device__ inline int staged_elems(const MatDesc& m) {
   return pad16(m.rows) * ld_of(m.cols);
@@ -128,8 +170,9 @@ struct Mat {
   bool nk;
 };
 
-// Shared memory of one block of a render kernel (and, for the backward
-// past the budget, its slice of the global scratch).
+// Shared memory of one block of a render kernel or of the field forward
+// (and, for the render backward past the budget, its slice of the global
+// scratch).
 struct RayBufs {
   char* wbuf[2];    // the two weight stages (staged only)
   char* warps;      // WARPS per-warp regions of wbytes each
@@ -146,7 +189,7 @@ struct RayBufs {
   float* trans;     // S transmittance
   float* dzs;       // S cotangent of zs
   float* dd;        // S cotangent of delta
-  // the forward's
+  // the forward's (the field forward's: tzs only)
   float* tzs;       // BT the tile's sigma pre-activations
   float* twgt;      // BT the tile's composite weights
   float* part;      // WARPS x (H + 2) per-warp sums of w de, w z and w
@@ -156,16 +199,22 @@ struct RayBufs {
 // Bytes of one warp's region and the offsets of its buffers: xe (the
 // embedding, then the rgb head's cotangent dzd, then d_emb in f32), xd (the
 // dir embedding, then d_embd in f32), ha, hb (hidden layers, cotangents).
+// lean: the field forward's region, only what warp_forward reads (xe the
+// embedding, xd the dir embedding only with dirs). Every caller passes
+// lean and dirs as constants, so the offsets fold into the code.
 struct WarpLayout {
   size_t xe, xd, h, total;
 };
 
-__host__ __device__ inline WarpLayout warp_layout(const Dims& d, int ts) {
+__host__ __device__ inline WarpLayout warp_layout(const Dims& d, int ts, bool lean = false,
+                                                  bool dirs = true) {
   auto mx = [](size_t a, size_t b) { return a > b ? a : b; };
   const int H = d.width / 2;
   WarpLayout w;
-  w.xe = WR * mx(mx(ld_of(d.E), ld_of(H)) * (size_t)ts, (size_t)d.E * 4);
-  w.xd = WR * mx((size_t)ld_of(d.Ed) * ts, (size_t)d.Ed * 4);
+  w.xe = WR * (lean ? (size_t)ld_of(d.E) * ts
+                    : mx(mx(ld_of(d.E), ld_of(H)) * (size_t)ts, (size_t)d.E * 4));
+  w.xd = !dirs ? 0 : WR * (lean ? (size_t)ld_of(d.Ed) * ts
+                                : mx((size_t)ld_of(d.Ed) * ts, (size_t)d.Ed * 4));
   w.h = (size_t)WR * ld_of(d.width) * ts;
   w.xe = (w.xe + 15) / 16 * 16;
   w.xd = (w.xd + 15) / 16 * 16;
@@ -296,16 +345,17 @@ __device__ void stage_copy(const MatDesc& m, const T* __restrict__ src, T* dst) 
 
 // The weight pipeline of one block: every thread calls get() for every
 // product in the same order, so g counts the matrices of the whole kernel
-// (the forward's list per block tile, then, in the backward, the
-// backward's per block tile). get() waits for matrix g, makes it visible
-// to the block (the barrier also means every warp is done with matrix
-// g - 1), starts the
-// copy of matrix g + 1 into the other stage and returns matrix g; the copy
-// overlaps g's products. Unstaged, get() hands out the global matrix. The
+// (the forward's sequence FWD per block tile of the block, then, in the
+// backward, the backward's per block tile; the copy of a block tile's
+// first matrix overlaps the previous tile's last product). get() waits
+// for matrix g, makes it visible to the block (the barrier also means
+// every warp is done with matrix g - 1), starts the copy of matrix g + 1
+// into the other stage and returns matrix g; the copy overlaps g's
+// products. Unstaged, get() hands out the global matrix. The
 // tower is an argument of each call, not a member, and the stage is
 // picked by a select, not an index: either would put the kernel's
 // parameters or the two stage pointers in local memory.
-template <typename T>
+template <typename T, Seq FWD = SEQ_DIR>
 struct Stager {
   T* buf0;
   T* buf1;
@@ -313,7 +363,7 @@ struct Stager {
 
   __device__ Stager(const Tower<T>& tw, const RayBufs& rb, int tiles_, bool bwd)
       : buf0(reinterpret_cast<T*>(rb.wbuf[0])), buf1(reinterpret_cast<T*>(rb.wbuf[1])),
-        tiles(tiles_), n_fwd(mat_count(tw.d, tw.L, false)),
+        tiles(tiles_), n_fwd(fwd_count<FWD>(tw.d, tw.L)),
         n_bwd(bwd ? mat_count(tw.d, tw.L, true) : 0), g(0) {
     if (kStaged<T>) fetch(tw, 0);
   }
@@ -322,7 +372,7 @@ struct Stager {
 
   __device__ void fetch(const Tower<T>& tw, int k) {
     if (k < tiles * n_fwd)
-      copy(tw, mat_at(tw.d, tw.L, false, k % n_fwd), stage(k));
+      copy(tw, fwd_mat<FWD>(tw.d, tw.L, k % n_fwd), stage(k));
     else if (k < tiles * (n_fwd + n_bwd))
       copy(tw, mat_at(tw.d, tw.L, true, (k - tiles * n_fwd) % n_bwd), stage(k));
     cp_async_commit();
@@ -477,8 +527,9 @@ struct WarpBufs {
 };
 
 template <typename T>
-__device__ inline WarpBufs<T> warp_bufs(const Dims& d, const RayBufs& rb, int wp) {
-  const WarpLayout w = warp_layout(d, sizeof(T));
+__device__ inline WarpBufs<T> warp_bufs(const Dims& d, const RayBufs& rb, int wp,
+                                        bool lean = false, bool dirs = true) {
+  const WarpLayout w = warp_layout(d, sizeof(T), lean, dirs);
   char* base = rb.warps + wp * rb.wbytes;
   return {reinterpret_cast<T*>(base), reinterpret_cast<T*>(base + w.xe),
           reinterpret_cast<T*>(base + w.xe + w.xd),
@@ -522,20 +573,25 @@ __device__ inline void warp_rows_in(T* dst, int ld, const void* src, size_t s, i
 // layer's output de (16 x H, row stride ld_of(H)): the hidden layers
 // alternate between ha and hb, and de overwrites the last one's input.
 template <typename T>
-__device__ inline const T* warp_de(const Dims& d, const RayBufs& rb, int wp) {
-  const WarpBufs<T> wb = warp_bufs<T>(d, rb, wp);
+__device__ inline const T* warp_de(const Dims& d, const RayBufs& rb, int wp, bool lean = false) {
+  const WarpBufs<T> wb = warp_bufs<T>(d, rb, wp, lean);
   return (d.depth & 1) ? wb.hb : wb.ha;
 }
 
 // The forward of one warp over the ray's samples [s0, s0 + 16) (vr of
-// them valid): the sigma pre-activations into zs[0, vr), the dir layer's
-// output de left in warp_de(). KEEP (the backward's pass 1): also the
-// backward's per-sample state in rb, the ReLU bits and the rgb head.
+// them valid): the sigma pre-activations into zs[0, vr) and, DIR, the dir
+// layer's output de left in warp_de(). Without DIR the warp stops after
+// the sigma head and reads no dirs (the field forward's sigma mode); LEAN:
+// the field forward's warp layout, FWD its stager's sequence. KEEP (the
+// backward's pass 1): also the backward's per-sample state in rb, the ReLU
+// bits and the rgb head.
 // Both passes are inlined into the kernel: a call passes the tower, the
 // stager and the epilogues through local memory, a stack frame that cost
 // the bf16 K4 more than a third of its time on an H100.
-template <typename T, bool RAW, bool KEEP>
-__device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBufs& rb, Stager<T>& st,
+template <typename T, bool RAW, bool KEEP, bool DIR = true, bool LEAN = false,
+          Seq FWD = SEQ_DIR>
+__device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBufs& rb,
+                                             Stager<T, FWD>& st,
                                              int wp, int s0, int S, size_t sample0, const void* x,
                                              const void* dirs, float* zs) {
   const Dims& d = tw.d;
@@ -543,10 +599,11 @@ __device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBufs& 
   const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, C = 3 + d.F, nw = (W + 31) / 32;
   const int ldw = ld_of(W), ldh = ld_of(H), lde = ld_of(E), ldd = ld_of(Ed);
   const int vr = S - s0 < 0 ? 0 : (S - s0 < WR ? S - s0 : WR);
-  const WarpBufs<T> wb = warp_bufs<T>(d, rb, wp);
+  const WarpBufs<T> wb = warp_bufs<T>(d, rb, wp, LEAN, DIR);
   uint32_t* bits = KEEP ? rb.mask + (size_t)s0 * rb.mw : nullptr;
+  static_assert(DIR || !KEEP, "the backward's state needs the dir layer");
   warp_rows_in<T, RAW>(wb.xe, lde, x, sample0 + s0, vr, E);
-  warp_rows_in<T, RAW>(wb.xd, ldd, dirs, sample0 + s0, vr, Ed);
+  if (DIR) warp_rows_in<T, RAW>(wb.xd, ldd, dirs, sample0 + s0, vr, Ed);
   __syncwarp();
 
   const SmemA<T> a_emb{wb.xe, lde};
@@ -589,6 +646,10 @@ __device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBufs& 
       for (int c = 0; c < W; ++c) acc = fmaf(to_f<T>(h[r * ldw + c]), to_f<T>(sw[c]), acc);
       zs[r] = acc + sb;
     }
+  }
+  if (!DIR) {
+    __syncwarp();
+    return;
   }
   // final = h @ fin_w + fin_b (no activation), into hn
   {

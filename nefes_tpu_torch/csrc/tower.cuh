@@ -1,10 +1,13 @@
-// Shared device code of the NeRFH-NFF tower kernels (fused_field.cu;
-// fused_render.cu takes its dims, layout and embedding through
-// render_bwd.cuh): the MLP tower with its heads (and, in transient mode,
-// the NeRF-W transient branch), and its recompute backward, with or
-// without the weight gradients, over one tile of TR samples per block,
-// fed either pre-embedded rows or raw f32 points and directions that the
-// tile embeds itself (the raw-input kernels K5-K8).
+// Shared device code of the NeRFH-NFF tower kernels: the dims, layout and
+// embedding every kernel reads, and the first design's block path, which
+// fused_field.cu's field_fwd_kernel (K1/K5 in transient mode) and
+// field_bwd_kernel (K2/K6, with or without the weight gradients) and
+// micro.cu's chains run: the MLP tower with its heads (and, in transient
+// mode, the NeRF-W transient branch), and its recompute backward, over one
+// tile of TR samples per block, fed either pre-embedded rows or raw f32
+// points and directions that the tile embeds itself (the raw-input
+// kernels K5-K8). K1/K5 in sigma and full mode and the render kernels
+// K3/K4/K7/K8 run render_bwd.cuh's warp path instead.
 //
 // Replaces the per-tile bodies of the Pallas kernels in
 // nefes_tpu/kernels/fused_field.py (_embed_block, _tower_tile,
@@ -39,9 +42,11 @@
 // on the CUDA cores, each thread computing 4x4 micro-tiles with FMA. This
 // first version is far from the bound: the A fragments are rebuilt from
 // f32 shared memory with bank conflicts and the B fragments come from L1.
-// The render kernels (K3/K4, K7/K8) no longer use this path:
-// render_bwd.cuh runs their products per warp from bf16 tiles with the
-// weights staged in shared memory, the backward's forward once per sample.
+// The render kernels (K3/K4, K7/K8) and K1/K5 in sigma and full mode no
+// longer use this path: render_bwd.cuh runs their products per warp from
+// bf16 tiles with the weights staged in shared memory (the render
+// backward's forward once per sample). Still on it: K1/K5 in transient
+// mode and the forward that K2/K6 recompute.
 //
 // The field backward stores no activations: it recomputes the forward for
 // the tile and keeps one ReLU bit per unit and layer, plus the dir-layer

@@ -120,12 +120,14 @@ def build_log(name: str, emulate: bool = False,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "nefes_field_fwd_pre": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _P, _P, _P, _P, _P],
+    "nefes_field_fwd_pre": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _P, _P, _P, _P, _I, _P],
     "nefes_field_bwd_pre": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                             _P, _P],
     "nefes_field_dw_scratch": [_I, _I],
+    "nefes_field_smem_bytes": [_I] * 8,
+    "nefes_field_blocks_per_sm": [_I] * 9,
     "nefes_field_dw_reduce": [_I, _I, _P, _P, _P],
     "nefes_render_fwd_pre": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _P, _P],
@@ -166,5 +168,12 @@ def library(name: str, emulate: bool = False, build_dir: Path | None = None,
             # before its global scratch: no scratch argument
             for fn in ("nefes_render_bwd_pre", "nefes_render_bwd_raw"):
                 getattr(lib, fn).argtypes = _SIGNATURES[fn][:-2] + [_P]
+        if (name == "fused_field"
+                and not hasattr(lib, "nefes_field_smem_bytes")):
+            # an earlier tree's forward, from before the warp path: no wt
+            # and no blocks argument
+            for fn in ("nefes_field_fwd_pre", "nefes_field_fwd_raw"):
+                sig = _SIGNATURES[fn]
+                getattr(lib, fn).argtypes = sig[:6] + sig[7:-2] + [_P]
         _loaded[path] = lib
     return _loaded[path]

@@ -13,6 +13,11 @@ on pre-embedded inputs (K1, K2) or on raw points and directions (K5, K6).
                     pre=False): d_pts, d_dirs in f32 and, with need_dw, the
                     weights' gradients
 
+K1/K5 in sigma and full mode run the render kernels' warp path
+(csrc/render_bwd.cuh) as a persistent grid of fwd_blocks() blocks over
+block tiles of BLOCK_TILE samples; K1/K5 in transient mode, and K2/K6,
+run csrc/tower.cuh's tiles of TILE_ROWS.
+
 All four follow _tower_tile's rounding points: hidden layers accumulate in
 f32 and round to the pack dtype, then take the bias and the ReLU in the
 pack dtype; the heads accumulate in f32. K1/K2 write heads and embedding
@@ -33,6 +38,7 @@ its plain version for a CPU tensor; it counts kernel launches in
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -46,6 +52,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # SIGMA
 SIGMA, FULL, TRANSIENT = 0, 1, 2
 TILE_ROWS = 64      # samples per tower tile (csrc/tower.cuh TR)
+BLOCK_TILE = 128    # samples per block tile of the warp path, K1/K5 in
+#                     sigma and full mode (csrc/render_bwd.cuh BT)
 
 
 @dataclass(frozen=True)
@@ -519,12 +527,41 @@ def _dw_reduce(lib, part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch_fwd(wrapper, fn, p, mode, x, dirs, hd):
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(lib, dev: torch.device, code: int, mode: int, raw: bool,
+                     dim: tuple) -> int:
+    """Blocks of the K1/K5 forward in `mode` that the card holds at once:
+    its SMs times the blocks one SM holds (occupancy calculator)."""
+    per_sm = lib.nefes_field_blocks_per_sm(code, mode, int(raw), *dim)
+    if per_sm <= 0:
+        raise RuntimeError(f"field forward mode {mode}: occupancy query "
+                           f"failed ({per_sm})")
+    return per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def fwd_blocks(lib, p: PackedField, mode: int, raw: bool, n: int,
+               dev: torch.device) -> int:
+    """The persistent grid of the K1/K5 forward in sigma and full mode:
+    as many blocks as the card holds at once, at most one per block tile
+    of BLOCK_TILE samples (0 in transient mode, which has one block per
+    tile of TILE_ROWS)."""
+    if mode == TRANSIENT:
+        return 0
+    return min(-(-n // BLOCK_TILE),
+               _resident_blocks(lib, dev, _DTYPE_CODE[p.spec.torch_dtype],
+                                mode, raw, dims(p.spec)))
+
+
+def _launch_fwd(wrapper, p, mode, x, dirs, hd, raw):
+    """Allocate, launch K1 (or, raw, K5), count."""
     spec, dev, n = p.spec, x.device, x.shape[0]
+    lib = build.library("fused_field")
+    fn = lib.nefes_field_fwd_raw if raw else lib.nefes_field_fwd_pre
     outs = _fwd_outputs(spec, mode, n, hd, dev)
     err = fn(_DTYPE_CODE[spec.torch_dtype], mode, n, x.data_ptr(), _ptr(dirs),
-             p.w.data_ptr(), p.b.data_ptr(), *dims(spec),
-             *[_ptr(o) for o in outs], _stream())
+             p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(), *dims(spec),
+             *[_ptr(o) for o in outs], fwd_blocks(lib, p, mode, raw, n, dev),
+             _stream())
     wrapper.launches += 1
     if mode == TRANSIENT:
         wrapper.transient_launches += 1
@@ -582,9 +619,7 @@ def field_fwd_pre(p: PackedField, mode: int, emb: torch.Tensor,
     check(emb, "emb", (n, spec.emb_xyz), cd, dev)
     if mode != SIGMA:
         check(embd, "embd", (n, spec.emb_dir), cd, dev)
-    lib = build.library("fused_field")
-    return _launch_fwd(field_fwd_pre, lib.nefes_field_fwd_pre, p, mode, emb,
-                       embd, cd)
+    return _launch_fwd(field_fwd_pre, p, mode, emb, embd, cd, False)
 
 
 def field_bwd_pre(p: PackedField, mode: int, emb, embd, g_sigma, g_rgb,
@@ -624,9 +659,7 @@ def field_fwd(p: PackedField, mode: int, pts: torch.Tensor,
     check(pts, "pts", (n, 3), f32, dev)
     if mode != SIGMA:
         check(dirs, "dirs", (n, 3), f32, dev)
-    lib = build.library("fused_field")
-    return _launch_fwd(field_fwd, lib.nefes_field_fwd_raw, p, mode, pts,
-                       dirs, f32)
+    return _launch_fwd(field_fwd, p, mode, pts, dirs, f32, True)
 
 
 def field_bwd(p: PackedField, mode: int, pts, dirs, g_sigma, g_rgb, g_feat,

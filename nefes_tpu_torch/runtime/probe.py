@@ -378,8 +378,9 @@ def cmd_kernel(args) -> dict:
         "kernel fwd+bwd(dx) (K5, K6)", lambda: grad_pts(kern),
         device=dev) * 1e3
     if args.sweep:
-        # the port's field kernels have one tile, TILE_ROWS = 64: the
-        # sweep's one row is the forward timed above
+        # the port's field forward has one tile (in full mode the warp
+        # path's block tile of 128 samples): the sweep's one row is the
+        # forward timed above
         results["kern_fwd_tile64_ms"] = results["kern_fwd_ms"]
 
     R, S = H * W, 128

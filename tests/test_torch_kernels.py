@@ -14,7 +14,10 @@ their plain versions are held to the JAX package in test_torch_raw.py).
 2. The CUDA sources themselves, compiled for the host with the C++
    compiler under NEFES_EMULATE (one thread per block), against the plain
    versions in f32, to 1e-5 of scale: the kernels' indexing and tiling,
-   with a ragged last tile and with whole tiles, and for K5-K8 the
+   with a ragged last tile and with whole tiles (K1/K5's warp path in
+   sigma and full mode also at 1 sample, on a persistent grid of 2 blocks
+   over 5 block tiles, in sigma mode without dirs, and at the full-width
+   tower, with its shared memory a block), and for K5-K8 the
    in-kernel embedding and its chain rule (sinf/cosf of the C library
    against torch's), the transient heads, and the weight gradients of
    K2/K6 (the persistent grid's partial slices and their reduction, with
@@ -320,12 +323,32 @@ def _cotangents(gen, N, F, hd):
             _rand(gen, (N, F), hd), _rand(gen, (N, 5), hd)]
 
 
-# N rows: 100 ends in a ragged tile of 36, 128 is two whole tiles of 64
+def _host_fwd(lib, raw, p, mode, x, dirs, blocks=0):
+    """K1 (or raw K5) of the host build: (sigma, rgb, feat, transient),
+    all four allocated whatever the mode. blocks: the persistent grid of
+    the warp path (0: one block per block tile)."""
+    spec, N = p.spec, x.shape[0]
+    hd = torch.float32 if raw else spec.torch_dtype
+    outs = [torch.empty(N, dtype=hd), torch.empty((N, 3), dtype=hd),
+            torch.empty((N, spec.feature_dim), dtype=hd),
+            torch.empty((N, 5), dtype=hd)]
+    err = getattr(lib, f"nefes_field_fwd_{_KIND[raw]}")(
+        kf._DTYPE_CODE[spec.torch_dtype], mode, N, x.data_ptr(),
+        kf._ptr(dirs), p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(),
+        *kf.dims(spec), *[o.data_ptr() for o in outs], blocks, None)
+    assert err == 0
+    return outs
+
+
+# N rows: 100 is one ragged block tile of 128 for the forward in sigma and
+# full mode (six whole warps, one of 4 rows, one empty) and, for transient
+# mode and the backward, a tile of 64 and a ragged one of 36; 256 is two
+# whole block tiles, four whole tiles of 64
 @pytest.mark.parametrize("N,raw", [
     pytest.param(100, False, id="float32"),
-    pytest.param(128, False, id="float32-whole-tiles"),
+    pytest.param(256, False, id="float32-whole-tiles"),
     pytest.param(100, True, id="raw-float32"),
-    pytest.param(128, True, id="raw-float32-whole-tiles")])
+    pytest.param(256, True, id="raw-float32-whole-tiles")])
 def test_field_source_matches_plain(N, raw, host_build):
     """K1/K2, or with raw K5/K6, against their plain versions, in the
     sigma, full and transient modes (the backward without dW)."""
@@ -334,18 +357,13 @@ def test_field_source_matches_plain(N, raw, host_build):
     fwd = getattr(lib, f"nefes_field_fwd_{_KIND[raw]}")
     plain_fwd = kf.field_fwd_plain if raw else kf.field_fwd_pre_plain
     plain_bwd = kf.field_bwd_plain if raw else kf.field_bwd_pre_plain
-    cd, F, tol = spec.torch_dtype, spec.feature_dim, 1e-5
+    F, tol = spec.feature_dim, 1e-5
     # bf16 (code 1) is refused before any pointer is read
-    assert fwd(1, 0, N, None, None, None, None, *kf.dims(spec), None, None,
-               None, None, None) != 0
+    assert fwd(1, 0, N, None, None, None, None, None, *kf.dims(spec), None,
+               None, None, None, 0, None) != 0
     x, dirs, hd, (dx_w, dd_w) = _inputs(gen, spec, N, raw)
     for mode in (kf.SIGMA, kf.FULL, kf.TRANSIENT):
-        outs = [torch.empty(N, dtype=hd), torch.empty((N, 3), dtype=hd),
-                torch.empty((N, F), dtype=hd), torch.empty((N, 5), dtype=hd)]
-        err = fwd(kf._DTYPE_CODE[cd], mode, N, x.data_ptr(),
-                  dirs.data_ptr(), p.w.data_ptr(), p.b.data_ptr(),
-                  *kf.dims(spec), *[o.data_ptr() for o in outs], None)
-        assert err == 0
+        outs = _host_fwd(lib, raw, p, mode, x, dirs)
         want = plain_fwd(p, mode, x, dirs)
         assert sum(w is not None for w in want) == (1, 3, 4)[mode]
         for o, w in zip(outs, want):
@@ -392,6 +410,41 @@ def test_field_source_dw_matches_plain(N, raw, slices, host_build):
         assert dw.shape == want[2].shape == (nw + p.b.numel(),)
         _scaled_close(dw[:nw], want[2][:nw], tol, f"dW mode {mode}")
         _scaled_close(dw[nw:], want[2][nw:], tol, f"db mode {mode}")
+
+
+def _field_fwd_case(lib, raw, p, mode, N, blocks, gen):
+    """K1/K5 of the host build against the plain version at N samples, in
+    sigma mode with dirs null (the warp path stops after the sigma head
+    and reads no directions), to the scaled 1e-5."""
+    x, dirs, _, _ = _inputs(gen, p.spec, N, raw)
+    if mode == kf.SIGMA:
+        dirs = None
+    plain = kf.field_fwd_plain if raw else kf.field_fwd_pre_plain
+    want = plain(p, mode, x, dirs)
+    assert sum(w is not None for w in want) == 1 + 2 * mode
+    for o, w, name in zip(_host_fwd(lib, raw, p, mode, x, dirs, blocks),
+                          want, ("sigma", "rgb", "feat")):
+        if w is not None:
+            _scaled_close(o, w, 1e-5, f"{name} N={N} blocks={blocks}")
+
+
+# The warp path of K1/K5 (sigma and full mode): N = 1, one sample in one
+# warp; N = 300, three block tiles of 128 the last ragged (44 rows: two
+# whole warps, one of 12); N = 600 over blocks = 2, five block tiles (the
+# last of 88 rows) on a persistent grid of two blocks, so each block
+# walks two or three tiles and its weight stages carry on across them
+@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL], ids=["sigma", "full"])
+@pytest.mark.parametrize("raw", [False, True], ids=["pre", "raw"])
+@pytest.mark.parametrize("N,blocks", [
+    pytest.param(1, 0, id="one-sample"),
+    pytest.param(300, 0, id="ragged-block-tile"),
+    pytest.param(600, 2, id="two-blocks-five-tiles")])
+def test_field_warp_source_matches_plain(N, blocks, raw, mode, host_build):
+    """K1 (pre) or K5 (raw) in sigma and full mode, host build, against
+    the plain version."""
+    spec, p, gen = _emulated_case()
+    lib = build.library("fused_field", emulate=True, build_dir=host_build)
+    _field_fwd_case(lib, raw, p, mode, N, blocks, gen)
 
 
 def _render_fwd_host(lib, raw, p, x, dirs, z):
@@ -467,6 +520,8 @@ def test_render_source_matches_plain(S, raw, host_build):
 # 128 samples, bf16) as PERF.md states it
 K4_SMEM_BYTES = 208032
 BLOCK_SMEM_MAX = 232448
+# the shared memory of one K1/K5 block in sigma mode at D8/W128, bf16
+K1_SMEM_BYTES = 158208
 
 
 def test_render_bwd_smem_fits_one_block(host_build):
@@ -487,13 +542,13 @@ def test_render_bwd_smem_fits_one_block(host_build):
 
 @pytest.fixture(scope="module")
 def full_width():
-    """The fine tower of the full-width ModelConfig() (D8/W128/F128) in
-    f32, packed."""
+    """The coarse and the fine tower of the full-width ModelConfig()
+    (D8/W128/F128) in f32, packed."""
     from nefes_tpu_torch.train.model import ModelConfig, NeFeSModel
     model = NeFeSModel(ModelConfig(dtype=torch.float32), device="cpu",
                        generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
-        return model.pack_fused()[1]
+        return model.pack_fused()
 
 
 # At the full-width tower in f32 a K4/K8 block keeps the per-sample state
@@ -506,7 +561,7 @@ def test_render_full_width_matches_plain(kernel, S, full_width, host_build):
     checks take it, the block's shared memory stays within 232,448 bytes,
     and the kernel (host build) equals its plain version to the scaled
     1e-5. The backward refuses to launch without the scratch it needs."""
-    p, raw = full_width, kernel in ("K7", "K8")
+    p, raw = full_width[1], kernel in ("K7", "K8")
     lib = build.library("fused_render", emulate=True, build_dir=host_build)
     gen = torch.Generator().manual_seed(S)
     x, dirs, _, _ = _inputs(gen, p.spec, S, raw)
@@ -527,6 +582,38 @@ def test_render_full_width_matches_plain(kernel, S, full_width, host_build):
     for o, w in zip(_render_bwd_host(lib, raw, p, x, dirs, z, g),
                     plain(p, x, dirs, z, g)):
         _scaled_close(o, w, 1e-5)
+
+
+@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL], ids=["sigma", "full"])
+@pytest.mark.parametrize("raw", [False, True], ids=["pre", "raw"])
+def test_field_warp_full_width_matches_plain(raw, mode, full_width,
+                                             host_build):
+    """K1/K5 on the main path's coarse tower at the full width
+    (D8/W128/F128) in f32, 200 samples (a block tile and a ragged one of
+    72), host build against the plain version."""
+    lib = build.library("fused_field", emulate=True, build_dir=host_build)
+    _field_fwd_case(lib, raw, full_width[0], mode, 200, 0,
+                    torch.Generator().manual_seed(200))
+
+
+def test_field_warp_smem_fits_a_block(host_build):
+    """The shared memory of one block of K1/K5's warp path at the
+    full-width ModelConfig(), in sigma and full mode, bf16 and f32: within
+    an H100 block's 232,448 bytes, full mode above sigma mode (the dir
+    rows and the larger weight stages), and sigma mode in bf16 at the
+    figure PERF.md states."""
+    from nefes_tpu_torch.train.model import ModelConfig
+    lib = build.library("fused_field", emulate=True, build_dir=host_build)
+    dims = kf.dims(kf.FieldSpec.from_model(ModelConfig(), "coarse"))
+    smem = {(code, mode): lib.nefes_field_smem_bytes(code, mode, *dims)
+            for code in (0, 1) for mode in (kf.SIGMA, kf.FULL)}
+    assert all(0 < b <= BLOCK_SMEM_MAX for b in smem.values())
+    for code in (0, 1):
+        assert smem[code, kf.SIGMA] < smem[code, kf.FULL]
+    assert smem[1, kf.SIGMA] == K1_SMEM_BYTES
+    # transient mode keeps tower.cuh's carve, the same in either dtype
+    assert (lib.nefes_field_smem_bytes(0, kf.TRANSIENT, *dims)
+            == lib.nefes_field_smem_bytes(1, kf.TRANSIENT, *dims))
 
 
 def test_build_of_another_tree(host_build, tmp_path):
