@@ -20,7 +20,10 @@ Phases:
          at 256, 384 and 1024 samples a ray); and the
          training variants at the training shapes: K1/K5 in transient
          mode, K2/K6 with weight gradients in sigma, full and transient
-         mode (every dW and bias gradient checked)
+         mode (every dW and bias gradient checked), two calls of each
+         bit for bit the same, and the dW kernel (field_dw) alone on the
+         operands of the first chunk of the fine and the coarse training
+         pass against field_dw_plain
   mode3  mode-3 refinement at full width (NeFeS D8/W128/F128 in bf16,
          60x80 rays, 64+64 samples) through the pre-embedded kernels
          (fused=fused_pre=fused_render=True, frozen field: K1, K3, K4):
@@ -40,7 +43,8 @@ Phases:
          1, 4 images x 1536 random rays of a 60x80 render, 64+64 samples,
          perturbed, NeRF-W transient heads): 2 warm-up and 20 timed steps
          through the raw-input kernels with weight gradients (fused=True,
-         fused_pre=False, fused_need_dw=True: K5, K6 +dW), s/step, rays/s,
+         fused_pre=False, fused_need_dw=True: K5, K6 +dW once a chunk of
+         rows, each chunk followed by the dW kernel), s/step, rays/s,
          losses, peak memory, launch counts; 3 steps of each path (train_raw,
          train_pre through K1/K2, unfused) from one initial state, in bf16
          and f32, whose losses and parameters must agree; 3 stage-2 patch
@@ -52,9 +56,11 @@ Phases:
          turns with themselves on one block per block tile instead of the
          persistent grid; with --parent DIR (an earlier tree, unpacked with
          git archive into a git-ignored directory) also DIR's, and the
-         render kernels K3, K4, K7 and K8 of DIR and of this tree in turns
-         on the same inputs, each of DIR's checked against its plain
-         version first
+         render kernels K3, K4, K7 and K8 and the training backwards K2
+         +dW and K6 +dW (fine pass, transient mode) of DIR and of this
+         tree in turns on the same inputs, each of DIR's checked against
+         its plain version first; the dW kernel alone on the fine pass's
+         first chunk
   micro  the probe's kernelmicro (nefes_tpu_torch/runtime/probe.py) at the
          fine-pass shape, N = 614,400 rows: K9 (bare bf16 8-layer chain)
          at tiles 64 (the first design's field block), 512, 2048, 8192, K10 (2 and 4 sub-tiles interleaved),
@@ -159,6 +165,9 @@ KERNELS = {
     "K2 field_bwd_pre +dW": ("nefes_tpu/kernels/fused_field.py:712", _FF),
     "K5 field_fwd transient": ("nefes_tpu/kernels/fused_field.py:597", _FF),
     "K6 field_bwd +dW": ("nefes_tpu/kernels/fused_field.py:622", _FF),
+    # the weight gradients of K2/K6 +dW (_mlp_backward's dmat, need_dw)
+    "K2/K6 field_dw": ("nefes_tpu/kernels/fused_field.py:477",
+                       "nefes_tpu_torch/csrc/field_dw.cuh"),
     # the probe's micro-benchmarks (cmd_kernelmicro's pl.pallas_call sites)
     "K9 chain": ("runtime/probe.py:1264", _MC),
     "K10 chain_interleaved": ("runtime/probe.py:1298", _MC),
@@ -504,7 +513,57 @@ def main() -> int:
                 want = case(plain)
                 compare(name, mode, dt, got, want, names)
                 del got, want
+            # two calls give the same bits (fixed summation orders)
+            for name, kern, x, d, g in (
+                    ("K2 field_bwd_pre +dW", kf.field_bwd_pre, tr["emb"],
+                     tr["embd"], g_f_pre),
+                    ("K6 field_bwd +dW", kf.field_bwd, tr["pts"], tr["dirs"],
+                     g_f_raw)):
+                a = kern(pf, T, x, d, *g, need_dw=True)
+                b = kern(pf, T, x, d, *g, need_dw=True)
+                if not all(torch.equal(u, v) for u, v in zip(a, b)):
+                    raise AssertionError(f"{name} {dt}: two calls differ")
+                log(f"{name} transient {dt}: two calls bit for bit the same")
+                del a, b
+            # the dW kernel alone on the first chunk of each training pass
+            for label, p, mode, x, d, g in (
+                    ("fine transient", pf, T, tr["pts"], tr["dirs"], g_f_raw),
+                    ("coarse full", pc, Fm, tr["pts_c"], tr["dirs_c"],
+                     g_c_raw[:3] + [None])):
+                ops, tile_b, rows, slices = first_chunk(p, mode, x, d, g)
+                nw = p.w.numel()
+                part = kf.field_dw(p, mode, ops, tile_b, rows, torch.zeros(
+                    (slices, nw + p.b.numel()), device=dev))
+                got = kf._dw_reduce(build.library("fused_field"), part)
+                want = kf.field_dw_plain(p, mode, ops, tile_b, rows)
+                compare("K2/K6 field_dw", f"{label}, {rows} rows, {slices} "
+                        f"slices", dt, (got[:nw], got[nw:]),
+                        (want[:nw], want[nw:]), ["dW", "db"])
+                del ops, tile_b, part, got, want
         torch.cuda.empty_cache()
+
+    def first_chunk(p, mode, x, d, g):
+        """The dW operands of the first chunk of K6 +dW on raw inputs x, d
+        with f32 cotangents g, as the wrapper's plan makes it: (ops,
+        tile_b, rows, slices)."""
+        lib = build.library("fused_field")
+        n, sp = x.shape[0], p.spec
+        chunk, slices = kf.dw_plan(
+            lib, p, mode, n,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        rows = min(chunk, n)
+        ops = torch.empty(chunk * lib.nefes_field_dw_row_elems(
+            mode, *kf.dims(sp)), dtype=sp.torch_dtype, device=dev)
+        tile_b = torch.zeros((chunk // kf.TILE_ROWS, p.b.numel()),
+                             device=dev)
+        dx, dd = (torch.empty((n, 3), device=dev) for _ in range(2))
+        err = lib.nefes_field_bwd_raw(
+            kf._DTYPE_CODE[sp.torch_dtype], mode, n, x.data_ptr(), kf._ptr(d),
+            p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(), *kf.dims(sp),
+            *[kf._ptr(v) for v in g], dx.data_ptr(), dd.data_ptr(), 0, rows,
+            p.b.numel(), ops.data_ptr(), tile_b.data_ptr(), kf._stream())
+        kf.raise_on(err, "K6 field_bwd")
+        return ops, tile_b, rows, slices
 
     phase("check", do_check)
 
@@ -559,6 +618,7 @@ def main() -> int:
         "K7 render_fwd": kr.render_fwd, "K8 render_bwd": kr.render_bwd,
         "K9 chain": km.chain, "K10 chain_interleaved": km.chain_interleaved,
         "K11 embed_micro": km.embed_micro, "K12 chain_sq": km.chain_sq,
+        "K2/K6 field_dw": kf.field_dw,
     }
     all_kernels = tuple(wrappers.values())
     # the training variants' own counters (also counted in `launches`)
@@ -572,9 +632,11 @@ def main() -> int:
     # the kernels (and variants) each training path must launch
     path_kernels.update({
         "train_raw": ("K5 field_fwd", "K6 field_bwd",
-                      "K5 field_fwd transient", "K6 field_bwd +dW"),
+                      "K5 field_fwd transient", "K6 field_bwd +dW",
+                      "K2/K6 field_dw"),
         "train_pre": ("K1 field_fwd_pre", "K2 field_bwd_pre",
-                      "K1 field_fwd_pre transient", "K2 field_bwd_pre +dW"),
+                      "K1 field_fwd_pre transient", "K2 field_bwd_pre +dW",
+                      "K2/K6 field_dw"),
         "train_unfused": (),
         # the probe's commands: kernelmicro; kernel and perf
         "micro": ("K9 chain", "K10 chain_interleaved", "K11 embed_micro",
@@ -831,14 +893,30 @@ def main() -> int:
         log(f"  peak memory {peak}")
         if not torch.isfinite(losses).all():
             raise AssertionError("non-finite training loss")
-        want = {"K5 field_fwd": 2, "K6 field_bwd": 2,
-                "K5 field_fwd transient": 1, "K6 field_bwd +dW": 2}
+        # the backward with dW launches once a chunk of rows, each chunk
+        # followed by the dW kernel: the coarse pass (full mode) and the
+        # fine pass (transient mode) by dw_plan's chunks
+        with torch.no_grad():
+            pc, pf = st.model.pack_fused()
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        lib = build.library("fused_field")
+        chunks = 0
+        for p, mode, n in ((pc, kf.FULL, rays * N_C),
+                           (pf, kf.TRANSIENT, rays * (N_C + N_F))):
+            chunk, slices = kf.dw_plan(lib, p, mode, n, sms)
+            chunks += -(-n // chunk)
+            log(f"  dW plan {('sigma', 'full', 'transient')[mode]} mode, {n} "
+                f"rows: chunks of {chunk} rows, {slices} row slices")
+        want = {"K5 field_fwd": 2, "K6 field_bwd": chunks,
+                "K5 field_fwd transient": 1, "K6 field_bwd +dW": chunks,
+                "K2/K6 field_dw": chunks}
         for name, per_step in want.items():
             if counts.get(name) != per_step * TRAIN_STEPS:
                 raise AssertionError(f"{name}: {counts.get(name)} launches "
                                      f"in {TRAIN_STEPS} steps, expected "
                                      f"{per_step} per step")
-        for name in ("K5 field_fwd transient", "K6 field_bwd +dW"):
+        for name in ("K5 field_fwd transient", "K6 field_bwd +dW",
+                     "K2/K6 field_dw"):
             kernels[name]["launches"] = counts[name]
             kernels[name]["path"] = "train train_raw"
 
@@ -1022,6 +1100,30 @@ def main() -> int:
                 n_t * fl["bwd_dw_t"], n_t * (el["fwd"] + el["bwd"]),
                 n_t * (4 * 3 + heads_t) * b4 + dw_bytes),
         })
+        # the dW kernel alone on the fine pass's first chunk: 2 K N FLOPs a
+        # row a product (a bias: K = 1); its operands and the head biases'
+        # tile sums read once, the slices' partials read and written
+        dops, dtb, drows, dslices = first_chunk(tpf, T, tpts, tdirs, g_rw)
+        dpart = torch.zeros((dslices, tpf.w.numel() + tpf.b.numel()),
+                            device=dev)
+        views = kf.dw_operands(tpf.spec, T, dops, drows)
+        prods = kf.dw_products(tpf.spec, T)
+        from_g, heads = kf.dw_biases(tpf.spec, T)
+        kn = sum(tpf.weights[nm].numel()
+                 for nm in [p_[2] for p_ in prods] + [b_[1] for b_ in from_g])
+        head_b = sum(tpf.weights[nm].numel() for nm in heads)
+        row_elems = build.library("fused_field").nefes_field_dw_row_elems(
+            T, *kf.dims(tpf.spec))
+        rows["K2/K6 field_dw"] = (
+            lambda f: (f(tpf, T, dops, dtb, drows) if f is kf.field_dw_plain
+                       else f(tpf, T, dops, dtb, drows, dpart)),
+            kf.field_dw, kf.field_dw_plain,
+            lambda: ([views[a].t() @ views[g] for a, g, _ in prods]
+                     + [views[g].sum(0, dtype=torch.float32)
+                        for g, _ in from_g]),
+            2 * drows * kn, 0,
+            drows * row_elems * b2 + -(-drows // kf.TILE_ROWS) * head_b * b4
+            + 2 * dpart.numel() * b4)
         # the weights each function reads: the static tower, and with the
         # transient heads for the training variants
         static = replace_cfg(sp, transient=False)
@@ -1036,7 +1138,8 @@ def main() -> int:
             restore_counts(saved)      # timing launches are not the path's
             plain_ms = time_ms(lambda: case(plain), reps=3)
             lib_ms = time_ms(lib_fn, reps=3)
-            nbytes += train_bytes if name in variants else static_bytes
+            if name != "K2/K6 field_dw":     # it reads no weights
+                nbytes += train_bytes if name in variants else static_bytes
             bound_ms, bound_by = probe.bound(flops, ew, nbytes)
             kernels[name].update(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1057,18 +1160,22 @@ def main() -> int:
         is the same: K1 and K5 (sigma mode) on their persistent grid and on
         one block per block tile (whose outputs must be equal); with
         --parent also the parent tree's K1 and K5 and, of both trees, K3,
-        K4, K7 and K8, each of the parent's checked against its plain
-        version first (relative L2). 5 rounds of the variants in order and
-        then in reverse (this, tile, tile, this or parent, this, this,
-        parent, ...), the median of each one's 10 times."""
-        ins = state["inputs"]["bfloat16"]
+        K4, K7 and K8 and K2 +dW and K6 +dW (the fine training pass), each
+        of the parent's checked against its plain version first (relative
+        L2). 5 rounds of the variants in order and then in reverse (this,
+        tile, tile, this or parent, this, this, parent, ...), the median
+        of each one's 10 times."""
         names = list(_FIELD_ENTRY)
         if parent:
-            names += list(_RENDER_ENTRY)
+            names += list(_RENDER_ENTRY) + list(_TRAIN_ENTRY)
         for name in names:
             field = name in _FIELD_ENTRY
             src, call = (("fused_field", field_call) if field
+                         else ("fused_field", train_call)
+                         if name in _TRAIN_ENTRY
                          else ("fused_render", render_call))
+            ins = state["train_inputs" if name in _TRAIN_ENTRY
+                        else "inputs"]["bfloat16"]
             this = build.library(src)
             fns = {}
             if parent:
@@ -1125,10 +1232,30 @@ def main() -> int:
                                                    tr["embd_c"]))
         bwd = time_ms(lambda: kf.field_bwd(pc, kf.FULL, tr["pts_c"],
                                            tr["dirs_c"], *g, need_dw=True))
+        # the fine pass's K6 +dW by part: the frozen backward over every
+        # row, one chunk's backward writing its dW operands, the dW kernel
+        # on one chunk
+        _, pf = tr["packed"]
+        T, x, d, g_f = kf.TRANSIENT, tr["pts"], tr["dirs"], tr["g_f_raw"]
+        n_f = x.shape[0]
+        frozen = time_ms(lambda: kf.field_bwd(pf, T, x, d, *g_f))
+        frozen_pre = time_ms(lambda: kf.field_bwd_pre(pf, T, tr["emb"],
+                                                      tr["embd"], *tr["g_f_pre"]))
+        ops, tile_b, rows, slices = first_chunk(pf, T, x, d, g_f)
+        chunk_ms = time_ms(lambda: first_chunk(pf, T, x, d, g_f))
+        part = torch.zeros((slices, pf.w.numel() + pf.b.numel()), device=dev)
+        dw_ms = time_ms(lambda: kf.field_dw(pf, T, ops, tile_b, rows, part))
         restore_counts(saved)
+        chunks = -(-n_f // rows)
         log(f"coarse training pass ({n_c} samples, full mode): K5 field_fwd "
             f"{fwd:.3f} ms (K1 field_fwd_pre {fwd_pre:.3f} ms), K6 "
             f"field_bwd +dW {bwd:.3f} ms")
+        log(f"fine training pass ({n_f} samples, transient mode): K6 "
+            f"field_bwd without dW {frozen:.3f} ms (K2 {frozen_pre:.3f} ms); "
+            f"with dW in {chunks} chunks of {rows} rows: the backward "
+            f"{chunk_ms:.3f} ms a chunk, the dW kernel {dw_ms:.3f} ms a chunk "
+            f"({slices} slices); {chunks} x both = "
+            f"{chunks * (chunk_ms + dw_ms):.3f} ms")
 
     def do_time_all():
         do_time()
@@ -1353,6 +1480,54 @@ def render_call(lib, name, ins, dev):
                            *ptrs, kf._stream())
     kf.raise_on(err, fn)
     return outs
+
+
+# the training backwards with dW that the time phase runs in turns
+_TRAIN_ENTRY = ("K2 field_bwd_pre +dW", "K6 field_bwd +dW")
+
+
+def train_call(lib, name, tr, dev):
+    """One K2 +dW or K6 +dW on the fine training pass (transient mode)
+    from the fused_field library `lib` (this tree's or an earlier one's)
+    on the bf16 training inputs `tr` (with their g_f_pre / g_f_raw), with
+    the wrappers' arguments but none of their checks or launch counts:
+    (d_x, d_dirs, the f32 weight gradients). A tree from before the dW
+    kernel (no nefes_field_dw) takes one partial slice an SM and an
+    activation scratch instead of the chunks."""
+    from nefes_tpu_torch.kernels import fused_field as kf
+    raw, T = name.startswith("K6"), kf.TRANSIENT
+    pf = tr["packed"][1]
+    sp, f32 = pf.spec, torch.float32
+    x, xd = (tr["pts"], tr["dirs"]) if raw else (tr["emb"], tr["embd"])
+    g = tr["g_f_raw" if raw else "g_f_pre"]
+    n, nw, nb = x.shape[0], pf.w.numel(), pf.b.numel()
+    widths, hd = ((3, 3), f32) if raw else ((sp.emb_xyz, sp.emb_dir),
+                                             sp.torch_dtype)
+    dx, dd = (torch.empty((n, w_), dtype=hd, device=dev) for w_ in widths)
+    fn = getattr(lib, "nefes_field_bwd_raw" if raw else "nefes_field_bwd_pre")
+    head = (kf._DTYPE_CODE[sp.torch_dtype], T, n, x.data_ptr(), xd.data_ptr(),
+            pf.w.data_ptr(), pf.wt.data_ptr(), pf.b.data_ptr(), *kf.dims(sp),
+            *[v.data_ptr() for v in g], dx.data_ptr(), dd.data_ptr())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if hasattr(lib, "nefes_field_dw"):
+        def bwd(row0, rows, ops, tile_b):
+            kf.raise_on(fn(*head, row0, rows, nb, ops.data_ptr(),
+                           tile_b.data_ptr(), kf._stream()), name)
+
+        def dw(ops, tile_b, rows, part):
+            kf.raise_on(kf.dw_launch(lib, pf, T, ops, tile_b, rows, part,
+                                     kf._stream()), "field_dw")
+        chunk, slices = kf.dw_plan(lib, pf, T, n, sms)
+        part = kf.bwd_dw(lib, bwd, dw, pf, T, n, chunk, slices, dev)
+    else:
+        slices = min(-(-n // kf.TILE_ROWS), sms)
+        part = torch.zeros((slices, nw + nb), dtype=f32, device=dev)
+        acts = torch.empty(slices * lib.nefes_field_dw_scratch(sp.depth,
+                                                               sp.width),
+                           dtype=sp.torch_dtype, device=dev)
+        kf.raise_on(fn(*head, slices, nw, nb, part.data_ptr(),
+                       acts.data_ptr(), kf._stream()), name)
+    return dx, dd, kf._dw_reduce(lib, part)
 
 
 # each field forward's entry point on the main path: (name, raw)

@@ -14,16 +14,18 @@
 // still in shared memory, to d_pts / d_dirs, recomputing the phases
 // instead of storing them. With need_dw the backward also gives one f32
 // gradient per packed weight (the TPU kernel's VMEM accumulators,
-// fused_field.py:354-358, 440-444, 634-637, 728-731): K2/K6 add each
-// tile's into the f32 partial slice of their block (tower.cuh), and
-// field_dw_reduce sums the slices in order.
+// fused_field.py:354-358, 440-444, 634-637, 728-731): the caller runs
+// K2/K6 over chunks of rows, each launch writing the chunk's dW operands
+// and per-tile head bias sums (tower.cuh), then field_dw_kernel
+// (field_dw.cuh) over the chunk, which adds the products into `slices` f32
+// partials; field_dw_reduce sums the slices in order.
 //
 // Bound on an H100: operations, not bytes. The forward takes 0.262 MFLOP
 // a sample in sigma mode and 0.331 in full mode at D8/W128/F128 (0.37 in
 // transient mode); the frozen backward about twice that, with dW three
 // times; the embedding adds about 1 kFLOP and 66 sin/cos a sample. The
-// bytes are at most ~0.7 KB a sample, plus, with dW, the partial slices
-// (about 0.75 MB read and written per tile).
+// bytes are at most ~0.7 KB a sample, plus, with dW, the operands written
+// (about 6 KB a sample in bf16, transient mode at D8/W128/F128).
 //
 // K1/K5 in sigma and full mode (field_warp_kernel) run render_bwd.cuh's
 // warp path, the render kernels' tower: a persistent grid of `blocks`
@@ -39,14 +41,13 @@
 // f32 runs the same kernel on the CUDA cores (the host build checks it).
 // Transient mode, and the forward that K2/K6 recompute, stay on tower.cuh's
 // first design: TR = 64 samples a block, f32 activation tiles, weights
-// through L1 (the design notes are in tower.cuh); the frozen backward has
-// one block per tile, the backward with dW a persistent grid of `slices`
-// blocks.
+// through L1 (the design notes are in tower.cuh); the backward has one
+// block per tile, with or without dW.
 //
 // Plain C interface, loaded with ctypes: each entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
-#include "render_bwd.cuh"
+#include "field_dw.cuh"
 
 namespace nefes {
 
@@ -134,7 +135,7 @@ field_warp_kernel(Tower<T> tw, int n, const void* __restrict__ x, const void* __
 // `mode`, in a pack dtype of ts bytes.
 inline size_t fwd_smem(const Dims& d, int ts, int mode) {
   const Layout L = make_layout(d);
-  return mode == TRANSIENT ? carve(d, false, mode, false, nullptr, nullptr)
+  return mode == TRANSIENT ? carve(d, false, mode, nullptr, nullptr)
          : mode == FULL    ? carve_field<SEQ_HEADS>(d, L, ts, nullptr, nullptr)
                            : carve_field<SEQ_SIGMA>(d, L, ts, nullptr, nullptr);
 }
@@ -169,7 +170,7 @@ field_fwd_kernel(Tower<T> tw, int n, const void* __restrict__ x, const void* __r
   using O = Head<T, RAW>;
   extern __shared__ __align__(16) char nefes_smem[];
   Smem s;
-  carve(tw.d, false, TRANSIENT, false, nefes_smem, &s);
+  carve(tw.d, false, TRANSIENT, nefes_smem, &s);
   const int row0 = blockIdx.x * TR;
   const int valid = n - row0 < TR ? n - row0 : TR;
   const int F = tw.d.F;
@@ -188,50 +189,44 @@ field_fwd_kernel(Tower<T> tw, int n, const void* __restrict__ x, const void* __r
 
 // Cotangents g_sigma (N,), g_rgb (N, 3), g_feat (N, F), g_trans (N, 5) in
 // the head type; writes dx (N, E) and, unless SIGMA, ddirs (N, Ed) in T,
-// or RAW d_pts and d_dirs (N, 3) in f32. With partials (need_dw): adds
-// the weight gradients of tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-// to partials[blockIdx.x] (nw + nb floats: the matrices, then the
-// biases, at their blob offsets), with acts[blockIdx.x] (dw_scratch
-// elements of T) as the activation scratch. Without, one tile per block.
+// or RAW d_pts and d_dirs (N, 3) in f32, for rows [row0, row0 + rows), one
+// tile a block. With ops (need_dw): also the chunk's dW operands, the
+// chunk being those rows (tower.cuh's slots, `rows` rows a slot), and
+// each tile's head bias sums to tile_b (nb floats a tile).
 template <typename T, bool RAW>
 __global__ void __launch_bounds__(NT)
-field_bwd_kernel(Tower<T> tw, int n, int mode, const void* __restrict__ x,
+field_bwd_kernel(Tower<T> tw, int row0, int rows, int mode, const void* __restrict__ x,
                  const void* __restrict__ dirs, const Head<T, RAW>* __restrict__ g_sigma,
                  const Head<T, RAW>* __restrict__ g_rgb, const Head<T, RAW>* __restrict__ g_feat,
                  const Head<T, RAW>* __restrict__ g_trans, void* __restrict__ dx,
-                 void* __restrict__ ddirs, float* __restrict__ partials, int nw, int nb,
-                 T* __restrict__ acts) {
+                 void* __restrict__ ddirs, T* __restrict__ ops, float* __restrict__ tile_b,
+                 int nb) {
   using O = Head<T, RAW>;
   extern __shared__ __align__(16) char nefes_smem[];
   Smem s;
-  carve(tw.d, true, mode, partials != nullptr, nefes_smem, &s);
-  DwOut<T> dw{nullptr, nullptr, nullptr};
-  if (partials) {
-    dw.part = partials + (size_t)blockIdx.x * (nw + nb);
-    dw.part_b = dw.part + nw;
-    dw.acts = acts + blockIdx.x * dw_scratch(tw.d);
-  }
+  carve(tw.d, true, mode, nefes_smem, &s);
   const int F = tw.d.F;
-  const int n_tiles = (n + TR - 1) / TR;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TR;
-    const int valid = n - row0 < TR ? n - row0 : TR;
-    tile_inputs<T, RAW>(tw.d, s, x, dirs, mode != SIGMA, row0, valid);
-    tower_forward<T>(tw, s, mode, true, 0, [](int, int, float) {}, dw.acts);
-    tower_backward<T>(
-        tw, s, mode,
-        [=](int r) { return r < valid ? to_f<O>(g_sigma[row0 + r]) : 0.f; },
-        [=](int r, int c) {
-          if (r >= valid) return 0.f;
-          const size_t row = row0 + r;
-          return c < 3 ? to_f<O>(g_rgb[row * 3 + c]) : to_f<O>(g_feat[row * F + (c - 3)]);
-        },
-        [=](int r, int j) {
-          return r < valid ? to_f<O>(g_trans[(size_t)(row0 + r) * 5 + j]) : 0.f;
-        },
-        dw);
-    tile_input_grads<T, RAW>(tw.d, s, x, dirs, mode != SIGMA, dx, ddirs, row0, valid);
-  }
+  const int local = blockIdx.x * TR;   // the tile's first row in the chunk
+  const int tile0 = row0 + local;
+  const int valid = rows - local < TR ? rows - local : TR;
+  const DwOut<T> dw{ops, ops ? tile_b + (size_t)blockIdx.x * nb : nullptr, s.slots, rows, local,
+                   valid};
+  if (ops) dw_table(tw.d, mode, s.slots);   // published by tile_inputs' barrier
+  tile_inputs<T, RAW>(tw.d, s, x, dirs, mode != SIGMA, tile0, valid);
+  tower_forward<T>(tw, s, mode, true, 0, [](int, int, float) {}, dw);
+  tower_backward<T>(
+      tw, s, mode,
+      [=](int r) { return r < valid ? to_f<O>(g_sigma[tile0 + r]) : 0.f; },
+      [=](int r, int c) {
+        if (r >= valid) return 0.f;
+        const size_t row = tile0 + r;
+        return c < 3 ? to_f<O>(g_rgb[row * 3 + c]) : to_f<O>(g_feat[row * F + (c - 3)]);
+      },
+      [=](int r, int j) {
+        return r < valid ? to_f<O>(g_trans[(size_t)(tile0 + r) * 5 + j]) : 0.f;
+      },
+      dw);
+  tile_input_grads<T, RAW>(tw.d, s, x, dirs, mode != SIGMA, dx, ddirs, tile0, valid);
 }
 
 // out[j] = sum over s < slices of part[s * n + j], in slice order.
@@ -268,21 +263,29 @@ int launch_fwd(int n, int mode, const void* x, const void* dirs, const void* w, 
 }
 
 template <typename T, bool RAW>
-int launch_bwd(int n, int mode, const void* x, const void* dirs, const void* w, const void* wt,
-               const float* b, Dims d, const void* g_sigma, const void* g_rgb,
-               const void* g_feat, const void* g_trans, void* dx, void* ddirs, int slices,
-               int nw, int nb, float* partials, void* acts, void* stream) {
+int launch_bwd(int row0, int rows, int mode, const void* x, const void* dirs, const void* w,
+               const void* wt, const float* b, Dims d, const void* g_sigma, const void* g_rgb,
+               const void* g_feat, const void* g_trans, void* dx, void* ddirs, void* ops,
+               float* tile_b, int nb, void* stream) {
   using O = Head<T, RAW>;
-  const size_t smem = carve(d, true, mode, partials != nullptr, nullptr, nullptr);
+  const size_t smem = carve(d, true, mode, nullptr, nullptr);
   auto* kern = &field_bwd_kernel<T, RAW>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = partials ? slices : (n + TR - 1) / TR;
-  NEFES_LAUNCH(kern, grid, smem, stream, make_tower<T>(w, wt, b, d), n,
+  NEFES_LAUNCH(kern, (rows + TR - 1) / TR, smem, stream, make_tower<T>(w, wt, b, d), row0, rows,
                mode, x, dirs, static_cast<const O*>(g_sigma), static_cast<const O*>(g_rgb),
                static_cast<const O*>(g_feat), static_cast<const O*>(g_trans), dx, ddirs,
-               partials, nw, nb, static_cast<T*>(acts));
+               static_cast<T*>(ops), tile_b, nb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dw(int mode, int rows, int slices, Dims d, const void* ops, const float* tile_b,
+              int nw, int nb, float* part, void* stream) {
+  const int jobs = dw_jobs(d, mode);
+  NEFES_LAUNCH(field_dw_kernel<T>, slices * jobs, 0, stream, d, mode, rows, jobs, slices,
+               static_cast<const T*>(ops), tile_b, nw, nb, part);
   return (int)cudaGetLastError();
 }
 
@@ -322,19 +325,19 @@ int fwd_blocks_per_sm(const Dims& d, int mode) {
 template <bool RAW>
 int field_bwd(int dtype, int mode, int n, const void* x, const void* dirs, const void* w,
               const void* wt, const float* b, Dims d, const void* g_sigma, const void* g_rgb,
-              const void* g_feat, const void* g_trans, void* dx, void* ddirs, int slices,
-              int nw, int nb, float* partials, void* acts, void* stream) {
-  if (n <= 0) return 0;
+              const void* g_feat, const void* g_trans, void* dx, void* ddirs, int row0,
+              int rows, int nb, void* ops, float* tile_b, void* stream) {
   if (dtype == 1 && !HAS_BF16) return -1;
   if (mode < SIGMA || mode > TRANSIENT) return -2;
-  if (partials && (slices <= 0 || acts == nullptr)) return -3;
+  if (row0 < 0 || rows < 0 || row0 + rows > n || (ops && (tile_b == nullptr || nb <= 0)))
+    return -3;
+  if (rows == 0) return 0;
   return dtype == 1
-             ? launch_bwd<__nv_bfloat16, RAW>(n, mode, x, dirs, w, wt, b, d, g_sigma, g_rgb,
-                                              g_feat, g_trans, dx, ddirs, slices, nw, nb,
-                                              partials, acts, stream)
-             : launch_bwd<float, RAW>(n, mode, x, dirs, w, wt, b, d, g_sigma, g_rgb, g_feat,
-                                      g_trans, dx, ddirs, slices, nw, nb, partials, acts,
-                                      stream);
+             ? launch_bwd<__nv_bfloat16, RAW>(row0, rows, mode, x, dirs, w, wt, b, d, g_sigma,
+                                              g_rgb, g_feat, g_trans, dx, ddirs, ops, tile_b,
+                                              nb, stream)
+             : launch_bwd<float, RAW>(row0, rows, mode, x, dirs, w, wt, b, d, g_sigma, g_rgb,
+                                      g_feat, g_trans, dx, ddirs, ops, tile_b, nb, stream);
 }
 
 }  // namespace nefes
@@ -359,22 +362,23 @@ extern "C" int nefes_field_fwd_pre(int dtype, int mode, int n, const void* emb,
                                  trans, blocks, stream);
 }
 
-// partials: null for the frozen field (need_dw=False: slices, nw, nb and
-// acts are not read), else `slices` zeroed f32 slices of nw + nb floats
-// (nw matrix entries and nb biases of the blobs) and acts, `slices` x
-// nefes_field_dw_scratch elements of the pack dtype; the launch then has
-// `slices` blocks.
+// The backward over rows [row0, row0 + rows) of the n rows. ops: null
+// for the frozen field (need_dw=False: nb and tile_b are not read), else
+// the dW operand buffer of a chunk of exactly those rows
+// (nefes_field_dw_row_elems elements of the pack dtype a row) and tile_b,
+// ceil(rows / 64) x nb f32 (nb the bias blob's length), whose entries the
+// mode's head biases overwrite (the others are left as they are).
 extern "C" int nefes_field_bwd_pre(int dtype, int mode, int n, const void* emb,
                                    const void* embd, const void* w, const void* wt,
                                    const float* b, int depth, int width, int skipmask, int E,
                                    int Ed, int F, const void* g_sigma, const void* g_rgb,
                                    const void* g_feat, const void* g_trans, void* d_emb,
-                                   void* d_embd, int slices, int nw, int nb, float* partials,
-                                   void* acts, void* stream) {
+                                   void* d_embd, int row0, int rows, int nb, void* ops,
+                                   float* tile_b, void* stream) {
   return nefes::field_bwd<false>(dtype, mode, n, emb, embd, w, wt, b,
                                  Dims{depth, width, skipmask, E, Ed, F}, g_sigma, g_rgb,
-                                 g_feat, g_trans, d_emb, d_embd, slices, nw, nb, partials,
-                                 acts, stream);
+                                 g_feat, g_trans, d_emb, d_embd, row0, rows, nb, ops, tile_b,
+                                 stream);
 }
 
 // The raw-input kernels: pts, dirs (n, 3) f32; heads, their cotangents
@@ -394,18 +398,44 @@ extern "C" int nefes_field_bwd_raw(int dtype, int mode, int n, const float* pts,
                                    const float* b, int depth, int width, int skipmask, int E,
                                    int Ed, int F, const float* g_sigma, const float* g_rgb,
                                    const float* g_feat, const float* g_trans, float* d_pts,
-                                   float* d_dirs, int slices, int nw, int nb, float* partials,
-                                   void* acts, void* stream) {
+                                   float* d_dirs, int row0, int rows, int nb, void* ops,
+                                   float* tile_b, void* stream) {
   return nefes::field_bwd<true>(dtype, mode, n, pts, dirs, w, wt, b,
                                 Dims{depth, width, skipmask, E, Ed, F}, g_sigma, g_rgb, g_feat,
-                                g_trans, d_pts, d_dirs, slices, nw, nb, partials, acts,
-                                stream);
+                                g_trans, d_pts, d_dirs, row0, rows, nb, ops, tile_b, stream);
 }
 
-// Elements of the pack dtype one block of a backward with dW needs as
-// activation scratch.
-extern "C" int nefes_field_dw_scratch(int depth, int width) {
-  return (int)nefes::dw_scratch(Dims{depth, width, 0, 0, 0, 0});
+// Elements of the pack dtype one row of a chunk's dW operands takes in
+// `mode`.
+extern "C" int nefes_field_dw_row_elems(int mode, int depth, int width, int skipmask, int E,
+                                        int Ed, int F) {
+  return nefes::dw_row_elems(Dims{depth, width, skipmask, E, Ed, F}, mode);
+}
+
+// Blocks of the dW kernel a row slice in `mode` (its products' 64 x 64
+// output tiles, the biases' column sums among them, and its ranges of
+// head bias sums).
+extern "C" int nefes_field_dw_jobs(int mode, int depth, int width, int skipmask, int E, int Ed,
+                                   int F) {
+  return nefes::dw_jobs(Dims{depth, width, skipmask, E, Ed, F}, mode);
+}
+
+// The dW kernel over one chunk of `rows` rows: ops its operands and tile_b
+// its tiles' head bias sums, as nefes_field_bwd_* left them; adds the chunk's
+// weight gradients, `slices` row slices of it, into part (slices, nw + nb)
+// f32 (the matrices at their offsets in w, then the biases at theirs).
+extern "C" int nefes_field_dw(int dtype, int mode, int rows, int slices, int depth, int width,
+                              int skipmask, int E, int Ed, int F, const void* ops,
+                              const float* tile_b, int nw, int nb, float* part, void* stream) {
+  if (dtype == 1 && !nefes::HAS_BF16) return -1;
+  if (mode < nefes::SIGMA || mode > nefes::TRANSIENT) return -2;
+  if (slices <= 0 || nb <= 0) return -3;
+  if (rows <= 0) return 0;
+  const Dims d{depth, width, skipmask, E, Ed, F};
+  return dtype == 1 ? nefes::launch_dw<__nv_bfloat16>(mode, rows, slices, d, ops, tile_b, nw,
+                                                      nb, part, stream)
+                    : nefes::launch_dw<float>(mode, rows, slices, d, ops, tile_b, nw, nb, part,
+                                              stream);
 }
 
 // The weight gradients: out (n,) = the sum of `slices` partial slices

@@ -20,15 +20,16 @@
 //
 // Weight gradients across tiles: the TPU grid runs in order and carries
 // dW in VMEM from one tile to the next. A GPU grid does not, so the
-// backward with dW runs a persistent grid of `slices` blocks (one per SM
-// on the card), each looping over tiles blockIdx.x, blockIdx.x + slices,
-// ... and adding each tile's dW into its own f32 partial slice in global
-// memory (every element owned by one thread, in a fixed order); a second
-// kernel (fused_field.cu) sums the slices in slice order. No atomics, so
-// the gradient and a training run's loss curve are the same from run to
-// run. The activations a dW product needs (every hidden layer and the
-// `final` layer) go to a per-block scratch in global memory during the
-// recompute and come back one layer at a time into shared memory.
+// backward with dW (need_dw) runs over chunks of rows, one block per tile
+// as without dW: each block writes its tile's dW operands to the chunk's
+// row-major buffers in global memory (every layer input, A, in T, and
+// every layer output cotangent, G, rounded to T; the slots below) and the
+// head biases' gradients over the tile (f32 sums of their unrounded
+// cotangents) to its own row of a per-tile f32 buffer. field_dw.cuh's
+// kernel then contracts each product A^T G over the chunk's rows, the
+// other biases as column sums of G. No atomics and fixed orders
+// throughout, so the gradient and a training run's loss curve are the
+// same from run to run.
 //
 // Design on Hopper (H100): the TPU kernel keeps the whole tower resident
 // in VMEM. Here the weights (about 167k values for the fine tower, 333 KB
@@ -51,10 +52,9 @@
 // The field backward stores no activations: it recomputes the forward for
 // the tile and keeps one ReLU bit per unit and layer, plus the dir-layer
 // output and the sigma pre-activation (and, in transient mode, the three
-// 64-wide transient layers and their head pre-activations). The dW products
-// contract over the tile's rows: bf16 on the tensor cores (mma.sync, as
-// the forward), f32 on the CUDA cores; the per-tile read-modify-write of
-// the partial slice costs one pass over the weights' gradients per tile.
+// 64-wide transient layers and their head pre-activations). With dW it
+// also writes the dW operands out as it goes (6,160 B a row in bf16 at
+// D8/W128/F128 in transient mode), by streaming stores (store8).
 //
 // Host emulation: built with NEFES_EMULATE (see host_emulation.h) the same
 // code runs on the CPU with one thread per block, so the arithmetic and
@@ -192,6 +192,62 @@ Tower<T> make_tower(const void* w, const void* wt, const float* b, Dims d) {
   return tw;
 }
 
+__host__ __device__ constexpr int pad8(int x) { return (x + 7) & ~7; }
+
+// The dW operands of one chunk of rows (the backward with dW): one
+// row-major (rows, ld) buffer of T a slot, ld = pad8(columns) (so every
+// row and every buffer starts 16-byte aligned; the padding holds zeros),
+// the slots one after the other in this order, those a mode does not use
+// left out. A side, a layer's input as the forward computed it: the
+// embeddings, the dir layer's output, the transient layers t1..t3, the
+// hidden layers h_0..h_{depth-1} and then `final` at A_H + depth. G side,
+// a layer's output cotangent rounded to T: the sigma head's, final's, the
+// dir layer's, the rgb/feature head's, the transient layers' and heads',
+// and the hidden layers' at G_DZ + i.
+enum DwSlot {
+  A_EMB, A_EMBD, A_DE, A_T1, A_T2, A_T3,
+  G_SIG, G_FIN, G_DIR, G_RGB, G_T1, G_T2, G_T3, G_TS, G_TR, G_TB,
+  A_H,
+  G_DZ = A_H + MAX_DEPTH + 1,
+  N_SLOTS = G_DZ + MAX_DEPTH
+};
+
+// Columns of slot k in `mode` (0: not used).
+__host__ __device__ inline int slot_cols(const Dims& d, int mode, int k) {
+  const int W = d.width, H = W / 2;
+  const bool heads = mode != SIGMA, tr = mode == TRANSIENT;
+  if (k >= G_DZ) return k - G_DZ < d.depth ? W : 0;
+  if (k >= A_H) return k - A_H < d.depth ? W : (k - A_H == d.depth && heads ? W : 0);
+  switch (k) {
+    case A_EMB: return d.E;
+    case A_EMBD: return heads ? d.Ed : 0;
+    case A_DE: case G_DIR: return heads ? H : 0;
+    case G_SIG: return 1;
+    case G_FIN: return heads ? W : 0;
+    case G_RGB: return heads ? 3 + d.F : 0;
+    case A_T1: case A_T2: case A_T3: case G_T1: case G_T2: case G_T3: return tr ? H : 0;
+    case G_TS: case G_TB: return tr ? 1 : 0;
+    case G_TR: return tr ? 3 : 0;
+  }
+  return 0;
+}
+
+// Row stride of slot k, and its offset in a chunk of `rows` rows.
+__host__ __device__ inline int slot_ld(const Dims& d, int mode, int k) {
+  return pad8(slot_cols(d, mode, k));
+}
+
+__host__ __device__ inline size_t slot_off(const Dims& d, int mode, int rows, int k) {
+  size_t e = 0;
+  for (int j = 0; j < k; ++j) e += slot_ld(d, mode, j);
+  return e * rows;
+}
+
+// Elements of T one row of the chunk holds over every slot.
+__host__ __device__ inline int dw_row_elems(const Dims& d, int mode) {
+  return (int)slot_off(d, mode, 1, N_SLOTS);
+}
+
 // Shared-memory carve-up of one tower tile. All activations are f32
 // values that hold numbers already rounded to the pack dtype.
 struct Smem {
@@ -208,7 +264,7 @@ struct Smem {
   float* t2;        // TR x H  cotangents, in place, in backward)
   float* t3;        // TR x H
   float* tz;        // TR x 5  transient head pre-activations (cotangents)
-  float* ha;        // TR x W  one saved activation, staged (backward, dW)
+  int* slots;       // 2 x N_SLOTS the dW slots' columns and offsets (backward)
 };
 
 // Next 16-byte aligned buffer of n 4-byte words at base + *off.
@@ -220,10 +276,9 @@ __host__ __device__ inline float* take(char* base, size_t* off, size_t n) {
 
 // Carve the tile's buffers from `base`; returns the bytes used. With
 // base == nullptr only the size is computed (host side). The transient
-// buffers exist in transient mode only and the staging buffer with dW
-// only, so the render kernels (full mode, frozen) keep their size.
-__host__ __device__ inline size_t carve(const Dims& d, bool backward, int mode, bool dw,
-                                        char* base, Smem* s) {
+// buffers exist in transient mode only.
+__host__ __device__ inline size_t carve(const Dims& d, bool backward, int mode, char* base,
+                                        Smem* s) {
   const int W = d.width, H = d.width / 2;
   size_t off = 0;
   Smem t;
@@ -236,11 +291,13 @@ __host__ __device__ inline size_t carve(const Dims& d, bool backward, int mode, 
   t.dzs = nullptr;
   t.demb = nullptr;
   t.mask = nullptr;
-  t.t1 = t.t2 = t.t3 = t.tz = t.ha = nullptr;
+  t.t1 = t.t2 = t.t3 = t.tz = nullptr;
+  t.slots = nullptr;
   if (backward) {
     t.dzs = take(base, &off, TR);
     t.demb = take(base, &off, (size_t)TR * d.E);
     t.mask = reinterpret_cast<uint32_t*>(take(base, &off, (size_t)d.depth * TR * (W / 32)));
+    t.slots = reinterpret_cast<int*>(take(base, &off, 2 * N_SLOTS));
   }
   if (mode == TRANSIENT) {
     t.t1 = take(base, &off, (size_t)TR * H);
@@ -248,27 +305,82 @@ __host__ __device__ inline size_t carve(const Dims& d, bool backward, int mode, 
     t.t3 = take(base, &off, (size_t)TR * H);
     t.tz = take(base, &off, (size_t)TR * 5);
   }
-  if (backward && dw) t.ha = take(base, &off, (size_t)TR * W);
   if (s) *s = t;
   return off;
 }
 
-// Elements of T one block of the backward with dW keeps in its global
-// scratch: the tile's hidden layers h_0 .. h_{depth-1} and `final`.
-__host__ __device__ inline size_t dw_scratch(const Dims& d) {
-  return (size_t)(d.depth + 1) * TR * d.width;
+// The slots' table of one block: t[k] slot k's columns, t[N_SLOTS + k]
+// its offset in a chunk of one row (elements). One thread; the caller's
+// next barrier publishes it.
+__device__ inline void dw_table(const Dims& d, int mode, int* t) {
+  if (threadIdx.x != 0) return;
+  int e = 0;
+  for (int k = 0; k < N_SLOTS; ++k) {
+    t[k] = slot_cols(d, mode, k);
+    t[N_SLOTS + k] = e;
+    e += pad8(t[k]);
+  }
 }
 
-// The weight-gradient output of one block of the backward: its f32
-// partial slice (the matrices at their blob offsets, then the biases at
-// theirs) and its activation scratch; part == nullptr for the frozen
-// field (need_dw=False).
+// Where one tile of the backward with dW writes: the chunk's operand
+// buffer (ops == nullptr for the frozen field, need_dw=False), the tile's
+// row of nb f32 head bias sums (at the bias blob's offsets), the block's
+// slot table (dw_table, in shared memory), the chunk's rows, the tile's
+// first row in the chunk and its valid rows.
 template <typename T>
 struct DwOut {
-  float* part;
+  T* ops;
   float* part_b;
-  T* acts;
+  const int* slots;
+  int rows, row0, valid;
 };
+
+// Eight values to p[0..8) in T (p holds an element index of a row that is
+// a multiple of 8), by streaming stores (st.global.cs: evict first). The
+// operands pass through L2 once on their way out; stored as usual, they
+// evicted the weights that every tile reads from L2, which cost K6 +dW
+// 8.5 ms of 59 at the fine training pass on an H100 (PERF.md §6).
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float (&v)[8]) {
+#ifndef NEFES_EMULATE
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    auto pack = [](float a, float b) {
+      __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      return *reinterpret_cast<uint32_t*>(&h);
+    };
+    __stcs(reinterpret_cast<uint4*>(p),
+           make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]), pack(v[6], v[7])));
+  } else {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+    __stcs(reinterpret_cast<float4*>(p) + 1, make_float4(v[4], v[5], v[6], v[7]));
+  }
+#else
+  for (int j = 0; j < 8; ++j) p[j] = from_f<T>(v[j]);
+#endif
+}
+
+// Rows [0, valid) of the tile, column c < cols given by f(r, c) (an f32
+// value, stored rounded to T), to slot k of the chunk at the tile's rows,
+// the padding zero: a thread eight columns of a row at a time. No barrier.
+template <typename T, typename Fn>
+__device__ __forceinline__ void put_rows(const DwOut<T>& dw, int k, Fn f) {
+  const int cols = dw.slots[k], ld = pad8(cols), units = ld / 8;
+  T* dst = dw.ops + (size_t)dw.slots[N_SLOTS + k] * dw.rows + (size_t)dw.row0 * ld;
+  for (int u = threadIdx.x; u < dw.valid * units; u += blockDim.x) {
+    const int r = u / units, c = (u - r * units) * 8;
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = c + j < cols ? f(r, c + j) : 0.f;
+    store8(dst + (size_t)r * ld + c, v);
+  }
+}
+
+// The same from a tile buffer of f32 values with row stride `cols`.
+template <typename T>
+__device__ __forceinline__ void put_tile(const DwOut<T>& dw, int k, const float* src) {
+  const int cols = dw.slots[k];
+  put_rows(dw, k, [=](int r, int c) { return src[r * cols + c]; });
+}
 
 #ifndef NEFES_EMULATE
 // Tensor-core product for bf16: mma.sync m16n8k16 (bf16 in, f32
@@ -337,56 +449,6 @@ __device__ __forceinline__ void block_mm_mma(int K, int N,
   }
 }
 
-// The dW product on the tensor cores: part[m * N + n] += sum_r A(r, m) *
-// G(r, n) over the tile's TR rows, for m < M, n < N, with mma.sync
-// m16n8k16 (the tile's rows are the contraction; A and G values are
-// already bf16-representable, so building the fragments is exact). A warp
-// owns 16 weight rows by MMA_G x 8 columns; each element of part belongs
-// to one lane, which adds in a fixed order.
-template <typename AFn, typename GFn>
-__device__ __forceinline__ void block_dw_mma(int M, int N, AFn A, GFn G,
-                                             float* __restrict__ part) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int m_tiles = (M + 15) >> 4, n_tiles = (N + 7) >> 3;
-  const int items = m_tiles * ((n_tiles + MMA_G - 1) / MMA_G);
-  auto a_at = [&](int m, int r) { return m < M ? A(r, m) : 0.f; };
-  auto g_at = [&](int r, int n) { return n < N ? G(r, n) : 0.f; };
-  for (int it = threadIdx.x >> 5; it < items; it += blockDim.x >> 5) {
-    const int m0 = (it % m_tiles) * 16 + g, m1 = m0 + 8;
-    const int nt0 = (it / m_tiles) * MMA_G;
-    float acc[MMA_G][4];
-#pragma unroll
-    for (int j = 0; j < MMA_G; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    for (int k0 = 0; k0 < TR; k0 += 16) {
-      const int ka = k0 + 2 * t, kb = ka + 8;
-      const uint32_t a[4] = {pack_bf16x2(a_at(m0, ka), a_at(m0, ka + 1)),
-                             pack_bf16x2(a_at(m1, ka), a_at(m1, ka + 1)),
-                             pack_bf16x2(a_at(m0, kb), a_at(m0, kb + 1)),
-                             pack_bf16x2(a_at(m1, kb), a_at(m1, kb + 1))};
-#pragma unroll
-      for (int j = 0; j < MMA_G; ++j) {
-        if (nt0 + j < n_tiles) {
-          const int n = (nt0 + j) * 8 + g;
-          mma_bf16(acc[j], a, pack_bf16x2(g_at(ka, n), g_at(ka + 1, n)),
-                   pack_bf16x2(g_at(kb, n), g_at(kb + 1, n)));
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < MMA_G; ++j) {
-      const int c = (nt0 + j) * 8 + 2 * t;
-      if (nt0 + j >= n_tiles) continue;
-      if (m0 < M) {
-        if (c < N) part[(size_t)m0 * N + c] += acc[j][0];
-        if (c + 1 < N) part[(size_t)m0 * N + c + 1] += acc[j][1];
-      }
-      if (m1 < M) {
-        if (c < N) part[(size_t)m1 * N + c] += acc[j][2];
-        if (c + 1 < N) part[(size_t)m1 * N + c + 1] += acc[j][3];
-      }
-    }
-  }
-}
 #endif
 
 // out[r][c] = sum_k A(r, k) * B[k * ldb + c] for r < TR, c < N, handed to
@@ -434,58 +496,15 @@ __device__ __forceinline__ void block_mm(int K, int N, const T* __restrict__ B, 
   }
 }
 
-// One weight's gradient from one tile, added to the block's partial:
-// part[k * N + c] += sum_r A(r, k) * G(r, c) over the TR rows, for k < K,
-// c < N (the (in, out) layout of the blob). A gives the layer's input in
-// T (exact in f32), G its output cotangent rounded to T, so every product
-// is exact and only the f32 sums round. bf16 runs on the tensor cores
-// (block_dw_mma); f32 on the CUDA cores in 4x4 micro-tiles with FMA.
-// Either way each element of part belongs to one thread, which adds in a
-// fixed order.
-template <typename T, typename AFn, typename GFn>
-__device__ __forceinline__ void block_dw(int K, int N, AFn A, GFn G, float* __restrict__ part) {
-#ifndef NEFES_EMULATE
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    block_dw_mma(K, N, A, G, part);
-    return;
-  }
-#endif
-  const int ncg = (N + 3) >> 2;
-  const int n_mt = ((K + 3) >> 2) * ncg;
-  for (int mt = threadIdx.x; mt < n_mt; mt += blockDim.x) {
-    const int k0 = (mt / ncg) * 4, c0 = (mt % ncg) * 4;
-    const int nk = K - k0 < 4 ? K - k0 : 4, nc = N - c0 < 4 ? N - c0 : 4;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int r = 0; r < TR; ++r) {
-      float a[4], g[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = i < nk ? A(r, k0 + i) : 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) g[j] = j < nc ? G(r, c0 + j) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], g[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (i < nk && j < nc) part[(size_t)(k0 + i) * N + c0 + j] += acc[i][j];
-  }
-}
-
-// One bias's gradient from one tile: part[c] += sum_r G(r, c) in f32.
+// One bias's gradient from one tile: part[c] = sum_r G(r, c) in f32, in
+// row order.
 template <typename GFn>
 __device__ __forceinline__ void block_db(int N, GFn G, float* __restrict__ part) {
   for (int c = threadIdx.x; c < N; c += blockDim.x) {
     float s = 0.f;
+#pragma unroll 16
     for (int r = 0; r < TR; ++r) s += G(r, c);
-    part[c] += s;
+    part[c] = s;
   }
 }
 
@@ -597,27 +616,21 @@ __device__ __forceinline__ void tile_input_grads(const Dims& d, const Smem& s, c
 }
 
 
-// Copy one TR x W activation tile (f32 values that hold T numbers) to its
-// slot of the dW scratch in T. No barrier: the source is not overwritten
-// before the next one.
-template <typename T>
-__device__ __forceinline__ void save_act(T* __restrict__ dst, const float* src, int n) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = from_f<T>(src[j]);
-}
-
 // Forward tower over the tile in s.emb / s.embd (mirrors _tower_tile).
 // Leaves the last hidden layer's sigma pre-activation in s.zs and, in
 // FULL and TRANSIENT mode, the dir-layer output in s.de; in TRANSIENT
 // mode the three transient layers in s.t1..t3 and the transient heads'
 // pre-activations [sigma, rgb x3, beta] in s.tz; when keep_masks, the
-// ReLU bits of every hidden layer in s.mask; when acts is given (the
-// backward with dW), every hidden layer and `final` in acts, (depth + 1)
-// x TR x W in T. The rgb/feature head is computed for columns [0,
+// ReLU bits of every hidden layer in s.mask; with dw.ops (the backward
+// with dW), every layer input of a dW product (the embeddings, the hidden
+// layers, `final`, the dir layer's output and the transient layers) in
+// its slot of the chunk. The rgb/feature head is computed for columns [0,
 // rgb_cols) and handed to rgb_epi(r, c, value) in f32. Ends with a
 // barrier.
 template <typename T, typename RgbEpi>
 __device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, bool keep_masks,
-                              int rgb_cols, RgbEpi rgb_epi, T* acts = nullptr) {
+                              int rgb_cols, RgbEpi rgb_epi,
+                              const DwOut<T>& dw = DwOut<T>{nullptr, nullptr, nullptr, 0, 0, 0}) {
   const Dims& d = tw.d;
   const Layout& L = tw.L;
   const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, C = 3 + d.F, nw = W / 32;
@@ -625,6 +638,10 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, bool 
   float* hn = s.h1;
   const float* emb = s.emb;
   auto a_emb = [=](int r, int k) { return emb[r * E + k]; };
+  if (dw.ops) {
+    put_tile(dw, A_EMB, s.emb);
+    if (mode != SIGMA) put_tile(dw, A_EMBD, s.embd);
+  }
 
   for (int i = 0; i < d.depth; ++i) {
     const float* bias = tw.b + L.b[i];
@@ -658,7 +675,7 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, bool 
         m[j] = bits;
       }
     }
-    if (acts) save_act(acts + (size_t)i * TR * W, ho, TR * W);
+    if (dw.ops) put_tile(dw, A_H + i, ho);
     h = ho;
     hn = const_cast<float*>(hc);
   }
@@ -687,7 +704,7 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, bool 
                 });
   }
   __syncthreads();
-  if (acts) save_act(acts + (size_t)d.depth * TR * W, hn, TR * W);
+  if (dw.ops) put_tile(dw, A_H + d.depth, hn);
 
   // de = relu(final @ dir_wh + embd @ dir_wd + dir_b)
   const float* fin = hn;
@@ -706,6 +723,7 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, bool 
     });
   }
   __syncthreads();
+  if (dw.ops) put_tile(dw, A_DE, s.de);
 
   if (rgb_cols > 0) {
     const float* de = s.de;
@@ -726,6 +744,7 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, bool 
       t1[r * H + c] = fmaxf(z, 0.f);
     });
     __syncthreads();
+    if (dw.ops) put_tile(dw, A_T1, s.t1);
     const float* src[2] = {s.t1, s.t2};
     float* dst[2] = {s.t2, s.t3};
     const int wo[2] = {L.t2_w, L.t3_w}, bo[2] = {L.t2_b, L.t3_b};
@@ -738,6 +757,7 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, bool 
                     o[r * H + c] = fmaxf(rnd<T>(rnd<T>(acc) + rnd<T>(bb[c])), 0.f);
                   });
       __syncthreads();
+      if (dw.ops) put_tile(dw, A_T2 + l, o);
     }
     // heads: f32 accumulation plus f32 bias, columns [sigma, rgb x3, beta]
     const float* t3 = s.t3;
@@ -762,30 +782,28 @@ __device__ __forceinline__ float transient_head(float z, int j) {
 }
 
 // Backward of the tower (mirrors _mlp_backward up to the embedding).
-// Needs the state tower_forward left with keep_masks (and, with dW, its
-// acts). gsig(r): cotangent of the sigma output; grf(r, c), c < 3 + F:
-// of the rgb/feature head (FULL and TRANSIENT); gtr(r, j), j < 5: of the
-// transient heads (TRANSIENT). Leaves the embedding cotangents in f32 in
-// s.demb and, unless SIGMA, in s.embd (the dir embedding is not needed
-// again). With dw.part, adds the tile's weight gradients to the block's
-// partial. Ends with a barrier.
+// Needs the state tower_forward left with keep_masks. gsig(r): cotangent
+// of the sigma output; grf(r, c), c < 3 + F: of the rgb/feature head
+// (FULL and TRANSIENT); gtr(r, j), j < 5: of the transient heads
+// (TRANSIENT). Leaves the embedding cotangents in f32 in s.demb and,
+// unless SIGMA, in s.embd (the dir embedding is not needed again). With
+// dw.ops (whose A operands tower_forward wrote) writes every dW product's
+// G operand, a layer's output cotangent rounded to T, to its slot of the
+// chunk, and the heads' bias gradients over the tile (sigma, rgb/feature
+// and the transient heads: the f32 sums of their unrounded cotangents) to
+// dw.part_b; the other biases' gradients, sums of the rounded G, are the
+// dW kernel's. Ends with a barrier.
 template <typename T, typename GSig, typename GRf, typename GTr>
 __device__ void tower_backward(const Tower<T>& tw, const Smem& s, int mode, GSig gsig, GRf grf,
                                GTr gtr, const DwOut<T>& dw) {
   const Dims& d = tw.d;
   const Layout& L = tw.L;
-  const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, C = 3 + d.F, nw = W / 32;
+  const int W = d.width, H = W / 2, E = d.E, C = 3 + d.F, nw = W / 32;
   const T* sig_w = tw.w + L.sig_w;
-  const bool wgrad = dw.part != nullptr;
-  float* pw = dw.part;
+  const bool wgrad = dw.ops != nullptr;
   float* pb = dw.part_b;
-  float* ha = s.ha;
-  // saved activation `slot` (h_slot, or final at slot == depth) into s.ha
-  auto stage = [&](int slot) {
-    const T* src = dw.acts + (size_t)slot * TR * W;
-    for (int j = threadIdx.x; j < TR * W; j += blockDim.x) ha[j] = to_f<T>(src[j]);
-  };
-  auto a_ha = [=](int r, int k) { return ha[r * W + k]; };
+  // G operand slot k of the tile's rows (values rounded to T on the store)
+  auto put_g = [=](int k, auto g) { put_rows(dw, k, g); };
 
   // dzs stays unrounded: the sigma bias gradient sums it in f32
   for (int r = threadIdx.x; r < TR; r += blockDim.x)
@@ -796,16 +814,16 @@ __device__ void tower_backward(const Tower<T>& tw, const Smem& s, int mode, GSig
   float* dh = s.h0;
   float* dn = s.h1;
   const float* dzs = s.dzs;
-  auto g_sig = [=](int r, int) { return rnd<T>(dzs[r]); };
-  auto sum_sig = [=](int r, int) { return dzs[r]; };
+  auto g_sig = [=](int r, int) { return dzs[r]; };
+  if (wgrad) {
+    put_g(G_SIG, g_sig);
+    block_db(1, g_sig, pb + L.sig_b);
+  }
   if (mode != SIGMA) {
     float* dzd = s.de;   // overwritten in place: each element by its own thread
-    const float* de = s.de;
     if (wgrad) {
-      block_dw<T>(H, C, [=](int r, int k) { return de[r * H + k]; },
-               [=](int r, int c) { return rnd<T>(grf(r, c)); }, pw + L.rgb_w);
+      put_g(G_RGB, grf);
       block_db(C, grf, pb + L.rgb_b);
-      __syncthreads();
     }
     block_mm<T>(C, H, tw.wt + L.rgb_w, H, [=](int r, int k) { return rnd<T>(grf(r, k)); },
                 [=](int r, int c, float acc) {
@@ -828,16 +846,16 @@ __device__ void tower_backward(const Tower<T>& tw, const Smem& s, int mode, GSig
       float* t2 = s.t2;
       float* t3 = s.t3;
       const float* dz5 = s.tz;
-      auto a_t3 = [=](int r, int k) { return t3[r * H + k]; };
       if (wgrad) {
-        block_dw<T>(H, 1, a_t3, [=](int r, int) { return rnd<T>(dz5[r * 5]); }, pw + L.ts_w);
-        block_dw<T>(H, 3, a_t3, [=](int r, int c) { return rnd<T>(dz5[r * 5 + 1 + c]); },
-                 pw + L.tr_w);
-        block_dw<T>(H, 1, a_t3, [=](int r, int) { return rnd<T>(dz5[r * 5 + 4]); }, pw + L.tb_w);
-        block_db(1, [=](int r, int) { return dz5[r * 5]; }, pb + L.ts_b);
-        block_db(3, [=](int r, int c) { return dz5[r * 5 + 1 + c]; }, pb + L.tr_b);
-        block_db(1, [=](int r, int) { return dz5[r * 5 + 4]; }, pb + L.tb_b);
-        __syncthreads();
+        auto g_ts = [=](int r, int) { return dz5[r * 5]; };
+        auto g_tr = [=](int r, int c) { return dz5[r * 5 + 1 + c]; };
+        auto g_tb = [=](int r, int) { return dz5[r * 5 + 4]; };
+        put_g(G_TS, g_ts);
+        put_g(G_TR, g_tr);
+        put_g(G_TB, g_tb);
+        block_db(1, g_ts, pb + L.ts_b);
+        block_db(3, g_tr, pb + L.tr_b);
+        block_db(1, g_tb, pb + L.tb_b);
       }
       // dt3: the three heads' products, each rounded to T, summed in T in
       // the order sigma + rgb + beta; times relu'(t3), in place
@@ -858,20 +876,16 @@ __device__ void tower_backward(const Tower<T>& tw, const Smem& s, int mode, GSig
         }
       }
       __syncthreads();
-      // t3 -> t2 -> t1, each: dW with the layer's input, then the input's
-      // cotangent in place of the input
+      // t3 -> t2 -> t1, each: the output cotangent out as G, then the
+      // input's cotangent in place of the input
       float* tin[2] = {t2, t1};
       const float* tout[2] = {t3, t2};
-      const int wo[2] = {L.t3_w, L.t2_w}, bo[2] = {L.t3_b, L.t2_b};
+      const int wo[2] = {L.t3_w, L.t2_w};
       for (int l = 0; l < 2; ++l) {
         float* a = tin[l];
         const float* g = tout[l];
         auto g_t = [=](int r, int c) { return g[r * H + c]; };
-        if (wgrad) {
-          block_dw<T>(H, H, [=](int r, int k) { return a[r * H + k]; }, g_t, pw + wo[l]);
-          block_db(H, g_t, pb + bo[l]);
-          __syncthreads();
-        }
+        if (wgrad) put_g(G_T3 - l, g_t);
         block_mm<T>(H, H, tw.wt + wo[l], H, g_t, [=](int r, int c, float acc) {
           a[r * H + c] = a[r * H + c] > 0.f ? rnd<T>(acc) : 0.f;
         });
@@ -879,23 +893,12 @@ __device__ void tower_backward(const Tower<T>& tw, const Smem& s, int mode, GSig
       }
     }
 
-    const float* embd = s.embd;
     const float* dzt1 = s.t1;
     auto g_d = [=](int r, int c) { return dzd[r * H + c]; };
     auto g_t1 = [=](int r, int c) { return dzt1[r * H + c]; };
     if (wgrad) {
-      stage(d.depth);   // final
-      __syncthreads();
-      auto a_embd = [=](int r, int k) { return embd[r * Ed + k]; };
-      block_dw<T>(W, H, a_ha, g_d, pw + L.dir_wh);
-      block_dw<T>(Ed, H, a_embd, g_d, pw + L.dir_wd);
-      block_db(H, g_d, pb + L.dir_b);
-      if (mode == TRANSIENT) {
-        block_dw<T>(W, H, a_ha, g_t1, pw + L.t1_wh);
-        block_dw<T>(Ed, H, a_embd, g_t1, pw + L.t1_wd);
-        block_db(H, g_t1, pb + L.t1_b);
-      }
-      __syncthreads();   // s.embd and s.ha are overwritten below
+      put_g(G_DIR, g_d);
+      if (mode == TRANSIENT) put_g(G_T1, g_t1);
     }
     // d_final = dzd @ dir_wh^T (+ dzt1 @ t1_wh^T), each rounded, into dn;
     // d_embd = dzd @ dir_wd^T (+ dzt1 @ t1_wd^T) in f32, into s.embd. The
@@ -904,62 +907,36 @@ __device__ void tower_backward(const Tower<T>& tw, const Smem& s, int mode, GSig
     block_mm<T>(H, W, tw.wt + L.dir_wh, W, g_d,
                 [=](int r, int c, float acc) { dn[r * W + c] = rnd<T>(acc); });
     float* dembd = s.embd;
-    block_mm<T>(H, Ed, tw.wt + L.dir_wd, Ed, g_d,
-                [=](int r, int c, float acc) { dembd[r * Ed + c] = acc; });
+    block_mm<T>(H, d.Ed, tw.wt + L.dir_wd, d.Ed, g_d,
+                [=](int r, int c, float acc) { dembd[r * d.Ed + c] = acc; });
     if (mode == TRANSIENT) {
       block_mm<T>(H, W, tw.wt + L.t1_wh, W, g_t1, [=](int r, int c, float acc) {
         dn[r * W + c] = rnd<T>(dn[r * W + c] + rnd<T>(acc));
       });
-      block_mm<T>(H, Ed, tw.wt + L.t1_wd, Ed, g_t1,
-                  [=](int r, int c, float acc) { dembd[r * Ed + c] += acc; });
+      block_mm<T>(H, d.Ed, tw.wt + L.t1_wd, d.Ed, g_t1,
+                  [=](int r, int c, float acc) { dembd[r * d.Ed + c] += acc; });
     }
-    if (wgrad) stage(d.depth - 1);
     __syncthreads();
     const float* dfin = dn;
     auto g_fin = [=](int r, int c) { return dfin[r * W + c]; };
-    if (wgrad) {
-      block_dw<T>(W, W, a_ha, g_fin, pw + L.fin_w);
-      block_db(W, g_fin, pb + L.fin_b);
-      block_dw<T>(W, 1, a_ha, g_sig, pw + L.sig_w);
-      block_db(1, sum_sig, pb + L.sig_b);
-    }
+    if (wgrad) put_g(G_FIN, g_fin);
     block_mm<T>(W, W, tw.wt + L.fin_w, W, g_fin, [=](int r, int c, float acc) {
       dh[r * W + c] = rnd<T>(rnd<T>(rnd<T>(dzs[r]) * to_f<T>(sig_w[c])) + rnd<T>(acc));
     });
   } else {
-    if (wgrad) {
-      stage(d.depth - 1);
-      __syncthreads();
-      block_dw<T>(W, 1, a_ha, g_sig, pw + L.sig_w);
-      block_db(1, sum_sig, pb + L.sig_b);
-    }
     for (int i = threadIdx.x; i < TR * W; i += blockDim.x)
       dh[i] = rnd<T>(rnd<T>(dzs[i / W]) * to_f<T>(sig_w[i % W]));
   }
   __syncthreads();
 
   float* demb = s.demb;
-  const float* emb = s.emb;
-  auto a_emb = [=](int r, int k) { return emb[r * E + k]; };
   for (int i = d.depth - 1; i >= 0; --i) {
-    if (wgrad && i > 0) {
-      stage(i - 1);
-      __syncthreads();
-    }
     const uint32_t* m = s.mask + (size_t)i * TR * nw;
     const float* g = dh;
     auto dz = [=](int r, int k) {
       return (m[r * nw + (k >> 5)] >> (k & 31)) & 1u ? g[r * W + k] : 0.f;
     };
-    if (wgrad) {
-      if (i == 0) {
-        block_dw<T>(E, W, a_emb, dz, pw + L.we[0]);
-      } else {
-        block_dw<T>(W, W, a_ha, dz, pw + L.wh[i]);
-        if ((d.skipmask >> i) & 1) block_dw<T>(E, W, a_emb, dz, pw + L.we[i]);
-      }
-      block_db(W, dz, pb + L.b[i]);
-    }
+    if (wgrad) put_g(G_DZ + i, dz);
     auto add_emb = [=](int r, int c, float acc) { demb[r * E + c] += acc; };
     if (i == 0) {
       block_mm<T>(W, E, tw.wt + L.we[0], E, dz, add_emb);

@@ -32,7 +32,7 @@ BUILD_DIR = PKG / "_build"
 # library name -> its .cu source; every library also includes these headers
 SOURCES = {"fused_field": "fused_field.cu", "fused_render": "fused_render.cu",
            "micro": "micro.cu"}
-HEADERS = ("tower.cuh", "render_bwd.cuh", "host_emulation.h")
+HEADERS = ("tower.cuh", "render_bwd.cuh", "field_dw.cuh", "host_emulation.h")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -125,7 +125,9 @@ _SIGNATURES = {
     "nefes_field_bwd_pre": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                             _P, _P],
-    "nefes_field_dw_scratch": [_I, _I],
+    "nefes_field_dw_row_elems": [_I] * 7,
+    "nefes_field_dw_jobs": [_I] * 7,
+    "nefes_field_dw": [_I] * 10 + [_P, _P, _I, _I, _P, _P],
     "nefes_field_smem_bytes": [_I] * 8,
     "nefes_field_blocks_per_sm": [_I] * 9,
     "nefes_field_dw_reduce": [_I, _I, _P, _P, _P],

@@ -16,7 +16,11 @@ on pre-embedded inputs (K1, K2) or on raw points and directions (K5, K6).
 K1/K5 in sigma and full mode run the render kernels' warp path
 (csrc/render_bwd.cuh) as a persistent grid of fwd_blocks() blocks over
 block tiles of BLOCK_TILE samples; K1/K5 in transient mode, and K2/K6,
-run csrc/tower.cuh's tiles of TILE_ROWS.
+run csrc/tower.cuh's tiles of TILE_ROWS. K2/K6 with need_dw run over
+chunks of rows (dw_plan): each launch writes the chunk's dW operands
+(every layer's input and output cotangent, row-major) and per-tile bias
+sums, and the dW kernel (field_dw, csrc/field_dw.cuh) contracts them over
+the chunk's rows into row-slice partials that field_dw_reduce sums.
 
 All four follow _tower_tile's rounding points: hidden layers accumulate in
 f32 and round to the pack dtype, then take the bias and the ReLU in the
@@ -33,7 +37,8 @@ JAX does, to the blobs, which pack_params builds with autograd from the
 nn.Linear parameters. Each wrapper runs its kernel for a CUDA tensor and
 its plain version for a CPU tensor; it counts kernel launches in
 ``<wrapper>.launches`` (K1/K5 also ``.transient_launches``, K2/K6
-``.dw_launches`` for those variants).
+``.dw_launches`` for those variants; K2/K6 with need_dw launch once a
+chunk, and field_dw once a chunk).
 """
 
 from __future__ import annotations
@@ -52,6 +57,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # SIGMA
 SIGMA, FULL, TRANSIENT = 0, 1, 2
 TILE_ROWS = 64      # samples per tower tile (csrc/tower.cuh TR)
+# the backward with dW: the most bytes of one chunk's dW operands and bias
+# sums, and the dW kernel's blocks an SM the row slices aim at
+DW_SCRATCH_BYTES = 1 << 30
+DW_BLOCKS_PER_SM = 4
 BLOCK_TILE = 128    # samples per block tile of the warp path, K1/K5 in
 #                     sigma and full mode (csrc/render_bwd.cuh BT)
 
@@ -427,6 +436,119 @@ def field_bwd_plain(p: PackedField, mode: int, pts, dirs, g_sigma, g_rgb,
     return d_pts, embed_backward_plain(d_embd, dirs, spec.n_freqs_dir), dw
 
 
+# the dW operand slots of a chunk, in their order (csrc/tower.cuh DwSlot):
+# the embeddings, the dir layer's output and t1..t3 (A side), the sigma,
+# final, dir, rgb/feature, transient layers' and heads' cotangents (G
+# side), the hidden layers h_0..h_{depth-1} and final, and the hidden
+# layers' cotangents
+(_A_EMB, _A_EMBD, _A_DE, _A_T1, _A_T2, _A_T3, _G_SIG, _G_FIN, _G_DIR,
+ _G_RGB, _G_T1, _G_T2, _G_T3, _G_TS, _G_TR, _G_TB) = range(16)
+_MAX_DEPTH = 16
+_A_H = 16
+_G_DZ = _A_H + _MAX_DEPTH + 1
+_N_SLOTS = _G_DZ + _MAX_DEPTH
+
+
+def _slot_cols(spec: FieldSpec, mode: int) -> list[int]:
+    """Columns of each slot in `mode` (0: not used)."""
+    W, H, D = spec.width, spec.half, spec.depth
+    cols = [0] * _N_SLOTS
+    cols[_A_EMB], cols[_G_SIG] = spec.emb_xyz, 1
+    for i in range(D):
+        cols[_A_H + i] = cols[_G_DZ + i] = W
+    if mode != SIGMA:
+        cols[_A_EMBD], cols[_G_RGB] = spec.emb_dir, spec.rgbfeat
+        cols[_A_DE] = cols[_G_DIR] = H
+        cols[_G_FIN] = cols[_A_H + D] = W
+    if mode == TRANSIENT:
+        for k in (_A_T1, _A_T2, _A_T3, _G_T1, _G_T2, _G_T3):
+            cols[k] = H
+        cols[_G_TS], cols[_G_TR], cols[_G_TB] = 1, 3, 1
+    return cols
+
+
+def dw_operands(spec: FieldSpec, mode: int, ops: torch.Tensor,
+                rows: int) -> list:
+    """The slots of a chunk of `rows` rows in the operand buffer ops: one
+    (rows, columns) view a slot (None where `mode` has none), each slot a
+    row-major (rows, ld) block, ld the columns rounded up to 8."""
+    views, off = [], 0
+    for c in _slot_cols(spec, mode):
+        ld = -(-c // 8) * 8
+        views.append(ops[off:off + rows * ld].view(rows, ld)[:, :c] if c
+                     else None)
+        off += rows * ld
+    return views
+
+
+def dw_products(spec: FieldSpec, mode: int) -> list:
+    """(A slot, G slot, weight name) of every dW product of `mode`, in the
+    dW kernel's order (csrc/field_dw.cuh dw_prod)."""
+    D = spec.depth
+    out = [(_A_EMB, _G_DZ, "l0_we")]
+    for i in range(1, D):
+        out.append((_A_H + i - 1, _G_DZ + i, f"l{i}_wh"))
+        if i in spec.skips:
+            out.append((_A_EMB, _G_DZ + i, f"l{i}_we"))
+    out.append((_A_H + D - 1, _G_SIG, "sig_w"))
+    if mode != SIGMA:
+        out += [(_A_H + D - 1, _G_FIN, "fin_w"), (_A_H + D, _G_DIR, "dir_wh"),
+                (_A_EMBD, _G_DIR, "dir_wd"), (_A_DE, _G_RGB, "rgb_w")]
+    if mode == TRANSIENT:
+        out += [(_A_H + D, _G_T1, "t1_wh"), (_A_EMBD, _G_T1, "t1_wd"),
+                (_A_T1, _G_T2, "t2_w"), (_A_T2, _G_T3, "t3_w"),
+                (_A_T3, _G_TS, "ts_w"), (_A_T3, _G_TR, "tr_w"),
+                (_A_T3, _G_TB, "tb_w")]
+    return out
+
+
+def dw_biases(spec: FieldSpec, mode: int) -> tuple:
+    """The biases of `mode` as the dW kernel sums them: (G slot, bias name)
+    of those whose gradient is the column sum of a rounded G operand, and
+    the names of the head biases (unrounded cotangents) whose per-tile
+    sums the backward leaves."""
+    from_g = [(_G_DZ + i, f"l{i}_b") for i in range(spec.depth)]
+    heads = ["sig_b"]
+    if mode != SIGMA:
+        from_g += [(_G_FIN, "fin_b"), (_G_DIR, "dir_b")]
+        heads.append("rgb_b")
+    if mode == TRANSIENT:
+        from_g += [(_G_T1, "t1_b"), (_G_T2, "t2_b"), (_G_T3, "t3_b")]
+        heads += ["ts_b", "tr_b", "tb_b"]
+    return from_g, heads
+
+
+def field_dw_plain(p: PackedField, mode: int, ops: torch.Tensor,
+                   tile_b: torch.Tensor, rows: int) -> torch.Tensor:
+    """The dW kernel's function on one chunk of `rows` rows: each product's
+    A^T @ G in f32 over the operand buffer ops (dw_operands), each bias
+    the f32 column sum of its G, a head bias the sum of the chunk's
+    per-tile sums tile_b (tiles, nb); the weights' f32 gradients in blob
+    order (the matrices, then the biases)."""
+    spec = p.spec
+    views = dw_operands(spec, mode, ops, rows)
+    offs, o = {}, 0
+    for name in matrix_names(spec) + bias_names(spec):
+        offs[name] = o
+        o += p.weights[name].numel()
+    nw = p.w.numel()
+    out = torch.zeros(o, device=ops.device)
+
+    def put(name, v):
+        out[offs[name]:offs[name] + v.numel()] = v.reshape(-1)
+
+    for a, g, name in dw_products(spec, mode):
+        put(name, views[a].float().t() @ views[g].float())
+    from_g, heads = dw_biases(spec, mode)
+    for g, name in from_g:
+        put(name, views[g].float().sum(0))
+    tiles = tile_b[:-(-rows // TILE_ROWS)]
+    for name in heads:
+        b0 = offs[name] - nw
+        put(name, tiles[:, b0:b0 + p.weights[name].numel()].sum(0))
+    return out
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
@@ -501,21 +623,53 @@ def _check_cotangents(spec, mode, n, hd, dev, g_sigma, g_rgb, g_feat,
         check(g_trans, "g_trans", (n, 5), hd, dev)
 
 
-def _dw_buffers(lib, p: PackedField, n: int, dev):
-    """(slices, nw, nb, zeroed f32 partials (slices, nw + nb), activation
-    scratch) for a backward with dW: one block per SM (a block of the
-    backward takes most of an SM's shared memory), at most one per
-    tile."""
+def dw_plan(lib, p: PackedField, mode: int, n: int, sms: int) -> tuple:
+    """(chunk, slices) of a backward with dW over n rows on a card of `sms`
+    SMs: chunks of equal whole tiles whose operands and bias sums take at
+    most DW_SCRATCH_BYTES, and row slices enough for DW_BLOCKS_PER_SM
+    blocks of the dW kernel an SM (at most one a tile). Fixed by the
+    shapes, so two calls sum in the same order."""
     spec = p.spec
-    n_tiles = -(-n // TILE_ROWS)
-    slices = min(n_tiles,
-                 torch.cuda.get_device_properties(dev).multi_processor_count)
-    nw, nb = p.w.numel(), p.b.numel()
-    part = torch.zeros((slices, nw + nb), dtype=torch.float32, device=dev)
-    acts = torch.empty(slices * lib.nefes_field_dw_scratch(spec.depth,
-                                                           spec.width),
-                       dtype=spec.torch_dtype, device=dev)
-    return slices, nw, nb, part, acts
+    nb = p.b.numel()
+    elem = torch.empty((), dtype=spec.torch_dtype).element_size()
+    tile_bytes = (lib.nefes_field_dw_row_elems(mode, *dims(spec)) * elem
+                  * TILE_ROWS + nb * 4)
+    most = max(1, DW_SCRATCH_BYTES // tile_bytes)
+    tiles = max(1, -(-n // TILE_ROWS))
+    per = -(-tiles // -(-tiles // most))
+    jobs = lib.nefes_field_dw_jobs(mode, *dims(spec))
+    return per * TILE_ROWS, max(1, min(per, -(-DW_BLOCKS_PER_SM * sms
+                                             // jobs)))
+
+
+def bwd_dw(lib, bwd, dw, p: PackedField, mode: int, n: int, chunk: int,
+           slices: int, dev) -> torch.Tensor:
+    """The backward with dW over n rows in chunks of `chunk` rows (a
+    multiple of TILE_ROWS): bwd(row0, rows, ops, tile_b) launches the
+    backward over one chunk, which writes its dW operands to ops and its
+    tiles' head bias sums to tile_b; dw(ops, tile_b, rows, part) adds the
+    chunk's gradients into part. Returns part, (slices, nw + nb) f32."""
+    spec = p.spec
+    nb = p.b.numel()
+    ops = torch.empty(chunk * lib.nefes_field_dw_row_elems(mode, *dims(spec)),
+                      dtype=spec.torch_dtype, device=dev)
+    tile_b = torch.zeros((chunk // TILE_ROWS, nb), device=dev)
+    part = torch.zeros((slices, p.w.numel() + nb), device=dev)
+    for row0 in range(0, n, chunk):
+        rows = min(chunk, n - row0)
+        bwd(row0, rows, ops, tile_b)
+        dw(ops, tile_b, rows, part)
+    return part
+
+
+def dw_launch(lib, p: PackedField, mode: int, ops, tile_b, rows: int,
+              part, stream) -> int:
+    """Launch the dW kernel of `lib` on one chunk (no checks, no count);
+    its error code."""
+    return lib.nefes_field_dw(_DTYPE_CODE[p.spec.torch_dtype], mode, rows,
+                              part.shape[0], *dims(p.spec), ops.data_ptr(),
+                              tile_b.data_ptr(), p.w.numel(), p.b.numel(),
+                              part.data_ptr(), stream)
 
 
 def _dw_reduce(lib, part: torch.Tensor) -> torch.Tensor:
@@ -571,27 +725,38 @@ def _launch_fwd(wrapper, p, mode, x, dirs, hd, raw):
 
 def _launch_bwd(wrapper, fn, p, mode, x, dirs, g, dx_w, ddirs_w, dx_dtype,
                 need_dw):
-    """Allocate, launch K2/K6 (and the dW reduction), count."""
+    """Allocate, launch K2/K6 (with need_dw once a chunk, each followed by
+    the dW kernel, then the reduction), count."""
     spec, dev, n = p.spec, x.device, x.shape[0]
     lib = build.library("fused_field")
     dx = torch.empty((n, dx_w), dtype=dx_dtype, device=dev)
     ddirs = (torch.empty((n, ddirs_w), dtype=dx_dtype, device=dev)
              if mode != SIGMA else None)
-    slices = nw = nb = 0
-    part = acts = None
-    if need_dw:
-        slices, nw, nb, part, acts = _dw_buffers(lib, p, n, dev)
-    err = fn(_DTYPE_CODE[spec.torch_dtype], mode, n, x.data_ptr(), _ptr(dirs),
-             p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(), *dims(spec),
-             *[_ptr(v) for v in g], dx.data_ptr(), _ptr(ddirs), slices, nw,
-             nb, _ptr(part), _ptr(acts), _stream())
-    wrapper.launches += 1
-    if mode == TRANSIENT:
-        wrapper.transient_launches += 1
-    if need_dw:
-        wrapper.dw_launches += 1
-    raise_on(err, wrapper.__name__)
-    return dx, ddirs, (_dw_reduce(lib, part) if need_dw else None)
+
+    def bwd(row0, rows, ops, tile_b):
+        err = fn(_DTYPE_CODE[spec.torch_dtype], mode, n, x.data_ptr(),
+                 _ptr(dirs), p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(),
+                 *dims(spec), *[_ptr(v) for v in g], dx.data_ptr(),
+                 _ptr(ddirs), row0, rows, p.b.numel(), _ptr(ops),
+                 _ptr(tile_b), _stream())
+        wrapper.launches += 1
+        if mode == TRANSIENT:
+            wrapper.transient_launches += 1
+        if ops is not None:
+            wrapper.dw_launches += 1
+        raise_on(err, wrapper.__name__)
+
+    if not need_dw:
+        bwd(0, n, None, None)
+        return dx, ddirs, None
+    chunk, slices = dw_plan(
+        lib, p, mode, n,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = bwd_dw(lib, bwd,
+                  lambda ops, tile_b, rows, part: field_dw(p, mode, ops,
+                                                           tile_b, rows, part),
+                  p, mode, n, chunk, slices, dev)
+    return dx, ddirs, _dw_reduce(lib, part)
 
 
 def _kernel_device(x: torch.Tensor) -> bool:
@@ -684,11 +849,42 @@ def field_bwd(p: PackedField, mode: int, pts, dirs, g_sigma, g_rgb, g_feat,
                        dirs, g, 3, 3, f32, need_dw)
 
 
+def field_dw(p: PackedField, mode: int, ops: torch.Tensor,
+             tile_b: torch.Tensor, rows: int,
+             part: torch.Tensor) -> torch.Tensor:
+    """The dW kernel of K2/K6 with need_dw on one chunk of `rows` rows: ops
+    the chunk's operands (dw_operands' layout, pack dtype), tile_b its
+    tiles' f32 head bias sums (tiles, nb); adds the chunk's weight gradients
+    into part (slices, nw + nb) f32, each row slice's into its row, and
+    returns part. The kernel on a CUDA tensor; on a CPU tensor the plain
+    version, added into part[0]."""
+    mode = _check_mode(p, mode)
+    if not _kernel_device(ops):
+        part[0] += field_dw_plain(p, mode, ops, tile_b, rows)
+        return part
+    spec, dev = p.spec, ops.device
+    lib = build.library("fused_field")
+    need = rows * lib.nefes_field_dw_row_elems(mode, *dims(spec))
+    check(ops, "ops", (ops.numel(),), spec.torch_dtype, dev)
+    check(tile_b, "tile_b", tile_b.shape, torch.float32, dev)
+    check(part, "part", part.shape, torch.float32, dev)
+    nb = p.b.numel()
+    if (ops.numel() < need or tile_b.dim() != 2 or tile_b.shape[1] != nb
+            or tile_b.shape[0] < -(-rows // TILE_ROWS) or part.dim() != 2
+            or part.shape[1] != p.w.numel() + nb):
+        raise ValueError(f"field_dw: the buffers do not fit {rows} rows")
+    err = dw_launch(lib, p, mode, ops, tile_b, rows, part, _stream())
+    field_dw.launches += 1
+    raise_on(err, "field_dw")
+    return part
+
+
 for _k in (field_fwd_pre, field_bwd_pre, field_fwd, field_bwd):
     _k.launches = 0
     _k.transient_launches = 0
 for _k in (field_bwd_pre, field_bwd):
     _k.dw_launches = 0
+field_dw.launches = 0
 
 
 class _Field(torch.autograd.Function):

@@ -20,8 +20,10 @@ their plain versions are held to the JAX package in test_torch_raw.py).
    tower, with its shared memory a block), and for K5-K8 the
    in-kernel embedding and its chain rule (sinf/cosf of the C library
    against torch's), the transient heads, and the weight gradients of
-   K2/K6 (the persistent grid's partial slices and their reduction, with
-   several slices and one), checked without a card. The render kernels at
+   K2/K6 (the backward over chunks of rows, the dW kernel on each chunk's
+   row slices, one and several, and their reduction; the dW kernel alone
+   against field_dw_plain; two calls bit for bit; the chunk plan at the
+   training shapes), checked without a card. The render kernels at
    the full-width tower and up to 1,024 samples a ray (the backward's
    per-sample state past a block's 232,448 bytes of shared memory, in its
    global scratch), and the build of another tree's sources
@@ -291,27 +293,29 @@ def _inputs(gen, spec, N, raw):
 _KIND = {False: "pre", True: "raw"}
 
 
-def _host_bwd(lib, raw, p, mode, x, dirs, g, d, slices=0):
-    """Call the host-built K2/K6; with slices > 0 with dW, returning the
-    reduced f32 weight gradients."""
+def _host_bwd(lib, raw, p, mode, x, dirs, g, d, chunk=0, slices=0):
+    """Call the host-built K2/K6; with chunk > 0 with dW, over chunks of
+    `chunk` rows, each followed by the host-built dW kernel on `slices`
+    row slices, returning the reduced f32 weight gradients."""
     spec, cd = p.spec, p.spec.torch_dtype
     bwd = getattr(lib, f"nefes_field_bwd_{_KIND[raw]}")
-    nw, nb = p.w.numel(), p.b.numel()
-    part = acts = None
-    if slices:
-        part = torch.zeros((slices, nw + nb))
-        acts = torch.empty(slices * lib.nefes_field_dw_scratch(spec.depth,
-                                                               spec.width),
-                           dtype=cd)
-    err = bwd(kf._DTYPE_CODE[cd], mode, x.shape[0], x.data_ptr(),
-              dirs.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(),
-              p.b.data_ptr(), *kf.dims(spec), *[v.data_ptr() for v in g],
-              *[v.data_ptr() for v in d], slices, nw, nb,
-              None if part is None else part.data_ptr(),
-              None if acts is None else acts.data_ptr(), None)
-    assert err == 0
-    if not slices:
+    N, nw, nb = x.shape[0], p.w.numel(), p.b.numel()
+
+    def launch(row0, rows, ops, tile_b):
+        assert bwd(kf._DTYPE_CODE[cd], mode, N, x.data_ptr(),
+                   dirs.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(),
+                   p.b.data_ptr(), *kf.dims(spec), *[v.data_ptr() for v in g],
+                   *[v.data_ptr() for v in d], row0, rows, nb, kf._ptr(ops),
+                   kf._ptr(tile_b), None) == 0
+
+    if not chunk:
+        launch(0, N, None, None)
         return None
+
+    def dw(ops, tile_b, rows, part):
+        assert kf.dw_launch(lib, p, mode, ops, tile_b, rows, part, None) == 0
+
+    part = kf.bwd_dw(lib, launch, dw, p, mode, N, chunk, slices, "cpu")
     out = torch.empty(nw + nb)
     assert lib.nefes_field_dw_reduce(slices, nw + nb, part.data_ptr(),
                                      out.data_ptr(), None) == 0
@@ -381,17 +385,25 @@ def test_field_source_matches_plain(N, raw, host_build):
                 _scaled_close(o, w, tol)
 
 
-# slices: the persistent grid of the backward with dW; 3 slices over 2
-# tiles leaves a block with none, 2 over 3 a block with two
-@pytest.mark.parametrize("N,raw,slices", [
-    pytest.param(100, False, 1, id="float32-one-slice"),
-    pytest.param(128, False, 3, id="float32-idle-slice"),
-    pytest.param(150, True, 2, id="raw-float32-two-tiles-a-slice"),
-    pytest.param(128, True, 2, id="raw-float32-whole-tiles")])
-def test_field_source_dw_matches_plain(N, raw, slices, host_build):
+# chunk: the rows of one launch of the backward with dW (a multiple of the
+# 64-row tile), slices: the dW kernel's row slices of a chunk (whole
+# tiles each). One chunk on one slice with a ragged tile; 3 slices over 2
+# tiles (an idle slice); two tiles a slice, the last one ragged; whole
+# tiles on 2 slices; 300 rows in chunks of 128 (the last of 44 rows, mid
+# tile) on 2 slices, and in chunks of 192 on 3 slices (the last chunk of
+# 108 rows leaves a slice idle)
+@pytest.mark.parametrize("N,raw,chunk,slices", [
+    pytest.param(100, False, 128, 1, id="float32-one-slice"),
+    pytest.param(128, False, 128, 3, id="float32-idle-slice"),
+    pytest.param(150, True, 192, 2, id="raw-float32-two-tiles-a-slice"),
+    pytest.param(128, True, 128, 2, id="raw-float32-whole-tiles"),
+    pytest.param(300, False, 128, 2, id="float32-chunks"),
+    pytest.param(300, True, 192, 3, id="raw-float32-chunks")])
+def test_field_source_dw_matches_plain(N, raw, chunk, slices, host_build):
     """K2/K6 with need_dw, in each mode: the input cotangents and every
-    packed weight's f32 gradient (partial slices, then their sum) against
-    the plain versions."""
+    packed weight's f32 gradient (the backward over chunks, the dW kernel
+    on each chunk's row slices, then their sum) against the plain
+    versions."""
     spec, p, gen = _emulated_case()
     lib = build.library("fused_field", emulate=True, build_dir=host_build)
     plain_bwd = kf.field_bwd_plain if raw else kf.field_bwd_pre_plain
@@ -402,7 +414,7 @@ def test_field_source_dw_matches_plain(N, raw, slices, host_build):
         g = _cotangents(gen, N, F, hd)
         d = [torch.empty((N, dx_w), dtype=hd),
              torch.empty((N, dd_w), dtype=hd)]
-        dw = _host_bwd(lib, raw, p, mode, x, dirs, g, d, slices)
+        dw = _host_bwd(lib, raw, p, mode, x, dirs, g, d, chunk, slices)
         want = plain_bwd(p, mode, x, dirs, *g, need_dw=True)
         for o, w in zip(d, want[:2]):
             if w is not None:
@@ -410,6 +422,91 @@ def test_field_source_dw_matches_plain(N, raw, slices, host_build):
         assert dw.shape == want[2].shape == (nw + p.b.numel(),)
         _scaled_close(dw[:nw], want[2][:nw], tol, f"dW mode {mode}")
         _scaled_close(dw[nw:], want[2][nw:], tol, f"db mode {mode}")
+
+
+def test_field_source_dw_deterministic(host_build):
+    """Two calls of K2 with need_dw on the same inputs give the same bits:
+    the weight gradients (summed in a fixed order: tiles, row slices,
+    chunks) and the input cotangents."""
+    spec, p, gen = _emulated_case()
+    lib = build.library("fused_field", emulate=True, build_dir=host_build)
+    N = 300
+    x, dirs, hd, (dx_w, dd_w) = _inputs(gen, spec, N, False)
+    g = _cotangents(gen, N, spec.feature_dim, hd)
+    runs = []
+    for _ in range(2):
+        d = [torch.empty((N, dx_w), dtype=hd),
+             torch.empty((N, dd_w), dtype=hd)]
+        runs.append([_host_bwd(lib, False, p, kf.TRANSIENT, x, dirs, g, d,
+                               128, 3), *d])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def dw_case():
+    """A tower whose dW products take every ragged K and N of the
+    full-width field: K 27 (dir embedding), 63 (embedding), 64 (half
+    width), 128 (width); N 1 (sigma, transient sigma and beta), 3
+    (transient rgb), 11 (rgb/feature), 64 and 128."""
+    spec = kf.FieldSpec(depth=3, width=128, skips=(2,), n_freqs_xyz=10,
+                        n_freqs_dir=4, feature_dim=8, transient=True,
+                        dtype="float32")
+    tower = NeRFHNFF(typ="fine", depth=3, width=128, skips=(2,),
+                     in_channels_xyz=spec.emb_xyz,
+                     in_channels_dir=spec.emb_dir, feature_dim=8)
+    with torch.no_grad():
+        return kf.pack_params(tower, spec)
+
+
+# rows: 150, two whole tiles and a ragged one; slices: one, and 2 over
+# the three tiles (two and one)
+@pytest.mark.parametrize("slices", [1, 2])
+@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL, kf.TRANSIENT],
+                         ids=["sigma", "full", "transient"])
+def test_field_dw_source_matches_plain(mode, slices, dw_case, host_build):
+    """The dW kernel alone (host build, f32) on random operand buffers and
+    per-tile bias sums against field_dw_plain, to the scaled 1e-5; the
+    products' K and N cover 1, 3, 27, 63, 64 and 128, and the kernel adds
+    into what part already holds."""
+    p = dw_case
+    lib = build.library("fused_field", emulate=True, build_dir=host_build)
+    rows, nw, nb = 150, p.w.numel(), p.b.numel()
+    gen = torch.Generator().manual_seed(mode * 2 + slices)
+    elems = lib.nefes_field_dw_row_elems(mode, *kf.dims(p.spec))
+    assert elems == sum(-(-c // 8) * 8 for c in kf._slot_cols(p.spec, mode))
+    ops = torch.randn(3 * kf.TILE_ROWS * elems, generator=gen)   # 3 tiles
+    tile_b = torch.randn((3, nb), generator=gen)
+    part = torch.randn((slices, nw + nb), generator=gen)
+    before = part.sum(0)
+    assert kf.dw_launch(lib, p, mode, ops, tile_b, rows, part, None) == 0
+    want = kf.field_dw_plain(p, mode, ops, tile_b, rows)
+    used = {n for _, _, n in kf.dw_products(p.spec, mode)}
+    assert {n for n in kf.matrix_names(p.spec) if n in used} == used
+    _scaled_close(part.sum(0) - before, want, 1e-5, f"mode {mode}")
+    # the CPU wrapper runs the plain version into part[0]
+    got = kf.field_dw(p, mode, ops, tile_b, rows,
+                      torch.zeros((slices, nw + nb)))
+    assert torch.equal(got[0], want) and not got[1:].any()
+
+
+def test_dw_plan_at_training_shape(full_width, host_build):
+    """The chunks and row slices of the training step's backward with dW
+    at the full-width ModelConfig() in bf16 on an H100's 132 SMs, as
+    PERF.md states them (chunks, rows a chunk, bytes of operands a row,
+    row slices): the fine pass's 786,432 rows in transient mode, the
+    coarse pass's 393,216 in full mode, within DW_SCRATCH_BYTES."""
+    lib = build.library("fused_field", emulate=True, build_dir=host_build)
+    for p, mode, n, want in ((full_width[1], kf.TRANSIENT, 786432, DW_FINE),
+                             (full_width[0], kf.FULL, 393216, DW_COARSE)):
+        p = kf.PackedField(spec=replace(p.spec, dtype="bfloat16"),
+                           weights=p.weights, w=p.w, wt=p.wt, b=p.b)
+        chunk, slices = kf.dw_plan(lib, p, mode, n, 132)
+        row = lib.nefes_field_dw_row_elems(mode, *kf.dims(p.spec)) * 2
+        assert chunk % kf.TILE_ROWS == 0
+        assert (chunk * row + chunk // kf.TILE_ROWS * p.b.numel() * 4
+                <= kf.DW_SCRATCH_BYTES)
+        assert (-(-n // chunk), chunk, row, slices) == want
 
 
 def _field_fwd_case(lib, raw, p, mode, N, blocks, gen):
@@ -522,6 +619,11 @@ K4_SMEM_BYTES = 208032
 BLOCK_SMEM_MAX = 232448
 # the shared memory of one K1/K5 block in sigma mode at D8/W128, bf16
 K1_SMEM_BYTES = 158208
+# the backward with dW at the training shapes (D8/W128/F128, bf16, 132
+# SMs): chunks, rows a chunk, operand bytes a row, row slices; the fine
+# pass (transient mode) and the coarse pass (full mode)
+DW_FINE = (5, 157312, 6160, 7)
+DW_COARSE = (2, 196608, 5344, 9)
 
 
 def test_render_bwd_smem_fits_one_block(host_build):
