@@ -11,7 +11,8 @@ Phases:
          kernel's ptxas registers and stack frame; the render kernels'
          shared memory a block, blocks per SM and the backward's global
          scratch a ray; K1/K5's shared memory a block and blocks per SM in
-         sigma and full mode
+         sigma and full mode (coarse tower) and transient mode (fine
+         tower)
   check  K1-K8 against their plain PyTorch versions on the card, at the
          shapes of the refinement's main path, in bf16 and f32 (K1/K5 in
          sigma mode, without dirs, and in full mode, also at a sample
@@ -19,7 +20,10 @@ Phases:
          also at 64 rays of a depth-4, 16-feature field, and at full width
          at 256, 384 and 1024 samples a ray); and the
          training variants at the training shapes: K1/K5 in transient
-         mode, K2/K6 with weight gradients in sigma, full and transient
+         mode (also at the fine pass's samples less RAGGED; every head,
+         the five transient ones each; two calls and the persistent grid
+         against one block per block tile bit for bit the same), K2/K6
+         with weight gradients in sigma, full and transient
          mode (every dW and bias gradient checked), two calls of each
          bit for bit the same, and the dW kernel (field_dw) alone on the
          operands of the first chunk of the fine and the coarse training
@@ -52,10 +56,12 @@ Phases:
   time   each kernel's time (CUDA events, median) beside its bound, its
          plain version's time and a bf16 torch.matmul chain over the same
          tower as a yardstick; the training variants at the fine training
-         shape, and the coarse pass's training launches. K1 and K5 in
-         turns with themselves on one block per block tile instead of the
-         persistent grid; with --parent DIR (an earlier tree, unpacked with
-         git archive into a git-ignored directory) also DIR's, and the
+         shape, and the coarse pass's training launches. K1 and K5, in
+         sigma mode (main path) and transient mode (training's fine
+         pass), in turns with themselves on one block per block tile
+         instead of the persistent grid; with --parent DIR (an earlier
+         tree, unpacked with git archive into a git-ignored directory)
+         also DIR's, and the
          render kernels K3, K4, K7 and K8 and the training backwards K2
          +dW and K6 +dW (fine pass, transient mode) of DIR and of this
          tree in turns on the same inputs, each of DIR's checked against
@@ -136,7 +142,9 @@ PROBE_BAND, PROBE_RGB_TOL = 4.0, 3e-3
 # beside the new ones.
 EARLIER_MS = {"K1 field_fwd_pre": 3.589, "K5 field_fwd": 3.739,
               "K3 render_fwd_pre": 16.172, "K4 render_bwd_pre": 42.796,
-              "K7 render_fwd": 14.576, "K8 render_bwd": 43.761}
+              "K7 render_fwd": 14.576, "K8 render_bwd": 43.761,
+              "K1 field_fwd_pre transient": 20.005,
+              "K5 field_fwd transient": 20.756}
 # The check phase's render kernels at full width: samples a ray (the
 # backward's per-sample state past a block's shared memory from 205 in
 # f32 and 270 in bf16) and rays
@@ -146,6 +154,8 @@ WIDE_S, WIDE_R = (256, 384, 1024), 64
 RAGGED = 37
 # the libraries of an earlier tree (--parent) that the time phase times
 PARENT_LIBS = ("fused_render", "fused_field")
+# the field kernels' modes by number (csrc/tower.cuh Mode)
+MODES = ("sigma", "full", "transient")
 # kernel -> (the TPU kernel it replaces, its CUDA source)
 _FF, _FR, _MC = ("nefes_tpu_torch/csrc/fused_field.cu",
                  "nefes_tpu_torch/csrc/fused_render.cu",
@@ -273,16 +283,19 @@ def main() -> int:
                         f"{lib.nefes_render_smem_bytes(code, bwd, S, *dims)}"
                         f" B of shared memory a block, blocks per SM "
                         f"{blocks[0]} / {blocks[1]} (pre / raw){scratch}")
-        # the field forward K1/K5 on the coarse tower, by mode
+        # the field forward K1/K5 by mode: sigma and full mode on the
+        # coarse tower, transient mode on the fine one
         flib = build.library("fused_field")
-        cdims = kf.dims(kf.FieldSpec.from_model(ModelConfig(), "coarse"))
         for dt, code in (("bf16", 1), ("f32", 0)):
-            for mode in (kf.SIGMA, kf.FULL):
+            for mode in (kf.SIGMA, kf.FULL, kf.TRANSIENT):
+                fdims = kf.dims(kf.FieldSpec.from_model(
+                    ModelConfig(), "fine" if mode == kf.TRANSIENT
+                    else "coarse"))
                 blocks = [flib.nefes_field_blocks_per_sm(code, mode, raw,
-                                                         *cdims)
+                                                         *fdims)
                           for raw in (0, 1)]
-                log(f"K1/K5 field_fwd {('sigma', 'full')[mode]} {dt}: "
-                    f"{flib.nefes_field_smem_bytes(code, mode, *cdims)} B "
+                log(f"K1/K5 field_fwd {MODES[mode]} {dt}: "
+                    f"{flib.nefes_field_smem_bytes(code, mode, *fdims)} B "
                     f"of shared memory a block, blocks per SM {blocks[0]} "
                     f"/ {blocks[1]} (pre / raw)")
 
@@ -473,7 +486,9 @@ def main() -> int:
         g_c_raw, g_f_raw = cots(n_c, torch.float32), cots(n_f, torch.float32)
         tr.update(g_f_pre=g_f_pre, g_f_raw=g_f_raw)
         S, Fm, T = kf.SIGMA, kf.FULL, kf.TRANSIENT
-        fwd_names = ["sigma", "rgb", "feat", "transient"]
+        # the forward's heads, the transient ones each on its own
+        fwd_names = ["sigma", "rgb", "feat", "transient_sigma",
+                     "transient_rgb", "transient_beta"]
         bwd_names = ["d_x", "d_dirs", "dW", "db"]
 
         def with_dw(p, out):
@@ -483,14 +498,22 @@ def main() -> int:
             nw = p.w.numel()
             return d_x, d_dirs, dw[:nw], dw[nw:]
 
-        cases = [
-            ("K1 field_fwd_pre transient", "transient", kf.field_fwd_pre,
-             kf.field_fwd_pre_plain, fwd_names,
-             lambda f: f(pf, T, tr["emb"], tr["embd"])),
-            ("K5 field_fwd transient", "transient", kf.field_fwd,
-             kf.field_fwd_plain, fwd_names,
-             lambda f: f(pf, T, tr["pts"], tr["dirs"])),
-        ]
+        def split(out):
+            s_, r_, f_, t_ = out
+            return s_, r_, f_, t_[:, 0], t_[:, 1:4], t_[:, 4]
+
+        rt = n_f - RAGGED   # not a multiple of the 128-sample block tile
+        cases = []
+        for name, kern, plain, xs in (
+                ("K1 field_fwd_pre transient", kf.field_fwd_pre,
+                 kf.field_fwd_pre_plain, (tr["emb"], tr["embd"])),
+                ("K5 field_fwd transient", kf.field_fwd, kf.field_fwd_plain,
+                 (tr["pts"], tr["dirs"]))):
+            for mode, n in (("transient", n_f), (f"transient N={rt}", rt)):
+                cases.append((
+                    name, mode, kern, plain, fwd_names,
+                    lambda f, x=xs[0][:n], d=xs[1][:n]: split(f(pf, T, x,
+                                                                d))))
         for name, kern, plain, xs, gs in (
                 ("K2 field_bwd_pre +dW", kf.field_bwd_pre,
                  kf.field_bwd_pre_plain, ("emb_c", "embd_c", "emb", "embd"),
@@ -513,6 +536,27 @@ def main() -> int:
                 want = case(plain)
                 compare(name, mode, dt, got, want, names)
                 del got, want
+            # the forward: two calls, and the persistent grid against one
+            # block per block tile, give the same bits
+            this = build.library("fused_field")
+            for name, kern, x, d in (
+                    ("K1 field_fwd_pre transient", kf.field_fwd_pre,
+                     tr["emb"], tr["embd"]),
+                    ("K5 field_fwd transient", kf.field_fwd, tr["pts"],
+                     tr["dirs"])):
+                a, b = kern(pf, T, x, d), kern(pf, T, x, d)
+                if not all(torch.equal(u, v) for u, v in zip(a, b)):
+                    raise AssertionError(f"{name} {dt}: two calls differ")
+                tile = field_call(this, name, tr, dev, 0)
+                if not all(torch.equal(u, v) for u, v in zip(a, tile)):
+                    raise AssertionError(f"{name} {dt}: one block per block "
+                                         f"tile differs from the grid")
+                grid = kf.fwd_blocks(this, pf, T, kern is kf.field_fwd, n_f,
+                                     dev)
+                log(f"{name} {dt}: two calls, and the grid of {grid} blocks "
+                    f"against one block per block tile, bit for bit the "
+                    f"same")
+                del a, b, tile
             # two calls give the same bits (fixed summation orders)
             for name, kern, x, d, g in (
                     ("K2 field_bwd_pre +dW", kf.field_bwd_pre, tr["emb"],
@@ -1157,14 +1201,15 @@ def main() -> int:
     def time_turns(rows):
         """Kernels in turns on the time phase's inputs, each variant
         called the same way (field_call, render_call), so the host's share
-        is the same: K1 and K5 (sigma mode) on their persistent grid and on
-        one block per block tile (whose outputs must be equal); with
-        --parent also the parent tree's K1 and K5 and, of both trees, K3,
-        K4, K7 and K8 and K2 +dW and K6 +dW (the fine training pass), each
-        of the parent's checked against its plain version first (relative
-        L2). 5 rounds of the variants in order and then in reverse (this,
-        tile, tile, this or parent, this, this, parent, ...), the median
-        of each one's 10 times."""
+        is the same: K1 and K5, in sigma mode (the main path's coarse
+        pass) and in transient mode (training's fine pass), on their
+        persistent grid and on one block per block tile (whose outputs
+        must be equal); with --parent also the parent tree's K1 and K5
+        and, of both trees, K3, K4, K7 and K8 and K2 +dW and K6 +dW (the
+        fine training pass), each of the parent's checked against its
+        plain version first (relative L2). 5 rounds of the variants in
+        order and then in reverse (this, tile, tile, this or parent, this,
+        this, parent, ...), the median of each one's 10 times."""
         names = list(_FIELD_ENTRY)
         if parent:
             names += list(_RENDER_ENTRY) + list(_TRAIN_ENTRY)
@@ -1174,8 +1219,8 @@ def main() -> int:
                          else ("fused_field", train_call)
                          if name in _TRAIN_ENTRY
                          else ("fused_render", render_call))
-            ins = state["train_inputs" if name in _TRAIN_ENTRY
-                        else "inputs"]["bfloat16"]
+            train = name in _TRAIN_ENTRY or name.endswith("transient")
+            ins = state["train_inputs" if train else "inputs"]["bfloat16"]
             this = build.library(src)
             fns = {}
             if parent:
@@ -1195,7 +1240,8 @@ def main() -> int:
             fns["this"] = lambda: call(this, name, ins, dev)
             if field:
                 fns["tile"] = lambda: field_call(this, name, ins, dev, 0)
-                if not torch.equal(fns["tile"]()[0], fns["this"]()[0]):
+                if not all(torch.equal(a, b) for a, b in
+                           zip(fns["tile"](), fns["this"]())):
                     raise AssertionError(f"{name}: one block per block "
                                          f"tile differs from the grid")
             keys = list(fns)
@@ -1426,10 +1472,12 @@ def kernel_label(line: str) -> str:
     name = line.split("'")[1] if "'" in line else line.strip()
     dt = "bf16" if "nv_bfloat16" in name else "f32"
     if "field_warp_kernel" in name:
-        flags = re.findall(r"Lb([01])", name)   # RAW, then HEADS
+        flags = re.findall(r"Lb([01])", name)   # RAW (an earlier tree: HEADS)
+        mode = re.findall(r"Li([0-2])E", name)  # MODE
+        mode = (MODES[int(mode[0])] if mode else
+                "full" if flags[1:2] == ["1"] else "sigma")
         return (f"field_warp_kernel<{dt},"
-                f"{'raw' if flags[:1] == ['1'] else 'pre'},"
-                f"{'full' if flags[1:2] == ['1'] else 'sigma'}>")
+                f"{'raw' if flags[:1] == ['1'] else 'pre'},{mode}>")
     for kern in ("render_bwd_kernel", "render_fwd_kernel"):
         if kern in name:
             flags = re.findall(r"Lb([01])", name)   # RAW, then GLOBAL
@@ -1530,39 +1578,49 @@ def train_call(lib, name, tr, dev):
     return dx, dd, kf._dw_reduce(lib, part)
 
 
-# each field forward's entry point on the main path: (name, raw)
-_FIELD_ENTRY = {"K1 field_fwd_pre": ("nefes_field_fwd_pre", False),
-                "K5 field_fwd": ("nefes_field_fwd_raw", True)}
+# each field forward that the time phase runs in turns: (entry point,
+# raw, mode); sigma mode as the main path's coarse pass runs it, transient
+# mode as training's fine pass does
+_FIELD_ENTRY = {"K1 field_fwd_pre": ("nefes_field_fwd_pre", False, 0),
+                "K5 field_fwd": ("nefes_field_fwd_raw", True, 0),
+                "K1 field_fwd_pre transient": ("nefes_field_fwd_pre", False,
+                                               2),
+                "K5 field_fwd transient": ("nefes_field_fwd_raw", True, 2)}
 
 
 def field_call(lib, name, ins, dev, blocks=None):
-    """One launch of K1 or K5 in sigma mode, as the main path's coarse
-    pass makes it, from the fused_field library `lib` (this tree's, or an
-    earlier one's, whose forward takes no wt and no blocks) on the main
-    path's bf16 inputs `ins`, with none of the wrapper's checks or launch
-    counts; blocks: this tree's grid (None: the wrapper's persistent
-    grid, 0: one block per block tile). Returns [sigma]."""
+    """One launch of K1 or K5 from the fused_field library `lib` (this
+    tree's, or an earlier one's, whose forward takes no wt and no blocks)
+    with none of the wrapper's checks or launch counts: in sigma mode on
+    the main path's coarse pass (`ins` its inputs), in transient mode on
+    training's fine pass (`ins` the training inputs). blocks: this tree's
+    grid (None: the wrapper's persistent grid, 0: one block per block
+    tile). Returns the mode's heads, [sigma] or [sigma, rgb, feat,
+    transient]."""
     from nefes_tpu_torch.kernels import fused_field as kf
-    fn, raw = _FIELD_ENTRY[name]
-    pc = ins["packed"][0]
-    sp = pc.spec
-    x = ins["pts_c"] if raw else ins["emb_c"]
+    fn, raw, mode = _FIELD_ENTRY[name]
+    p = ins["packed"][int(mode == kf.TRANSIENT)]
+    sp = p.spec
+    if mode == kf.SIGMA:
+        x, xd = ins["pts_c"] if raw else ins["emb_c"], None
+    else:
+        x, xd = (ins["pts"], ins["dirs"]) if raw else (ins["emb"],
+                                                       ins["embd"])
     n = x.shape[0]
-    sigma = torch.empty(n, dtype=torch.float32 if raw else sp.torch_dtype,
-                        device=dev)
+    outs = kf._fwd_outputs(sp, mode, n, torch.float32 if raw
+                           else sp.torch_dtype, dev)
     if hasattr(lib, "nefes_field_smem_bytes"):
         if blocks is None:
-            blocks = kf.fwd_blocks(lib, pc, kf.SIGMA, raw, n, dev)
-        weights, tail = (pc.w, pc.wt, pc.b), (blocks,)
+            blocks = kf.fwd_blocks(lib, p, mode, raw, n, dev)
+        weights, tail = (p.w, p.wt, p.b), (blocks,)
     else:
-        weights, tail = (pc.w, pc.b), ()
-    err = getattr(lib, fn)(kf._DTYPE_CODE[sp.torch_dtype], kf.SIGMA, n,
-                           x.data_ptr(), None,
+        weights, tail = (p.w, p.b), ()
+    err = getattr(lib, fn)(kf._DTYPE_CODE[sp.torch_dtype], mode, n,
+                           x.data_ptr(), kf._ptr(xd),
                            *[t.data_ptr() for t in weights], *kf.dims(sp),
-                           sigma.data_ptr(), None, None, None, *tail,
-                           kf._stream())
+                           *[kf._ptr(o) for o in outs], *tail, kf._stream())
     kf.raise_on(err, fn)
-    return [sigma]
+    return [o for o in outs if o is not None]
 
 
 def replace_cfg(cfg, **kw):

@@ -27,22 +27,26 @@
 // bytes are at most ~0.7 KB a sample, plus, with dW, the operands written
 // (about 6 KB a sample in bf16, transient mode at D8/W128/F128).
 //
-// K1/K5 in sigma and full mode (field_warp_kernel) run render_bwd.cuh's
-// warp path, the render kernels' tower: a persistent grid of `blocks`
-// blocks (one an SM: the block's shared memory holds two weight stages
-// and eight warp tiles), each walking block tiles blockIdx.x, blockIdx.x
-// + gridDim.x, ... of BT = 128 samples; warp w owns the tile's rows [16 w,
-// 16 w + 16) through every layer (warp_forward, cut after the sigma head
-// in sigma mode, where dirs is not read), in bf16 rows that ldmatrix
-// feeds to mma.sync, the weights staged matrix by matrix by cp.async in
-// the sequence of the mode (SEQ_SIGMA: the hidden layers; SEQ_HEADS: those,
-// final, the dir layer and the rgb/feature head, read from wt as (N, K)),
-// the next tile's first matrix copied during this tile's last product.
-// f32 runs the same kernel on the CUDA cores (the host build checks it).
-// Transient mode, and the forward that K2/K6 recompute, stay on tower.cuh's
-// first design: TR = 64 samples a block, f32 activation tiles, weights
-// through L1 (the design notes are in tower.cuh); the backward has one
-// block per tile, with or without dW.
+// K1/K5 in every mode (field_warp_kernel) run render_bwd.cuh's warp path,
+// the render kernels' tower: a persistent grid of `blocks` blocks (one an
+// SM: the block's shared memory holds two weight stages and eight warp
+// tiles), each walking block tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+// of BT = 128 samples; warp w owns the tile's rows [16 w, 16 w + 16)
+// through every layer (warp_forward, cut after the sigma head in sigma
+// mode, where dirs is not read), in bf16 rows that ldmatrix feeds to
+// mma.sync, the weights staged matrix by matrix by cp.async in the
+// sequence of the mode (SEQ_SIGMA: the hidden layers; SEQ_HEADS: those,
+// final, the dir layer and the rgb/feature head, read from wt as (N, K);
+// SEQ_TRANSIENT: those and the NeRF-W branch, t1's two, t2, t3 and the
+// five transient head columns), the next tile's first matrix copied
+// during this tile's last product. The transient branch's 64-wide layers
+// reuse the warp's two hidden-layer buffers once their contents are dead
+// (de after the rgb/feature head, final after t1), so transient mode
+// takes the shared memory of full mode. f32 runs the same kernel on the
+// CUDA cores (the host build checks it). The forward that K2/K6 recompute
+// stays on tower.cuh's first design: TR = 64 samples a block, f32
+// activation tiles, weights through L1 (the design notes are in
+// tower.cuh); the backward has one block per tile, with or without dW.
 //
 // Plain C interface, loaded with ctypes: each entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
@@ -56,12 +60,18 @@ namespace nefes {
 template <typename T, bool RAW>
 using Head = typename std::conditional<RAW, float, T>::type;
 
+// The forward sequence field_warp_kernel stages in `mode`.
+__host__ __device__ constexpr Seq seq_of(int mode) {
+  return mode == SIGMA ? SEQ_SIGMA : mode == FULL ? SEQ_HEADS : SEQ_TRANSIENT;
+}
+
 // Carve one block of field_warp_kernel in forward sequence FWD from base
 // (nullptr: size only): two weight stages of the sequence's largest
 // matrix (a 2-byte pack dtype stages its weights), eight lean warp
-// regions (the embedding rows, the dir embedding rows in full mode, two
-// hidden-layer buffers; the dir layer's output overwrites one) and the
-// tile's sigma pre-activations; returns the bytes used.
+// regions (the embedding rows, the dir embedding rows unless SEQ_SIGMA,
+// two hidden-layer buffers; the dir layer's output and the transient
+// layers overwrite them) and the tile's sigma pre-activations; returns the
+// bytes used.
 template <Seq FWD>
 __host__ __device__ inline size_t carve_field(const Dims& d, const Layout& L, int ts, char* base,
                                               RayBufs* rb) {
@@ -80,7 +90,7 @@ __host__ __device__ inline size_t carve_field(const Dims& d, const Layout& L, in
   }
   t.wbuf[0] = bytes(stage * ts);
   t.wbuf[1] = bytes(stage * ts);
-  t.wbytes = warp_layout(d, ts, true, FWD == SEQ_HEADS).total;
+  t.wbytes = warp_layout(d, ts, true, FWD != SEQ_SIGMA).total;
   t.warps = bytes(WARPS * t.wbytes);
   t.tzs = take(base, &off, BT);
   if (rb) *rb = t;
@@ -88,22 +98,27 @@ __host__ __device__ inline size_t carve_field(const Dims& d, const Layout& L, in
 }
 
 // K1 (pre-embedded x, dirs in T, heads in T) and K5 (RAW: f32 points and
-// directions, heads in f32) in sigma mode (HEADS false: sigma (N,) only;
-// dirs not read) and full mode (HEADS: also rgb (N, 3) and feat (N, F)):
-// sigma = softplus(zs), zs the sigma head's f32 sum plus its f32 bias,
-// and the rgb/feature head accumulated in f32 plus its f32 bias, written
-// in the head type (as field_fwd_kernel).
-template <typename T, bool RAW, bool HEADS>
+// directions, heads in f32) in MODE: sigma (sigma (N,) only; dirs not
+// read), full (also rgb (N, 3) and feat (N, F)) or transient (also the
+// transient heads (N, 5): [sigma, rgb x3, beta] after softplus / sigmoid x3
+// / softplus). sigma = softplus(zs), zs the sigma head's f32 sum plus its
+// f32 bias; the rgb/feature and transient heads accumulate in f32 plus
+// their f32 bias, written in the head type. The transient branch rounds
+// where tower.cuh's tower_forward does: t1 = relu(rnd(rnd(final t1_wh) +
+// rnd(embd t1_wd)) + rnd(t1_b)), t2, t3 = relu(rnd(rnd(t t_w) + rnd(t_b))).
+template <typename T, bool RAW, int MODE>
 __global__ void __launch_bounds__(NT, 1)
 field_warp_kernel(Tower<T> tw, int n, const void* __restrict__ x, const void* __restrict__ dirs,
                   Head<T, RAW>* __restrict__ sigma, Head<T, RAW>* __restrict__ rgb,
-                  Head<T, RAW>* __restrict__ feat) {
+                  Head<T, RAW>* __restrict__ feat, Head<T, RAW>* __restrict__ trans) {
   using O = Head<T, RAW>;
   extern __shared__ __align__(16) char nefes_smem[];
-  constexpr Seq FWD = HEADS ? SEQ_HEADS : SEQ_SIGMA;
+  constexpr Seq FWD = seq_of(MODE);
+  constexpr bool HEADS = MODE != SIGMA;
   RayBufs rb;
   carve_field<FWD>(tw.d, tw.L, sizeof(T), nefes_smem, &rb);
-  const int H = tw.d.width / 2, F = tw.d.F, ldh = ld_of(H);
+  const int W = tw.d.width, H = W / 2, F = tw.d.F, ldw = ld_of(W), ldh = ld_of(H);
+  const int k_rgb = fwd_count<SEQ_HEADS>(tw.d, tw.L) - 1;   // the rgb/feature head in FWD
   const int tiles = (n + BT - 1) / BT, warp = threadIdx.x >> 5;
   const int b = blockIdx.x, mine = b < tiles ? (tiles - 1 - b) / (int)gridDim.x + 1 : 0;
   Stager<T, FWD> st(tw, rb, mine, false);   // the block's tiles b, b + gridDim.x, ...
@@ -114,9 +129,9 @@ field_warp_kernel(Tower<T> tw, int n, const void* __restrict__ x, const void* __
       float* zs = rb.tzs + wp * WR;
       warp_forward<T, RAW, false, HEADS, true>(tw, rb, st, wp, s0, n, 0, x, dirs, zs);
       if constexpr (HEADS) {
+        const T* de = warp_de<T>(tw.d, rb, wp, true);
         const float* rbias = tw.b + tw.L.rgb_b;
-        warp_mm<T>(SmemA<T>{warp_de<T>(tw.d, rb, wp, true), ldh}, H,
-                   st.get(tw, fwd_mat<FWD>(tw.d, tw.L, st.n_fwd - 1)), 3 + F,
+        warp_mm<T>(SmemA<T>{de, ldh}, H, st.get(tw, fwd_mat<FWD>(tw.d, tw.L, k_rgb)), 3 + F,
                    [=](int r, int c, float acc) {
                      if (r >= vr) return;
                      const size_t row = (size_t)s0 + r;
@@ -124,6 +139,48 @@ field_warp_kernel(Tower<T> tw, int n, const void* __restrict__ x, const void* __
                      if (c < 3) rgb[row * 3 + c] = v;
                      else feat[row * F + (c - 3)] = v;
                    });
+        if constexpr (MODE == TRANSIENT) {
+          // de and final fill the warp's two hidden-layer buffers: t1
+          // over de (dead after the head), t2 over final (dead after t1),
+          // t3 over t1; every warp runs every product, so the stager's
+          // barriers line up whatever its valid rows
+          const WarpBufs<T> wb = warp_bufs<T>(tw.d, rb, wp, true);
+          T* hd = de == wb.ha ? wb.ha : wb.hb;
+          T* hf = de == wb.ha ? wb.hb : wb.ha;
+          const float* b1 = tw.b + tw.L.t1_b;
+          int k = k_rgb + 1;
+          __syncwarp();
+          warp_mm<T>(SmemA<T>{hf, ldw}, W, st.get(tw, fwd_mat<FWD>(tw.d, tw.L, k++)), H,
+                     [=](int r, int c, float acc) { hd[r * ldh + c] = from_f<T>(acc); });
+          warp_mm<T>(SmemA<T>{wb.xd, ld_of(tw.d.Ed)}, tw.d.Ed,
+                     st.get(tw, fwd_mat<FWD>(tw.d, tw.L, k++)), H, [=](int r, int c, float acc) {
+                       float z = rnd<T>(to_f<T>(hd[r * ldh + c]) + rnd<T>(acc));
+                       z = rnd<T>(z + rnd<T>(b1[c]));
+                       hd[r * ldh + c] = from_f<T>(fmaxf(z, 0.f));
+                     });
+          T* io[3] = {hd, hf, hd};   // t1 -> t2 -> t3
+#pragma unroll
+          for (int l = 0; l < 2; ++l) {
+            const T* a = io[l];
+            T* o = io[l + 1];
+            const float* bb = tw.b + (l ? tw.L.t3_b : tw.L.t2_b);
+            __syncwarp();
+            warp_mm<T>(SmemA<T>{a, ldh}, H, st.get(tw, fwd_mat<FWD>(tw.d, tw.L, k++)), H,
+                       [=](int r, int c, float acc) {
+                         const float z = rnd<T>(rnd<T>(acc) + rnd<T>(bb[c]));
+                         o[r * ldh + c] = from_f<T>(fmaxf(z, 0.f));
+                       });
+          }
+          // the five heads from t3: bias [ts_b, tr_b x3, tb_b] back to back
+          const float* tb = tw.b + tw.L.ts_b;
+          __syncwarp();
+          warp_mm<T>(SmemA<T>{hd, ldh}, H, st.get(tw, fwd_mat<FWD>(tw.d, tw.L, k)), 5,
+                     [=](int r, int c, float acc) {
+                       if (r < vr)
+                         trans[((size_t)s0 + r) * 5 + c] =
+                             from_f<O>(transient_head(acc + tb[c], c));
+                     });
+        }
       }
       for (int r = threadIdx.x & (LANES - 1); r < vr; r += LANES)
         sigma[s0 + r] = from_f<O>(softplus(zs[r]));
@@ -135,56 +192,28 @@ field_warp_kernel(Tower<T> tw, int n, const void* __restrict__ x, const void* __
 // `mode`, in a pack dtype of ts bytes.
 inline size_t fwd_smem(const Dims& d, int ts, int mode) {
   const Layout L = make_layout(d);
-  return mode == TRANSIENT ? carve(d, false, mode, nullptr, nullptr)
+  return mode == TRANSIENT ? carve_field<SEQ_TRANSIENT>(d, L, ts, nullptr, nullptr)
          : mode == FULL    ? carve_field<SEQ_HEADS>(d, L, ts, nullptr, nullptr)
                            : carve_field<SEQ_SIGMA>(d, L, ts, nullptr, nullptr);
 }
 
-template <typename T, bool RAW, bool HEADS>
-int launch_warp(int n, const void* x, const void* dirs, const void* w, const void* wt,
-                const float* b, Dims d, void* sigma, void* rgb, void* feat, int blocks,
-                void* stream) {
+// K1/K5 in MODE on the warp path.
+template <typename T, bool RAW, int MODE>
+int launch_fwd(int n, const void* x, const void* dirs, const void* w, const void* wt,
+               const float* b, Dims d, void* sigma, void* rgb, void* feat, void* trans,
+               int blocks, void* stream) {
   using O = Head<T, RAW>;
-  const size_t smem = fwd_smem(d, sizeof(T), HEADS ? FULL : SIGMA);
-  auto* kern = &field_warp_kernel<T, RAW, HEADS>;
+  const size_t smem = fwd_smem(d, sizeof(T), MODE);
+  auto* kern = &field_warp_kernel<T, RAW, MODE>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (n + BT - 1) / BT;
   const int grid = blocks > 0 && blocks < tiles ? blocks : tiles;
   NEFES_LAUNCH(kern, grid, smem, stream, make_tower<T>(w, wt, b, d), n, x, dirs,
-               static_cast<O*>(sigma), static_cast<O*>(rgb), static_cast<O*>(feat));
+               static_cast<O*>(sigma), static_cast<O*>(rgb), static_cast<O*>(feat),
+               static_cast<O*>(trans));
   return (int)cudaGetLastError();
-}
-
-// K1/K5 in transient mode, on tower.cuh's tiles: sigma (N,), the split
-// rgb (N, 3) and feature (N, F) heads, and the transient heads (N, 5):
-// [sigma, rgb x3, beta] after softplus / sigmoid / softplus. x, dirs: emb
-// (N, E) and embd (N, Ed) in T, or RAW the f32 points and directions
-// (N, 3).
-template <typename T, bool RAW>
-__global__ void __launch_bounds__(NT)
-field_fwd_kernel(Tower<T> tw, int n, const void* __restrict__ x, const void* __restrict__ dirs,
-                 Head<T, RAW>* __restrict__ sigma, Head<T, RAW>* __restrict__ rgb,
-                 Head<T, RAW>* __restrict__ feat, Head<T, RAW>* __restrict__ trans) {
-  using O = Head<T, RAW>;
-  extern __shared__ __align__(16) char nefes_smem[];
-  Smem s;
-  carve(tw.d, false, TRANSIENT, nefes_smem, &s);
-  const int row0 = blockIdx.x * TR;
-  const int valid = n - row0 < TR ? n - row0 : TR;
-  const int F = tw.d.F;
-  tile_inputs<T, RAW>(tw.d, s, x, dirs, true, row0, valid);
-  tower_forward<T>(tw, s, TRANSIENT, false, 3 + F, [=](int r, int c, float v) {
-    if (r >= valid) return;
-    const size_t row = row0 + r;
-    if (c < 3) rgb[row * 3 + c] = from_f<O>(v);
-    else feat[row * F + (c - 3)] = from_f<O>(v);
-  });
-  for (int r = threadIdx.x; r < valid; r += blockDim.x)
-    sigma[row0 + r] = from_f<O>(softplus(s.zs[r]));
-  for (int i = threadIdx.x; i < valid * 5; i += blockDim.x)
-    trans[(size_t)row0 * 5 + i] = from_f<O>(transient_head(s.tz[i], i % 5));
 }
 
 // Cotangents g_sigma (N,), g_rgb (N, 3), g_feat (N, F), g_trans (N, 5) in
@@ -204,7 +233,7 @@ field_bwd_kernel(Tower<T> tw, int row0, int rows, int mode, const void* __restri
   using O = Head<T, RAW>;
   extern __shared__ __align__(16) char nefes_smem[];
   Smem s;
-  carve(tw.d, true, mode, nefes_smem, &s);
+  carve(tw.d, mode, nefes_smem, &s);
   const int F = tw.d.F;
   const int local = blockIdx.x * TR;   // the tile's first row in the chunk
   const int tile0 = row0 + local;
@@ -213,7 +242,7 @@ field_bwd_kernel(Tower<T> tw, int row0, int rows, int mode, const void* __restri
                    valid};
   if (ops) dw_table(tw.d, mode, s.slots);   // published by tile_inputs' barrier
   tile_inputs<T, RAW>(tw.d, s, x, dirs, mode != SIGMA, tile0, valid);
-  tower_forward<T>(tw, s, mode, true, 0, [](int, int, float) {}, dw);
+  tower_forward<T>(tw, s, mode, dw);
   tower_backward<T>(
       tw, s, mode,
       [=](int r) { return r < valid ? to_f<O>(g_sigma[tile0 + r]) : 0.f; },
@@ -239,36 +268,13 @@ dw_reduce_kernel(int slices, int n, const float* __restrict__ part, float* __res
   }
 }
 
-// K1/K5: sigma and full mode on the warp path, transient mode on
-// tower.cuh's field_fwd_kernel.
-template <typename T, bool RAW>
-int launch_fwd(int n, int mode, const void* x, const void* dirs, const void* w, const void* wt,
-               const float* b, Dims d, void* sigma, void* rgb, void* feat, void* trans,
-               int blocks, void* stream) {
-  using O = Head<T, RAW>;
-  if (mode == SIGMA)
-    return launch_warp<T, RAW, false>(n, x, dirs, w, wt, b, d, sigma, rgb, feat, blocks, stream);
-  if (mode == FULL)
-    return launch_warp<T, RAW, true>(n, x, dirs, w, wt, b, d, sigma, rgb, feat, blocks, stream);
-  const size_t smem = fwd_smem(d, sizeof(T), mode);
-  auto* kern = &field_fwd_kernel<T, RAW>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (n + TR - 1) / TR;
-  NEFES_LAUNCH(kern, grid, smem, stream, make_tower<T>(w, nullptr, b, d), n, x, dirs,
-               static_cast<O*>(sigma), static_cast<O*>(rgb), static_cast<O*>(feat),
-               static_cast<O*>(trans));
-  return (int)cudaGetLastError();
-}
-
 template <typename T, bool RAW>
 int launch_bwd(int row0, int rows, int mode, const void* x, const void* dirs, const void* w,
                const void* wt, const float* b, Dims d, const void* g_sigma, const void* g_rgb,
                const void* g_feat, const void* g_trans, void* dx, void* ddirs, void* ops,
                float* tile_b, int nb, void* stream) {
   using O = Head<T, RAW>;
-  const size_t smem = carve(d, true, mode, nullptr, nullptr);
+  const size_t smem = carve(d, mode, nullptr, nullptr);
   auto* kern = &field_bwd_kernel<T, RAW>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -296,10 +302,17 @@ int field_fwd(int dtype, int mode, int n, const void* x, const void* dirs, const
   if (n <= 0) return 0;
   if (dtype == 1 && !HAS_BF16) return -1;
   if (mode < SIGMA || mode > TRANSIENT) return -2;
-  return dtype == 1 ? launch_fwd<__nv_bfloat16, RAW>(n, mode, x, dirs, w, wt, b, d, sigma, rgb,
-                                                     feat, trans, blocks, stream)
-                    : launch_fwd<float, RAW>(n, mode, x, dirs, w, wt, b, d, sigma, rgb, feat,
-                                             trans, blocks, stream);
+  auto go = [&](auto launch) {
+    return launch(n, x, dirs, w, wt, b, d, sigma, rgb, feat, trans, blocks, stream);
+  };
+  using bf16 = __nv_bfloat16;
+  if (dtype == 1)
+    return mode == SIGMA ? go(launch_fwd<bf16, RAW, SIGMA>)
+           : mode == FULL ? go(launch_fwd<bf16, RAW, FULL>)
+                          : go(launch_fwd<bf16, RAW, TRANSIENT>);
+  return mode == SIGMA ? go(launch_fwd<float, RAW, SIGMA>)
+         : mode == FULL ? go(launch_fwd<float, RAW, FULL>)
+                        : go(launch_fwd<float, RAW, TRANSIENT>);
 }
 
 #ifndef NEFES_EMULATE
@@ -316,9 +329,9 @@ int fwd_blocks_per_sm(const Dims& d, int mode) {
       return -1;
     return nb;
   };
-  if (mode == SIGMA) return blocks(&field_warp_kernel<T, RAW, false>);
-  if (mode == FULL) return blocks(&field_warp_kernel<T, RAW, true>);
-  return blocks(&field_fwd_kernel<T, RAW>);
+  if (mode == SIGMA) return blocks(&field_warp_kernel<T, RAW, SIGMA>);
+  if (mode == FULL) return blocks(&field_warp_kernel<T, RAW, FULL>);
+  return blocks(&field_warp_kernel<T, RAW, TRANSIENT>);
 }
 #endif
 
@@ -348,10 +361,9 @@ using nefes::Dims;
 // the pre-embedded kernels, of inputs, outputs and cotangents). mode: 0 =
 // "sigma", 1 = "full", 2 = "transient". The transient heads and their
 // cotangents are one (n, 5) array each. The forward: embd is not read in
-// sigma mode (it may be null); blocks, the size of the sigma and full
-// modes' persistent grid (nefes_field_blocks_per_sm a multiprocessor, at
-// most one a block tile of 128 samples; 0: one a block tile), is not read
-// in transient mode.
+// sigma mode (it may be null); blocks is the size of its persistent grid
+// (nefes_field_blocks_per_sm a multiprocessor, at most one a block tile
+// of 128 samples; 0: one a block tile).
 extern "C" int nefes_field_fwd_pre(int dtype, int mode, int n, const void* emb,
                                    const void* embd, const void* w, const void* wt,
                                    const float* b, int depth, int width, int skipmask, int E,

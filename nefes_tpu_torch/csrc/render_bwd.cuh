@@ -5,8 +5,8 @@
 // composite (and its backward) as warp scans. Two sources include this
 // header: fused_render.cu (K3 render_fwd_pre, K4 render_bwd_pre, K7
 // render_fwd, K8 render_bwd) and fused_field.cu, whose forward K1/K5 runs
-// warp_forward in sigma and full mode (field_warp_kernel; transient mode
-// and the backwards K2/K6 stay on tower.cuh).
+// warp_forward in sigma, full and transient mode (field_warp_kernel; the
+// backwards K2/K6 stay on tower.cuh).
 //
 // A block renders one ray in block tiles of BT = 128 samples: warp w owns
 // the tile's rows [16 w, 16 w + 16) through every layer, so the layers
@@ -75,8 +75,10 @@ constexpr bool kStaged = HAS_BF16 && std::is_same<T, __nv_bfloat16>::value;
 // The forward sequences a block stages, each in the order its products
 // read the matrices: to the sigma head (the field forward's sigma mode),
 // to the dir layer (the render kernels), to the rgb/feature head (the
-// field forward's full mode). They share their prefix, mat_at's forward.
-enum Seq { SEQ_SIGMA, SEQ_DIR, SEQ_HEADS };
+// field forward's full mode), and on through the NeRF-W transient branch
+// (the field forward's transient mode). They share their prefix, mat_at's
+// forward.
+enum Seq { SEQ_SIGMA, SEQ_DIR, SEQ_HEADS, SEQ_TRANSIENT };
 
 // One matrix of the packed blobs as a product reads it: rows x cols,
 // row-major at offset `off` of w (or wt); nk: stored (N, K) rather than
@@ -123,10 +125,14 @@ __host__ __device__ inline int mat_count(const Dims& d, const Layout& L, bool bw
 }
 
 // The k-th matrix of forward sequence FWD (off = -1 past the last): the
-// hidden layers as mat_at's forward lists them, then (SEQ_HEADS) final,
-// the dir layer's two and the rgb/feature head, which reads wt, (C, H) as
-// (N, K), since w's rows of C values are not 16-byte aligned. Listed, not
-// counted from mat_at: the stager calls it for every matrix it copies.
+// hidden layers as mat_at's forward lists them, then (SEQ_HEADS and
+// SEQ_TRANSIENT) final, the dir layer's two and the rgb/feature head,
+// which reads wt, (C, H) as (N, K), since w's rows of C values are not
+// 16-byte aligned; then (SEQ_TRANSIENT) t1's two, t2 and t3 from w, and
+// the five transient head columns as one (5, H) matrix read as (N, K):
+// wt holds ts_w (1, H), tr_w (3, H) and tb_w (1, H) back to back from
+// ts_w's offset. Listed, not counted from mat_at: the stager calls it for
+// every matrix it copies.
 template <Seq FWD>
 __host__ __device__ inline MatDesc fwd_mat(const Dims& d, const Layout& L, int k) {
   if constexpr (FWD == SEQ_DIR) {
@@ -139,11 +145,18 @@ __host__ __device__ inline MatDesc fwd_mat(const Dims& d, const Layout& L, int k
       if (k == n++) return {L.wh[i], W, W, false, false};
       if (((d.skipmask >> i) & 1) && k == n++) return {L.we[i], d.E, W, false, false};
     }
-    if (FWD == SEQ_HEADS) {
+    if (FWD != SEQ_SIGMA) {
       if (k == n++) return {L.fin_w, W, W, false, false};
       if (k == n++) return {L.dir_wh, W, H, false, false};
       if (k == n++) return {L.dir_wd, d.Ed, H, false, false};
       if (k == n++) return {L.rgb_w, 3 + d.F, H, true, true};
+    }
+    if (FWD == SEQ_TRANSIENT) {
+      if (k == n++) return {L.t1_wh, W, H, false, false};
+      if (k == n++) return {L.t1_wd, d.Ed, H, false, false};
+      if (k == n++) return {L.t2_w, H, H, false, false};
+      if (k == n++) return {L.t3_w, H, H, false, false};
+      if (k == n++) return {L.ts_w, 5, H, true, true};
     }
     return {-1, 0, 0, false, false};
   }

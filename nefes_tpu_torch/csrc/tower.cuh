@@ -1,13 +1,12 @@
 // Shared device code of the NeRFH-NFF tower kernels: the dims, layout and
 // embedding every kernel reads, and the first design's block path, which
-// fused_field.cu's field_fwd_kernel (K1/K5 in transient mode) and
-// field_bwd_kernel (K2/K6, with or without the weight gradients) and
-// micro.cu's chains run: the MLP tower with its heads (and, in transient
-// mode, the NeRF-W transient branch), and its recompute backward, over one
-// tile of TR samples per block, fed either pre-embedded rows or raw f32
-// points and directions that the tile embeds itself (the raw-input
-// kernels K5-K8). K1/K5 in sigma and full mode and the render kernels
-// K3/K4/K7/K8 run render_bwd.cuh's warp path instead.
+// fused_field.cu's field_bwd_kernel (K2/K6, with or without the weight
+// gradients) and micro.cu's chains run: the MLP tower's forward (and, in
+// transient mode, the NeRF-W transient branch), recomputed, and its
+// backward, over one tile of TR samples per block, fed either
+// pre-embedded rows or raw f32 points and directions that the tile embeds
+// itself (the raw-input K6). The forwards K1/K5 in every mode and the
+// render kernels K3/K4/K7/K8 run render_bwd.cuh's warp path instead.
 //
 // Replaces the per-tile bodies of the Pallas kernels in
 // nefes_tpu/kernels/fused_field.py (_embed_block, _tower_tile,
@@ -43,11 +42,11 @@
 // on the CUDA cores, each thread computing 4x4 micro-tiles with FMA. This
 // first version is far from the bound: the A fragments are rebuilt from
 // f32 shared memory with bank conflicts and the B fragments come from L1.
-// The render kernels (K3/K4, K7/K8) and K1/K5 in sigma and full mode no
-// longer use this path: render_bwd.cuh runs their products per warp from
-// bf16 tiles with the weights staged in shared memory (the render
-// backward's forward once per sample). Still on it: K1/K5 in transient
-// mode and the forward that K2/K6 recompute.
+// The render kernels (K3/K4, K7/K8) and K1/K5 in every mode no longer use
+// this path: render_bwd.cuh runs their products per warp from bf16 tiles
+// with the weights staged in shared memory (the render backward's forward
+// once per sample). Still on it: the forward that K2/K6 recompute and
+// their backward to the inputs.
 //
 // The field backward stores no activations: it recomputes the forward for
 // the tile and keeps one ReLU bit per unit and layer, plus the dir-layer
@@ -248,8 +247,9 @@ __host__ __device__ inline int dw_row_elems(const Dims& d, int mode) {
   return (int)slot_off(d, mode, 1, N_SLOTS);
 }
 
-// Shared-memory carve-up of one tower tile. All activations are f32
-// values that hold numbers already rounded to the pack dtype.
+// Shared-memory carve-up of one tower tile of the backward. All
+// activations are f32 values that hold numbers already rounded to the pack
+// dtype.
 struct Smem {
   float* emb;       // TR x E
   float* embd;      // TR x Ed (its cotangent after tower_backward)
@@ -257,14 +257,14 @@ struct Smem {
   float* h1;        // TR x W
   float* de;        // TR x H  (dir-layer output; its cotangent in backward)
   float* zs;        // TR      sigma pre-activation
-  float* dzs;       // TR      (backward)
-  float* demb;      // TR x E  (backward: the cotangent of emb)
-  uint32_t* mask;   // depth x TR x W/32 ReLU bits (backward)
+  float* dzs;       // TR      its cotangent
+  float* demb;      // TR x E  the cotangent of emb
+  uint32_t* mask;   // depth x TR x W/32 ReLU bits
   float* t1;        // TR x H  transient layers (transient mode; their
-  float* t2;        // TR x H  cotangents, in place, in backward)
+  float* t2;        // TR x H  cotangents, in place)
   float* t3;        // TR x H
   float* tz;        // TR x 5  transient head pre-activations (cotangents)
-  int* slots;       // 2 x N_SLOTS the dW slots' columns and offsets (backward)
+  int* slots;       // 2 x N_SLOTS the dW slots' columns and offsets
 };
 
 // Next 16-byte aligned buffer of n 4-byte words at base + *off.
@@ -274,11 +274,10 @@ __host__ __device__ inline float* take(char* base, size_t* off, size_t n) {
   return p;
 }
 
-// Carve the tile's buffers from `base`; returns the bytes used. With
-// base == nullptr only the size is computed (host side). The transient
-// buffers exist in transient mode only.
-__host__ __device__ inline size_t carve(const Dims& d, bool backward, int mode, char* base,
-                                        Smem* s) {
+// Carve the backward tile's buffers from `base`; returns the bytes used.
+// With base == nullptr only the size is computed (host side). The
+// transient buffers exist in transient mode only.
+__host__ __device__ inline size_t carve(const Dims& d, int mode, char* base, Smem* s) {
   const int W = d.width, H = d.width / 2;
   size_t off = 0;
   Smem t;
@@ -288,17 +287,11 @@ __host__ __device__ inline size_t carve(const Dims& d, bool backward, int mode, 
   t.h1 = take(base, &off, (size_t)TR * W);
   t.de = take(base, &off, (size_t)TR * H);
   t.zs = take(base, &off, TR);
-  t.dzs = nullptr;
-  t.demb = nullptr;
-  t.mask = nullptr;
   t.t1 = t.t2 = t.t3 = t.tz = nullptr;
-  t.slots = nullptr;
-  if (backward) {
-    t.dzs = take(base, &off, TR);
-    t.demb = take(base, &off, (size_t)TR * d.E);
-    t.mask = reinterpret_cast<uint32_t*>(take(base, &off, (size_t)d.depth * TR * (W / 32)));
-    t.slots = reinterpret_cast<int*>(take(base, &off, 2 * N_SLOTS));
-  }
+  t.dzs = take(base, &off, TR);
+  t.demb = take(base, &off, (size_t)TR * d.E);
+  t.mask = reinterpret_cast<uint32_t*>(take(base, &off, (size_t)d.depth * TR * (W / 32)));
+  t.slots = reinterpret_cast<int*>(take(base, &off, 2 * N_SLOTS));
   if (mode == TRANSIENT) {
     t.t1 = take(base, &off, (size_t)TR * H);
     t.t2 = take(base, &off, (size_t)TR * H);
@@ -616,24 +609,21 @@ __device__ __forceinline__ void tile_input_grads(const Dims& d, const Smem& s, c
 }
 
 
-// Forward tower over the tile in s.emb / s.embd (mirrors _tower_tile).
-// Leaves the last hidden layer's sigma pre-activation in s.zs and, in
-// FULL and TRANSIENT mode, the dir-layer output in s.de; in TRANSIENT
-// mode the three transient layers in s.t1..t3 and the transient heads'
-// pre-activations [sigma, rgb x3, beta] in s.tz; when keep_masks, the
-// ReLU bits of every hidden layer in s.mask; with dw.ops (the backward
-// with dW), every layer input of a dW product (the embeddings, the hidden
-// layers, `final`, the dir layer's output and the transient layers) in
-// its slot of the chunk. The rgb/feature head is computed for columns [0,
-// rgb_cols) and handed to rgb_epi(r, c, value) in f32. Ends with a
-// barrier.
-template <typename T, typename RgbEpi>
-__device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, bool keep_masks,
-                              int rgb_cols, RgbEpi rgb_epi,
-                              const DwOut<T>& dw = DwOut<T>{nullptr, nullptr, nullptr, 0, 0, 0}) {
+// Forward tower over the tile in s.emb / s.embd (mirrors _tower_tile),
+// as the backward recomputes it. Leaves the last hidden layer's sigma
+// pre-activation in s.zs, the ReLU bits of every hidden layer in s.mask
+// and, in FULL and TRANSIENT mode, the dir-layer output in s.de; in
+// TRANSIENT mode the three transient layers in s.t1..t3 and the transient
+// heads' pre-activations [sigma, rgb x3, beta] in s.tz; with dw.ops (the
+// backward with dW), every layer input of a dW product (the embeddings,
+// the hidden layers, `final`, the dir layer's output and the transient
+// layers) in its slot of the chunk. The rgb/feature head, whose output
+// the backward does not read, is not computed. Ends with a barrier.
+template <typename T>
+__device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, const DwOut<T>& dw) {
   const Dims& d = tw.d;
   const Layout& L = tw.L;
-  const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, C = 3 + d.F, nw = W / 32;
+  const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, nw = W / 32;
   float* h = s.h0;
   float* hn = s.h1;
   const float* emb = s.emb;
@@ -666,7 +656,7 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, bool 
                   [=](int r, int c, float acc) { bias_relu(r, c, rnd<T>(acc)); });
     }
     __syncthreads();
-    if (keep_masks) {
+    {
       uint32_t* m = s.mask + (size_t)i * TR * nw;
       for (int j = threadIdx.x; j < TR * nw; j += blockDim.x) {
         const float* row = ho + (j / nw) * W + (j % nw) * 32;
@@ -725,12 +715,6 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, bool 
   __syncthreads();
   if (dw.ops) put_tile(dw, A_DE, s.de);
 
-  if (rgb_cols > 0) {
-    const float* de = s.de;
-    const float* rb = tw.b + L.rgb_b;
-    block_mm<T>(H, rgb_cols, tw.w + L.rgb_w, C, [=](int r, int k) { return de[r * H + k]; },
-                [=](int r, int c, float acc) { rgb_epi(r, c, acc + rb[c]); });
-  }
   if (mode == TRANSIENT) {
     // t1 = relu(final @ t1_wh + embd @ t1_wd + t1_b), then two 64-wide
     // layers, each rounded like the dir layer

@@ -13,10 +13,10 @@ on pre-embedded inputs (K1, K2) or on raw points and directions (K5, K6).
                     pre=False): d_pts, d_dirs in f32 and, with need_dw, the
                     weights' gradients
 
-K1/K5 in sigma and full mode run the render kernels' warp path
-(csrc/render_bwd.cuh) as a persistent grid of fwd_blocks() blocks over
-block tiles of BLOCK_TILE samples; K1/K5 in transient mode, and K2/K6,
-run csrc/tower.cuh's tiles of TILE_ROWS. K2/K6 with need_dw run over
+K1/K5 in every mode (sigma, full and transient) run the render kernels'
+warp path (csrc/render_bwd.cuh) as a persistent grid of fwd_blocks()
+blocks over block tiles of BLOCK_TILE samples; K2/K6 run
+csrc/tower.cuh's tiles of TILE_ROWS. K2/K6 with need_dw run over
 chunks of rows (dw_plan): each launch writes the chunk's dW operands
 (every layer's input and output cotangent, row-major) and per-tile bias
 sums, and the dW kernel (field_dw, csrc/field_dw.cuh) contracts them over
@@ -61,8 +61,8 @@ TILE_ROWS = 64      # samples per tower tile (csrc/tower.cuh TR)
 # sums, and the dW kernel's blocks an SM the row slices aim at
 DW_SCRATCH_BYTES = 1 << 30
 DW_BLOCKS_PER_SM = 4
-BLOCK_TILE = 128    # samples per block tile of the warp path, K1/K5 in
-#                     sigma and full mode (csrc/render_bwd.cuh BT)
+BLOCK_TILE = 128    # samples per block tile of the warp path, K1/K5
+#                     (csrc/render_bwd.cuh BT)
 
 
 @dataclass(frozen=True)
@@ -695,12 +695,9 @@ def _resident_blocks(lib, dev: torch.device, code: int, mode: int, raw: bool,
 
 def fwd_blocks(lib, p: PackedField, mode: int, raw: bool, n: int,
                dev: torch.device) -> int:
-    """The persistent grid of the K1/K5 forward in sigma and full mode:
-    as many blocks as the card holds at once, at most one per block tile
-    of BLOCK_TILE samples (0 in transient mode, which has one block per
-    tile of TILE_ROWS)."""
-    if mode == TRANSIENT:
-        return 0
+    """The persistent grid of the K1/K5 forward: as many blocks as the
+    card holds at once, at most one per block tile of BLOCK_TILE
+    samples."""
     return min(-(-n // BLOCK_TILE),
                _resident_blocks(lib, dev, _DTYPE_CODE[p.spec.torch_dtype],
                                 mode, raw, dims(p.spec)))

@@ -15,9 +15,9 @@ their plain versions are held to the JAX package in test_torch_raw.py).
    compiler under NEFES_EMULATE (one thread per block), against the plain
    versions in f32, to 1e-5 of scale: the kernels' indexing and tiling,
    with a ragged last tile and with whole tiles (K1/K5's warp path in
-   sigma and full mode also at 1 sample, on a persistent grid of 2 blocks
-   over 5 block tiles, in sigma mode without dirs, and at the full-width
-   tower, with its shared memory a block), and for K5-K8 the
+   sigma, full and transient mode also at 1 sample, on a persistent grid
+   of 2 blocks over 5 block tiles, in sigma mode without dirs, and at the
+   full-width tower, with its shared memory a block), and for K5-K8 the
    in-kernel embedding and its chain rule (sinf/cosf of the C library
    against torch's), the transient heads, and the weight gradients of
    K2/K6 (the backward over chunks of rows, the dW kernel on each chunk's
@@ -344,10 +344,9 @@ def _host_fwd(lib, raw, p, mode, x, dirs, blocks=0):
     return outs
 
 
-# N rows: 100 is one ragged block tile of 128 for the forward in sigma and
-# full mode (six whole warps, one of 4 rows, one empty) and, for transient
-# mode and the backward, a tile of 64 and a ragged one of 36; 256 is two
-# whole block tiles, four whole tiles of 64
+# N rows: 100 is one ragged block tile of 128 for the forward (six whole
+# warps, one of 4 rows, one empty) and, for the backward, a tile of 64 and
+# a ragged one of 36; 256 is two whole block tiles, four whole tiles of 64
 @pytest.mark.parametrize("N,raw", [
     pytest.param(100, False, id="float32"),
     pytest.param(256, False, id="float32-whole-tiles"),
@@ -512,33 +511,38 @@ def test_dw_plan_at_training_shape(full_width, host_build):
 def _field_fwd_case(lib, raw, p, mode, N, blocks, gen):
     """K1/K5 of the host build against the plain version at N samples, in
     sigma mode with dirs null (the warp path stops after the sigma head
-    and reads no directions), to the scaled 1e-5."""
+    and reads no directions), to the scaled 1e-5: every head of the mode,
+    the transient ones included."""
     x, dirs, _, _ = _inputs(gen, p.spec, N, raw)
     if mode == kf.SIGMA:
         dirs = None
     plain = kf.field_fwd_plain if raw else kf.field_fwd_pre_plain
     want = plain(p, mode, x, dirs)
-    assert sum(w is not None for w in want) == 1 + 2 * mode
+    assert sum(w is not None for w in want) == (1, 3, 4)[mode]
     for o, w, name in zip(_host_fwd(lib, raw, p, mode, x, dirs, blocks),
-                          want, ("sigma", "rgb", "feat")):
+                          want, ("sigma", "rgb", "feat", "transient")):
         if w is not None:
             _scaled_close(o, w, 1e-5, f"{name} N={N} blocks={blocks}")
 
 
-# The warp path of K1/K5 (sigma and full mode): N = 1, one sample in one
-# warp; N = 300, three block tiles of 128 the last ragged (44 rows: two
-# whole warps, one of 12); N = 600 over blocks = 2, five block tiles (the
-# last of 88 rows) on a persistent grid of two blocks, so each block
-# walks two or three tiles and its weight stages carry on across them
-@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL], ids=["sigma", "full"])
+# The warp path of K1/K5 (sigma, full and transient mode): N = 1, one
+# sample in one warp; N = 300, three block tiles of 128 the last ragged
+# (44 rows: two whole warps, one of 12); N = 600 over blocks = 2, five
+# block tiles (the last of 88 rows) on a persistent grid of two blocks,
+# so each block walks two or three tiles and its weight stages carry on
+# across them (in transient mode the longer sequence, through the
+# transient branch's five matrices)
+@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL, kf.TRANSIENT],
+                         ids=["sigma", "full", "transient"])
 @pytest.mark.parametrize("raw", [False, True], ids=["pre", "raw"])
 @pytest.mark.parametrize("N,blocks", [
     pytest.param(1, 0, id="one-sample"),
     pytest.param(300, 0, id="ragged-block-tile"),
     pytest.param(600, 2, id="two-blocks-five-tiles")])
 def test_field_warp_source_matches_plain(N, blocks, raw, mode, host_build):
-    """K1 (pre) or K5 (raw) in sigma and full mode, host build, against
-    the plain version."""
+    """K1 (pre) or K5 (raw) in sigma, full and transient mode, host
+    build, against the plain version (the emulated tower is a fine one,
+    with transient heads)."""
     spec, p, gen = _emulated_case()
     lib = build.library("fused_field", emulate=True, build_dir=host_build)
     _field_fwd_case(lib, raw, p, mode, N, blocks, gen)
@@ -686,36 +690,39 @@ def test_render_full_width_matches_plain(kernel, S, full_width, host_build):
         _scaled_close(o, w, 1e-5)
 
 
-@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL], ids=["sigma", "full"])
+@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL, kf.TRANSIENT],
+                         ids=["sigma", "full", "transient"])
 @pytest.mark.parametrize("raw", [False, True], ids=["pre", "raw"])
 def test_field_warp_full_width_matches_plain(raw, mode, full_width,
                                              host_build):
-    """K1/K5 on the main path's coarse tower at the full width
-    (D8/W128/F128) in f32, 200 samples (a block tile and a ragged one of
-    72), host build against the plain version."""
+    """K1/K5 at the full width (D8/W128/F128) in f32, 200 samples (a block
+    tile and a ragged one of 72), host build against the plain version:
+    sigma and full mode on the main path's coarse tower, transient mode on
+    the fine tower (training's fine pass)."""
     lib = build.library("fused_field", emulate=True, build_dir=host_build)
-    _field_fwd_case(lib, raw, full_width[0], mode, 200, 0,
-                    torch.Generator().manual_seed(200))
+    _field_fwd_case(lib, raw, full_width[int(mode == kf.TRANSIENT)], mode,
+                    200, 0, torch.Generator().manual_seed(200))
 
 
 def test_field_warp_smem_fits_a_block(host_build):
     """The shared memory of one block of K1/K5's warp path at the
-    full-width ModelConfig(), in sigma and full mode, bf16 and f32: within
-    an H100 block's 232,448 bytes, full mode above sigma mode (the dir
-    rows and the larger weight stages), and sigma mode in bf16 at the
+    full-width ModelConfig(), in sigma, full and transient mode (the fine
+    tower), bf16 and f32: within an H100 block's 232,448 bytes, full mode
+    above sigma mode (the dir rows and the larger weight stages),
+    transient mode at least full mode, and sigma mode in bf16 at the
     figure PERF.md states."""
     from nefes_tpu_torch.train.model import ModelConfig
     lib = build.library("fused_field", emulate=True, build_dir=host_build)
-    dims = kf.dims(kf.FieldSpec.from_model(ModelConfig(), "coarse"))
-    smem = {(code, mode): lib.nefes_field_smem_bytes(code, mode, *dims)
-            for code in (0, 1) for mode in (kf.SIGMA, kf.FULL)}
+    dims = {mode: kf.dims(kf.FieldSpec.from_model(
+        ModelConfig(), "fine" if mode == kf.TRANSIENT else "coarse"))
+        for mode in (kf.SIGMA, kf.FULL, kf.TRANSIENT)}
+    smem = {(code, mode): lib.nefes_field_smem_bytes(code, mode, *dims[mode])
+            for code in (0, 1) for mode in (kf.SIGMA, kf.FULL, kf.TRANSIENT)}
     assert all(0 < b <= BLOCK_SMEM_MAX for b in smem.values())
     for code in (0, 1):
         assert smem[code, kf.SIGMA] < smem[code, kf.FULL]
+        assert smem[code, kf.FULL] <= smem[code, kf.TRANSIENT]
     assert smem[1, kf.SIGMA] == K1_SMEM_BYTES
-    # transient mode keeps tower.cuh's carve, the same in either dtype
-    assert (lib.nefes_field_smem_bytes(0, kf.TRANSIENT, *dims)
-            == lib.nefes_field_smem_bytes(1, kf.TRANSIENT, *dims))
 
 
 def test_build_of_another_tree(host_build, tmp_path):
