@@ -12,6 +12,7 @@ Phases:
          shared memory a block, blocks per SM and the backward's global
          scratch a ray; K1/K5's shared memory a block and blocks per SM in
          sigma and full mode (coarse tower) and transient mode (fine
+         tower); K2/K6's in sigma and full mode (the warp path, coarse
          tower)
   check  K1-K8 against their plain PyTorch versions on the card, at the
          shapes of the refinement's main path, in bf16 and f32 (K1/K5 in
@@ -27,7 +28,11 @@ Phases:
          mode (every dW and bias gradient checked), two calls of each
          bit for bit the same, and the dW kernel (field_dw) alone on the
          operands of the first chunk of the fine and the coarse training
-         pass against field_dw_plain
+         pass against field_dw_plain; K2/K6 in sigma and full mode (the
+         warp path) at the coarse training shape, frozen and with dW: two
+         calls, and the persistent grid against one block per block
+         tile, bit for bit the same, and with dW over chunks that end in
+         the middle of a block tile against the plain version
   mode3  mode-3 refinement at full width (NeFeS D8/W128/F128 in bf16,
          60x80 rays, 64+64 samples) through the pre-embedded kernels
          (fused=fused_pre=fused_render=True, frozen field: K1, K3, K4):
@@ -62,11 +67,13 @@ Phases:
          instead of the persistent grid; with --parent DIR (an earlier
          tree, unpacked with git archive into a git-ignored directory)
          also DIR's, and the
-         render kernels K3, K4, K7 and K8 and the training backwards K2
-         +dW and K6 +dW (fine pass, transient mode) of DIR and of this
-         tree in turns on the same inputs, each of DIR's checked against
-         its plain version first; the dW kernel alone on the fine pass's
-         first chunk
+         render kernels K3, K4, K7 and K8, the training backwards K2
+         +dW and K6 +dW (fine pass, transient mode), and K2 and K6 in
+         full mode, frozen at the refinement's fine pass and K6 with dW
+         at the coarse training pass (this tree's also on one block per
+         block tile), of DIR and of this tree in turns on the same
+         inputs, each of DIR's checked against its plain version first;
+         the dW kernel alone on the fine pass's first chunk
   micro  the probe's kernelmicro (nefes_tpu_torch/runtime/probe.py) at the
          fine-pass shape, N = 614,400 rows: K9 (bare bf16 8-layer chain)
          at tiles 64 (the first design's field block), 512, 2048, 8192, K10 (2 and 4 sub-tiles interleaved),
@@ -135,12 +142,13 @@ IMG_H, IMG_W, FOCAL_FULL = 4 * H, 4 * W, 4 * FOCAL
 # within PROBE_RGB_TOL (max-abs) of the unfused fine pass + compositor. On
 # an H100 the ratios read 0.06-0.79 and the rgb 2.6e-4 (PERF.md).
 PROBE_BAND, PROBE_RGB_TOL = 4.0, 3e-3
-# The first version of K1/K5 and K3/K4/K7/K8 (f32 tiles through
-# tower.cuh, weights through L1; the render kernels' composite in one
-# thread, K4/K8 two tower forwards per sample), at the time phase's shape:
-# PERF.md's times, an H100 80GB HBM3 at 700 W; the time phase prints them
-# beside the new ones.
+# The first version of K1/K5, K2/K6 (frozen, full mode) and K3/K4/K7/K8
+# (f32 tiles through tower.cuh, weights through L1; the render kernels'
+# composite in one thread, K4/K8 two tower forwards per sample), at the
+# time phase's shape: PERF.md's times, an H100 80GB HBM3 at 700 W; the
+# time phase prints them beside the new ones.
 EARLIER_MS = {"K1 field_fwd_pre": 3.589, "K5 field_fwd": 3.739,
+              "K2 field_bwd_pre": 28.915, "K6 field_bwd": 29.821,
               "K3 render_fwd_pre": 16.172, "K4 render_bwd_pre": 42.796,
               "K7 render_fwd": 14.576, "K8 render_bwd": 43.761,
               "K1 field_fwd_pre transient": 20.005,
@@ -297,6 +305,16 @@ def main() -> int:
                 log(f"K1/K5 field_fwd {MODES[mode]} {dt}: "
                     f"{flib.nefes_field_smem_bytes(code, mode, *fdims)} B "
                     f"of shared memory a block, blocks per SM {blocks[0]} "
+                    f"/ {blocks[1]} (pre / raw)")
+            # the backward K2/K6's warp path (sigma and full mode)
+            cdims = kf.dims(kf.FieldSpec.from_model(ModelConfig(), "coarse"))
+            for mode in (kf.SIGMA, kf.FULL):
+                blocks = [flib.nefes_field_bwd_blocks_per_sm(code, mode, raw,
+                                                             *cdims)
+                          for raw in (0, 1)]
+                log(f"K2/K6 field_bwd {MODES[mode]} {dt}: "
+                    f"{flib.nefes_field_bwd_smem_bytes(code, mode, *cdims)} "
+                    f"B of shared memory a block, blocks per SM {blocks[0]} "
                     f"/ {blocks[1]} (pre / raw)")
 
     phase("build", do_build)
@@ -484,7 +502,7 @@ def main() -> int:
                     for s in ((n,), (n, 3), (n, F), (n, 5))]
         g_c_pre, g_f_pre = cots(n_c, cd), cots(n_f, cd)
         g_c_raw, g_f_raw = cots(n_c, torch.float32), cots(n_f, torch.float32)
-        tr.update(g_f_pre=g_f_pre, g_f_raw=g_f_raw)
+        tr.update(g_f_pre=g_f_pre, g_f_raw=g_f_raw, g_c_raw=g_c_raw)
         S, Fm, T = kf.SIGMA, kf.FULL, kf.TRANSIENT
         # the forward's heads, the transient ones each on its own
         fwd_names = ["sigma", "rgb", "feat", "transient_sigma",
@@ -569,6 +587,50 @@ def main() -> int:
                     raise AssertionError(f"{name} {dt}: two calls differ")
                 log(f"{name} transient {dt}: two calls bit for bit the same")
                 del a, b
+            # the warp path of K2/K6 (sigma and full mode) at the coarse
+            # training shape: two calls, and the persistent grid against
+            # one block per block tile, bit for bit; with dW also over
+            # chunks of 64 x 1,001 rows, which end mid block tile, against
+            # the plain version
+            for name, raw, xs, gs in (("K2 field_bwd_pre", False,
+                                       ("emb_c", "embd_c"), g_c_pre),
+                                      ("K6 field_bwd", True,
+                                       ("pts_c", "dirs_c"), g_c_raw)):
+                kern = kf.field_bwd if raw else kf.field_bwd_pre
+                for mode in (S, Fm):
+                    x, d = tr[xs[0]], tr[xs[1]] if mode == Fm else None
+                    g = gs[:1] + [None] * 3 if mode == S else gs[:3] + [None]
+                    for need_dw in (False, True):
+                        a = kern(pc, mode, x, d, *g, need_dw=need_dw)
+                        b = kern(pc, mode, x, d, *g, need_dw=need_dw)
+                        tile = field_bwd_call(this, raw, mode, pc, x, d, g,
+                                              need_dw, dev, blocks=0)
+                        what = f"{name}{' +dW' if need_dw else ''}"
+                        for u, v, w_ in zip(a, b, tile):
+                            if u is None:
+                                continue
+                            if not torch.equal(u, v):
+                                raise AssertionError(f"{what} {MODES[mode]} "
+                                                     f"{dt}: two calls "
+                                                     f"differ")
+                            if not torch.equal(u, w_):
+                                raise AssertionError(
+                                    f"{what} {MODES[mode]} {dt}: one block "
+                                    f"per block tile differs from the grid")
+                        log(f"{what} {MODES[mode]} {dt}: two calls, and the "
+                            f"grid against one block per block tile, bit "
+                            f"for bit the same")
+                        del a, b, tile
+                    chunk = kf.TILE_ROWS * 1001
+                    got = field_bwd_call(this, raw, mode, pc, x, d, g, True,
+                                         dev, chunk=chunk)
+                    plain = kf.field_bwd_plain if raw else \
+                        kf.field_bwd_pre_plain
+                    want = plain(pc, mode, x, d, *g[:3], need_dw=True)
+                    compare(f"{name} +dW", f"{MODES[mode]} in chunks of "
+                            f"{chunk} rows", dt, with_dw(pc, got),
+                            with_dw(pc, want), bwd_names)
+                    del got, want
             # the dW kernel alone on the first chunk of each training pass
             for label, p, mode, x, d, g in (
                     ("fine transient", pf, T, tr["pts"], tr["dirs"], g_f_raw),
@@ -1200,33 +1262,43 @@ def main() -> int:
 
     def time_turns(rows):
         """Kernels in turns on the time phase's inputs, each variant
-        called the same way (field_call, render_call), so the host's share
-        is the same: K1 and K5, in sigma mode (the main path's coarse
-        pass) and in transient mode (training's fine pass), on their
-        persistent grid and on one block per block tile (whose outputs
-        must be equal); with --parent also the parent tree's K1 and K5
-        and, of both trees, K3, K4, K7 and K8 and K2 +dW and K6 +dW (the
-        fine training pass), each of the parent's checked against its
-        plain version first (relative L2). 5 rounds of the variants in
+        called the same way (field_call, render_call, bwd_call), so the
+        host's share is the same: K1 and K5, in sigma mode (the main
+        path's coarse pass) and in transient mode (training's fine pass),
+        on their persistent grid and on one block per block tile (whose
+        outputs must be equal); with --parent also
+        the parent tree's K1 and K5 and, of both trees, K3, K4, K7 and K8,
+        K2 +dW and K6 +dW (the fine training pass), and K2 and K6 in full
+        mode (frozen on the refinement's fine pass; K6 +dW on the coarse
+        training pass; this tree's also on one block per block tile),
+        each of the parent's checked against its plain version first
+        (relative L2). 5 rounds of the variants in
         order and then in reverse (this, tile, tile, this or parent, this,
         this, parent, ...), the median of each one's 10 times."""
         names = list(_FIELD_ENTRY)
         if parent:
-            names += list(_RENDER_ENTRY) + list(_TRAIN_ENTRY)
+            names += list(_RENDER_ENTRY) + list(_BWD_ENTRY)
         for name in names:
             field = name in _FIELD_ENTRY
             src, call = (("fused_field", field_call) if field
-                         else ("fused_field", train_call)
-                         if name in _TRAIN_ENTRY
+                         else ("fused_field", bwd_call)
+                         if name in _BWD_ENTRY
                          else ("fused_render", render_call))
-            train = name in _TRAIN_ENTRY or name.endswith("transient")
+            # this tree also on one block per block tile: the field
+            # forward, and the field backward but in transient mode (one
+            # block a 64-row tile there)
+            tile = field or (name in _BWD_ENTRY
+                             and _BWD_ENTRY[name][1] != "transient")
+            train = (name.endswith("transient")
+                     or name in _BWD_ENTRY and _BWD_ENTRY[name][2])
             ins = state["train_inputs" if train else "inputs"]["bfloat16"]
             this = build.library(src)
             fns = {}
             if parent:
                 lib = build.library(src, **parent)
                 got = call(lib, name, ins, dev)
-                want = rows[name][0](rows[name][2])
+                want = (bwd_plain(name, ins) if name in _BWD_ENTRY
+                        else rows[name][0](rows[name][2]))
                 if torch.is_tensor(want):       # a forward's one output
                     want = (want,)
                 l2 = max(float((a.float() - b.float()).norm()
@@ -1238,8 +1310,8 @@ def main() -> int:
                 del got, want
                 fns["parent"] = lambda lib=lib: call(lib, name, ins, dev)
             fns["this"] = lambda: call(this, name, ins, dev)
-            if field:
-                fns["tile"] = lambda: field_call(this, name, ins, dev, 0)
+            if tile:
+                fns["tile"] = lambda: call(this, name, ins, dev, 0)
                 if not all(torch.equal(a, b) for a, b in
                            zip(fns["tile"](), fns["this"]())):
                     raise AssertionError(f"{name}: one block per block "
@@ -1478,6 +1550,13 @@ def kernel_label(line: str) -> str:
                 "full" if flags[1:2] == ["1"] else "sigma")
         return (f"field_warp_kernel<{dt},"
                 f"{'raw' if flags[:1] == ['1'] else 'pre'},{mode}>")
+    if "field_bwd_warp_kernel" in name:
+        flags = re.findall(r"Lb([01])", name)   # RAW, DW
+        mode = re.findall(r"Li([0-2])E", name)  # MODE
+        return (f"field_bwd_warp_kernel<{dt},"
+                f"{'raw' if flags[:1] == ['1'] else 'pre'},"
+                f"{MODES[int(mode[0])] if mode else '?'},"
+                f"{'dW' if flags[1:2] == ['1'] else 'frozen'}>")
     for kern in ("render_bwd_kernel", "render_fwd_kernel"):
         if kern in name:
             flags = re.findall(r"Lb([01])", name)   # RAW, then GLOBAL
@@ -1530,52 +1609,96 @@ def render_call(lib, name, ins, dev):
     return outs
 
 
-# the training backwards with dW that the time phase runs in turns
-_TRAIN_ENTRY = ("K2 field_bwd_pre +dW", "K6 field_bwd +dW")
-
-
-def train_call(lib, name, tr, dev):
-    """One K2 +dW or K6 +dW on the fine training pass (transient mode)
-    from the fused_field library `lib` (this tree's or an earlier one's)
-    on the bf16 training inputs `tr` (with their g_f_pre / g_f_raw), with
-    the wrappers' arguments but none of their checks or launch counts:
-    (d_x, d_dirs, the f32 weight gradients). A tree from before the dW
-    kernel (no nefes_field_dw) takes one partial slice an SM and an
-    activation scratch instead of the chunks."""
+def field_bwd_call(lib, raw, mode, p, x, xd, g, need_dw, dev, blocks=None,
+                   chunk=None):
+    """One K2 or (raw) K6 in `mode` from the fused_field library `lib`
+    (this tree's or an earlier one's, from the dW kernel on) with the
+    wrapper's arguments but none of its checks or launch counts: (d_x,
+    d_dirs or None, with need_dw the f32 weight gradients, else None). g:
+    the four head cotangents (None where the mode has none). blocks: this
+    tree's grid of the warp path through the _grid entry point (0: one
+    block per block tile; None: the entry point's own). chunk: the rows of
+    a chunk with dW (None: dw_plan's)."""
     from nefes_tpu_torch.kernels import fused_field as kf
-    raw, T = name.startswith("K6"), kf.TRANSIENT
-    pf = tr["packed"][1]
-    sp, f32 = pf.spec, torch.float32
-    x, xd = (tr["pts"], tr["dirs"]) if raw else (tr["emb"], tr["embd"])
-    g = tr["g_f_raw" if raw else "g_f_pre"]
-    n, nw, nb = x.shape[0], pf.w.numel(), pf.b.numel()
-    widths, hd = ((3, 3), f32) if raw else ((sp.emb_xyz, sp.emb_dir),
-                                             sp.torch_dtype)
-    dx, dd = (torch.empty((n, w_), dtype=hd, device=dev) for w_ in widths)
-    fn = getattr(lib, "nefes_field_bwd_raw" if raw else "nefes_field_bwd_pre")
-    head = (kf._DTYPE_CODE[sp.torch_dtype], T, n, x.data_ptr(), xd.data_ptr(),
-            pf.w.data_ptr(), pf.wt.data_ptr(), pf.b.data_ptr(), *kf.dims(sp),
-            *[v.data_ptr() for v in g], dx.data_ptr(), dd.data_ptr())
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if hasattr(lib, "nefes_field_dw"):
-        def bwd(row0, rows, ops, tile_b):
-            kf.raise_on(fn(*head, row0, rows, nb, ops.data_ptr(),
-                           tile_b.data_ptr(), kf._stream()), name)
+    sp, n, nb = p.spec, x.shape[0], p.b.numel()
+    widths, hd = (((3, 3), torch.float32) if raw
+                  else ((sp.emb_xyz, sp.emb_dir), sp.torch_dtype))
+    dx = torch.empty((n, widths[0]), dtype=hd, device=dev)
+    dd = (torch.empty((n, widths[1]), dtype=hd, device=dev)
+          if mode != kf.SIGMA else None)
+    grid = () if blocks is None else (blocks,)
+    fn = getattr(lib, f"nefes_field_bwd_{'raw' if raw else 'pre'}"
+                 + ("_grid" if grid else ""))
+    head = (kf._DTYPE_CODE[sp.torch_dtype], mode, n, x.data_ptr(),
+            kf._ptr(xd), p.w.data_ptr(), p.wt.data_ptr(), p.b.data_ptr(),
+            *kf.dims(sp), *[kf._ptr(v) for v in g], dx.data_ptr(),
+            kf._ptr(dd))
 
-        def dw(ops, tile_b, rows, part):
-            kf.raise_on(kf.dw_launch(lib, pf, T, ops, tile_b, rows, part,
-                                     kf._stream()), "field_dw")
-        chunk, slices = kf.dw_plan(lib, pf, T, n, sms)
-        part = kf.bwd_dw(lib, bwd, dw, pf, T, n, chunk, slices, dev)
-    else:
-        slices = min(-(-n // kf.TILE_ROWS), sms)
-        part = torch.zeros((slices, nw + nb), dtype=f32, device=dev)
-        acts = torch.empty(slices * lib.nefes_field_dw_scratch(sp.depth,
-                                                               sp.width),
-                           dtype=sp.torch_dtype, device=dev)
-        kf.raise_on(fn(*head, slices, nw, nb, part.data_ptr(),
-                       acts.data_ptr(), kf._stream()), name)
+    def bwd(row0, rows, ops, tile_b):
+        kf.raise_on(fn(*head, row0, rows, nb, kf._ptr(ops), kf._ptr(tile_b),
+                       *grid, kf._stream()), "field_bwd")
+
+    if not need_dw:
+        bwd(0, n, None, None)
+        return dx, dd, None
+
+    def dw(ops, tile_b, rows, part):
+        kf.raise_on(kf.dw_launch(lib, p, mode, ops, tile_b, rows, part,
+                                 kf._stream()), "field_dw")
+    plan, slices = kf.dw_plan(
+        lib, p, mode, n,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = kf.bwd_dw(lib, bwd, dw, p, mode, n, chunk or plan, slices, dev)
     return dx, dd, kf._dw_reduce(lib, part)
+
+
+# the K2/K6 backwards that the time phase runs in turns with --parent:
+# (raw, mode, need_dw); with dW in transient mode on the fine training
+# pass, frozen in full mode on the refinement's fine pass, with dW in full
+# mode on the coarse training pass
+_BWD_ENTRY = {"K2 field_bwd_pre +dW": (False, "transient", True),
+              "K6 field_bwd +dW": (True, "transient", True),
+              "K2 field_bwd_pre": (False, "full", False),
+              "K6 field_bwd": (True, "full", False),
+              "K6 field_bwd +dW coarse": (True, "full", True)}
+
+
+def bwd_args(name, ins):
+    """(packed, x, dirs, the four head cotangents) of a _BWD_ENTRY on its
+    inputs: with dW the training inputs' fine pass (g_f_raw / g_f_pre) or
+    coarse pass (g_c_raw), else the main path's (g_field / g_raw)."""
+    raw, mode, need_dw = _BWD_ENTRY[name]
+    if mode == "transient":
+        x, xd = (ins["pts"], ins["dirs"]) if raw else (ins["emb"],
+                                                       ins["embd"])
+        return ins["packed"][1], x, xd, ins["g_f_raw" if raw else "g_f_pre"]
+    if need_dw:
+        return (ins["packed"][0], ins["pts_c"], ins["dirs_c"],
+                ins["g_c_raw"][:3] + [None])
+    x, xd = (ins["pts"], ins["dirs"]) if raw else (ins["emb"], ins["embd"])
+    return (ins["packed"][1], x, xd,
+            list(ins["g_raw" if raw else "g_field"]) + [None])
+
+
+def bwd_call(lib, name, ins, dev, blocks=None):
+    """One launch (with dW: one per chunk, each with the dW kernel) of the
+    _BWD_ENTRY `name` from `lib`: its outputs, those present."""
+    raw, mode, need_dw = _BWD_ENTRY[name]
+    p, x, xd, g = bwd_args(name, ins)
+    out = field_bwd_call(lib, raw, MODES.index(mode), p, x, xd, g, need_dw,
+                         dev, blocks)
+    return [o for o in out if o is not None]
+
+
+def bwd_plain(name, ins):
+    """The plain version of the _BWD_ENTRY `name` on the same inputs."""
+    from nefes_tpu_torch.kernels import fused_field as kf
+    raw, mode, need_dw = _BWD_ENTRY[name]
+    p, x, xd, g = bwd_args(name, ins)
+    plain = kf.field_bwd_plain if raw else kf.field_bwd_pre_plain
+    g = g if mode == "transient" else g[:3]
+    out = plain(p, MODES.index(mode), x, xd, *g, need_dw=need_dw)
+    return [o for o in out if o is not None]
 
 
 # each field forward that the time phase runs in turns: (entry point,

@@ -91,8 +91,8 @@ render_fwd_kernel(Tower<T> tw, int S, const void* __restrict__ x, const void* __
   for (int t = 0; t < tiles; ++t) {
     const int t0 = t * BT, t1 = S - t0 < BT ? S : t0 + BT;
     for (int wp = warp; wp < WARPS; wp += WARP_STEP)
-      warp_forward<T, RAW, false>(tw, rb, st, wp, t0 + wp * WR, S, sample0, x, dirs,
-                                  rb.tzs + wp * WR);
+      warp_forward<T, RAW, KEEP_NONE>(tw, rb, st, wp, t0 + wp * WR, S, sample0, x, dirs,
+                                      rb.tzs + wp * WR);
     __syncthreads();
     if (warp == 0)
       carry = composite_scan(t0, t1, S, zr, [&](int i) { return rb.tzs[i - t0]; }, carry,
@@ -151,14 +151,22 @@ render_bwd_kernel(Tower<T> tw, int S, const void* __restrict__ x, const void* __
   for (int t = 0; t < tiles; ++t)
     for (int wp = warp; wp < WARPS; wp += WARP_STEP) {
       const int s0 = t * BT + wp * WR;
-      warp_forward<T, RAW, true>(tw, rb, st, wp, s0, S, sample0, x, dirs, rb.zs + s0);
+      warp_forward<T, RAW, KEEP_RENDER>(tw, rb, st, wp, s0, S, sample0, x, dirs, rb.zs + s0);
     }
   __syncthreads();
   if (warp == 0) ray_composite(rb, S, C, d_z + sample0);
   __syncthreads();
+  // pass 2: the rgb/feature head's cotangent of sample r is w_r g, rounded
   for (int t = 0; t < tiles; ++t)
-    for (int wp = warp; wp < WARPS; wp += WARP_STEP)
-      warp_backward<T, RAW>(tw, rb, st, wp, t * BT + wp * WR, S, sample0, x, dirs, dx, ddirs);
+    for (int wp = warp; wp < WARPS; wp += WARP_STEP) {
+      const int s0 = t * BT + wp * WR, vr = S - s0 < WR ? S - s0 : WR;
+      const float* wgt = rb.wgt + s0;
+      const float* gr = rb.gr;
+      warp_backward<T, RAW>(tw, rb, st, wp, s0, S, sample0, x, dirs, dx, ddirs, rb.dzs + s0,
+                            [=](int r, int c) {
+                              return (r < vr && c < C) ? rnd<T>(wgt[r] * gr[c]) : 0.f;
+                            });
+    }
 }
 
 // Shared-memory bytes of one block of the forward (bwd false) or of the

@@ -5,8 +5,10 @@
 // composite (and its backward) as warp scans. Two sources include this
 // header: fused_render.cu (K3 render_fwd_pre, K4 render_bwd_pre, K7
 // render_fwd, K8 render_bwd) and fused_field.cu, whose forward K1/K5 runs
-// warp_forward in sigma, full and transient mode (field_warp_kernel; the
-// backwards K2/K6 stay on tower.cuh).
+// warp_forward in sigma, full and transient mode (field_warp_kernel) and
+// whose backward K2/K6 in sigma and full mode runs warp_forward and then
+// warp_backward per warp, with or without the dW operands
+// (field_bwd_warp_kernel; transient mode stays on tower.cuh).
 //
 // A block renders one ray in block tiles of BT = 128 samples: warp w owns
 // the tile's rows [16 w, 16 w + 16) through every layer, so the layers
@@ -15,8 +17,9 @@
 // a warp's rows to the sigma head and (DIR) on to the dir layer; the
 // backward (KEEP) also keeps, per sample, what the frozen backward reads:
 // the ReLU bits of each hidden layer and of the dir layer, the sigma
-// pre-activation and the three rgb values. The forward kernel streams the composite tile by tile
-// and keeps nothing per sample past its tile. The backward runs
+// pre-activation and (the render backward) the three rgb values. The
+// forward kernel streams the composite tile by tile and keeps nothing per
+// sample past its tile. The backward runs
 // warp_forward over the whole ray, warp 0 then runs the composite and its
 // backward, and pass 2 runs only the backward from the kept state: no
 // forward is recomputed. That state stays in shared memory while it fits
@@ -39,9 +42,11 @@
 // memory (the parity mode; the host build checks it on the CPU).
 //
 // Same function and rounding points as tower.cuh's tower_forward /
-// tower_backward in FULL mode without dW (and fused_render.py's plain
-// versions): hidden layers accumulate in f32 and round to T before the
-// bias and ReLU in T; heads accumulate in f32.
+// tower_backward in SIGMA and FULL mode (and fused_render.py's and
+// fused_field.py's plain versions): hidden layers accumulate in f32 and
+// round to T before the bias and ReLU in T; heads accumulate in f32. With
+// dW (the field backward) a warp writes its rows' dW operands in
+// tower.cuh's DwSlot layout (WarpDw).
 //
 // Host emulation (NEFES_EMULATE): a block is one thread, so a "warp" is
 // one thread looping over its 32 lanes (LANES = 1) and the block loops
@@ -167,6 +172,20 @@ __host__ __device__ inline int fwd_count(const Dims& d, const Layout& L) {
   int n = 0;
   while (fwd_mat<FWD>(d, L, n).off >= 0) ++n;
   return n;
+}
+
+// How a block's stager orders its matrices: the forward sequence of every
+// block tile, then the backward's of every tile (ORD_RAY, the render
+// backward), or each tile's forward and then its backward (ORD_TILE, the
+// field backward in full mode; ORD_TILE_SIGMA in sigma mode, whose
+// backward starts at the last hidden layer: mat_at's backward from
+// BWD_HEADS on, without the rgb head, the dir layer and final).
+enum Order { ORD_RAY, ORD_TILE, ORD_TILE_SIGMA };
+constexpr int BWD_HEADS = 4;
+
+template <Order ORD>
+__host__ __device__ constexpr int bwd_first() {
+  return ORD == ORD_TILE_SIGMA ? BWD_HEADS : 0;
 }
 
 // elements of one staged matrix
@@ -358,17 +377,17 @@ __device__ void stage_copy(const MatDesc& m, const T* __restrict__ src, T* dst) 
 
 // The weight pipeline of one block: every thread calls get() for every
 // product in the same order, so g counts the matrices of the whole kernel
-// (the forward's sequence FWD per block tile of the block, then, in the
-// backward, the backward's per block tile; the copy of a block tile's
-// first matrix overlaps the previous tile's last product). get() waits
-// for matrix g, makes it visible to the block (the barrier also means
-// every warp is done with matrix g - 1), starts the copy of matrix g + 1
-// into the other stage and returns matrix g; the copy overlaps g's
-// products. Unstaged, get() hands out the global matrix. The
-// tower is an argument of each call, not a member, and the stage is
-// picked by a select, not an index: either would put the kernel's
-// parameters or the two stage pointers in local memory.
-template <typename T, Seq FWD = SEQ_DIR>
+// (the forward's sequence FWD per block tile of the block and, in a
+// backward, the backward's per block tile, in the order ORD; the copy of
+// a block tile's first matrix overlaps the previous tile's last
+// product). get() waits for matrix g, makes it visible to the block (the
+// barrier also means every warp is done with matrix g - 1), starts the
+// copy of matrix g + 1 into the other stage and returns matrix g; the
+// copy overlaps g's products. Unstaged, get() hands out the global
+// matrix. The tower is an argument of each call, not a member, and the
+// stage is picked by a select, not an index: either would put the
+// kernel's parameters or the two stage pointers in local memory.
+template <typename T, Seq FWD = SEQ_DIR, Order ORD = ORD_RAY>
 struct Stager {
   T* buf0;
   T* buf1;
@@ -377,17 +396,25 @@ struct Stager {
   __device__ Stager(const Tower<T>& tw, const RayBufs& rb, int tiles_, bool bwd)
       : buf0(reinterpret_cast<T*>(rb.wbuf[0])), buf1(reinterpret_cast<T*>(rb.wbuf[1])),
         tiles(tiles_), n_fwd(fwd_count<FWD>(tw.d, tw.L)),
-        n_bwd(bwd ? mat_count(tw.d, tw.L, true) : 0), g(0) {
+        n_bwd(bwd ? mat_count(tw.d, tw.L, true) - bwd_first<ORD>() : 0), g(0) {
     if (kStaged<T>) fetch(tw, 0);
   }
 
   __device__ T* stage(int k) const { return (k & 1) ? buf1 : buf0; }
 
   __device__ void fetch(const Tower<T>& tw, int k) {
-    if (k < tiles * n_fwd)
-      copy(tw, fwd_mat<FWD>(tw.d, tw.L, k % n_fwd), stage(k));
-    else if (k < tiles * (n_fwd + n_bwd))
-      copy(tw, mat_at(tw.d, tw.L, true, (k - tiles * n_fwd) % n_bwd), stage(k));
+    if constexpr (ORD == ORD_RAY) {
+      if (k < tiles * n_fwd)
+        copy(tw, fwd_mat<FWD>(tw.d, tw.L, k % n_fwd), stage(k));
+      else if (k < tiles * (n_fwd + n_bwd))
+        copy(tw, mat_at(tw.d, tw.L, true, (k - tiles * n_fwd) % n_bwd), stage(k));
+    } else if (k < tiles * (n_fwd + n_bwd)) {
+      const int j = k % (n_fwd + n_bwd);
+      copy(tw,
+           j < n_fwd ? fwd_mat<FWD>(tw.d, tw.L, j)
+                     : mat_at(tw.d, tw.L, true, j - n_fwd + bwd_first<ORD>()),
+           stage(k));
+    }
     cp_async_commit();
   }
 
@@ -582,6 +609,72 @@ __device__ inline void warp_rows_in(T* dst, int ld, const void* src, size_t s, i
   }
 }
 
+// Eight values of T from src to dst (both 16-byte aligned) by streaming
+// stores (st.global.cs, tower.cuh's store8).
+template <typename T>
+__device__ __forceinline__ void copy8(T* dst, const T* src) {
+#ifndef NEFES_EMULATE
+  if constexpr (sizeof(T) == 2) {
+    __stcs(reinterpret_cast<uint4*>(dst), *reinterpret_cast<const uint4*>(src));
+  } else {
+    __stcs(reinterpret_cast<float4*>(dst), *reinterpret_cast<const float4*>(src));
+    __stcs(reinterpret_cast<float4*>(dst) + 1, *(reinterpret_cast<const float4*>(src) + 1));
+  }
+#else
+  for (int j = 0; j < 8; ++j) dst[j] = src[j];
+#endif
+}
+
+// Where one warp's rows write their dW operands (the field backward with
+// dW; ON false: nowhere, every call a no-op): the chunk's buffer in
+// tower.cuh's DwSlot layout, the block's slot table (dw_table), the
+// chunk's rows, the warp's first row in the chunk and its valid rows. A
+// slot's rows [0, vr) come from a warp buffer (buf: 16-byte rows, zero
+// from the slot's columns to pad16, so eight values go at a time) or from
+// a function of (r, c) (fn: rounded to T on the store); the padding
+// columns are zero. No barrier: the caller's __syncwarp() orders them.
+template <typename T, bool ON>
+struct WarpDw {
+  T* ops;
+  const int* slots;
+  int rows, row0, vr;
+
+  __device__ T* slot(int k, int ld) const {
+    return ops + (size_t)slots[N_SLOTS + k] * rows + (size_t)row0 * ld;
+  }
+
+  __device__ void buf(int k, const T* src, int lds) const {
+    if constexpr (ON) {
+      const int ld = pad8(slots[k]), units = ld / 8;
+      T* dst = slot(k, ld);
+      for (int u = threadIdx.x & (LANES - 1); u < vr * units; u += LANES) {
+        const int r = u / units, c = (u - r * units) * 8;
+        copy8(dst + (size_t)r * ld + c, src + r * lds + c);
+      }
+    }
+  }
+
+  template <typename Fn>
+  __device__ void fn(int k, Fn f) const {
+    if constexpr (ON) {
+      const int cols = slots[k], ld = pad8(cols), units = ld / 8;
+      T* dst = slot(k, ld);
+      for (int u = threadIdx.x & (LANES - 1); u < vr * units; u += LANES) {
+        const int r = u / units, c = (u - r * units) * 8;
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = c + j < cols ? f(r, c + j) : 0.f;
+        store8(dst + (size_t)r * ld + c, v);
+      }
+    }
+  }
+};
+
+// What warp_forward keeps for a backward: nothing (the forwards), the
+// ReLU bits of every layer (the field backward) or also the three rgb
+// values (the render backward, whose composite reads them).
+enum Keep { KEEP_NONE, KEEP_BITS, KEEP_RENDER };
+
 // The buffer of warp wp's region in which warp_forward leaves the dir
 // layer's output de (16 x H, row stride ld_of(H)): the hidden layers
 // alternate between ha and hb, and de overwrites the last one's input.
@@ -594,30 +687,32 @@ __device__ inline const T* warp_de(const Dims& d, const RayBufs& rb, int wp, boo
 // The forward of one warp over the ray's samples [s0, s0 + 16) (vr of
 // them valid): the sigma pre-activations into zs[0, vr) and, DIR, the dir
 // layer's output de left in warp_de(). Without DIR the warp stops after
-// the sigma head and reads no dirs (the field forward's sigma mode); LEAN:
-// the field forward's warp layout, FWD its stager's sequence. KEEP (the
-// backward's pass 1): also the backward's per-sample state in rb, the ReLU
-// bits and the rgb head.
+// the sigma head and reads no dirs (the field's sigma mode); LEAN: the
+// field forward's warp layout; st the block's stager. KEEP: also what a
+// backward reads in rb (the ReLU bits at rb.mask + s0 rows, and for the
+// render backward the rgb head). dw: the A operands of the dW products
+// (the embeddings, every hidden layer, final and the dir layer's output).
 // Both passes are inlined into the kernel: a call passes the tower, the
 // stager and the epilogues through local memory, a stack frame that cost
 // the bf16 K4 more than a third of its time on an H100.
-template <typename T, bool RAW, bool KEEP, bool DIR = true, bool LEAN = false,
-          Seq FWD = SEQ_DIR>
-__device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBufs& rb,
-                                             Stager<T, FWD>& st,
+template <typename T, bool RAW, Keep KEEP, bool DIR = true, bool LEAN = false, typename St,
+          typename Dw = WarpDw<T, false>>
+__device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBufs& rb, St& st,
                                              int wp, int s0, int S, size_t sample0, const void* x,
-                                             const void* dirs, float* zs) {
+                                             const void* dirs, float* zs, const Dw& dw = Dw{}) {
   const Dims& d = tw.d;
   const Layout& L = tw.L;
   const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, C = 3 + d.F, nw = (W + 31) / 32;
   const int ldw = ld_of(W), ldh = ld_of(H), lde = ld_of(E), ldd = ld_of(Ed);
   const int vr = S - s0 < 0 ? 0 : (S - s0 < WR ? S - s0 : WR);
   const WarpBufs<T> wb = warp_bufs<T>(d, rb, wp, LEAN, DIR);
-  uint32_t* bits = KEEP ? rb.mask + (size_t)s0 * rb.mw : nullptr;
-  static_assert(DIR || !KEEP, "the backward's state needs the dir layer");
+  uint32_t* bits = KEEP != KEEP_NONE ? rb.mask + (size_t)s0 * rb.mw : nullptr;
+  static_assert(DIR || KEEP != KEEP_RENDER, "the render backward's state needs the dir layer");
   warp_rows_in<T, RAW>(wb.xe, lde, x, sample0 + s0, vr, E);
   if (DIR) warp_rows_in<T, RAW>(wb.xd, ldd, dirs, sample0 + s0, vr, Ed);
   __syncwarp();
+  dw.buf(A_EMB, wb.xe, lde);
+  if (DIR) dw.buf(A_EMBD, wb.xd, ldd);
 
   const SmemA<T> a_emb{wb.xe, lde};
   T* h = wb.ha;
@@ -645,7 +740,8 @@ __device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBufs& 
                  [=](int r, int c, float acc) { bias_relu(r, c, rnd<T>(acc)); });
     }
     __syncwarp();
-    if (KEEP) keep_bits(ho, ldw, W, vr, bits + i * nw, rb.mw);
+    if (KEEP != KEEP_NONE) keep_bits(ho, ldw, W, vr, bits + i * nw, rb.mw);
+    dw.buf(A_H + i, ho, ldw);
     hn = h;
     h = ho;
   }
@@ -674,6 +770,7 @@ __device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBufs& 
                });
   }
   __syncwarp();
+  dw.buf(A_H + d.depth, hn, ldw);
   // de = relu(final @ dir_wh + embd @ dir_wd + dir_b), into h
   T* de = h;
   {
@@ -688,8 +785,9 @@ __device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBufs& 
                });
   }
   __syncwarp();
-  if constexpr (KEEP) {
-    keep_bits(de, ldh, H, vr, bits + d.depth * nw, rb.mw);
+  dw.buf(A_DE, de, ldh);
+  if constexpr (KEEP != KEEP_NONE) keep_bits(de, ldh, H, vr, bits + d.depth * nw, rb.mw);
+  if constexpr (KEEP == KEEP_RENDER) {
     // rgb head (the three rgb columns; the features never reach the
     // composite's backward): f32 accumulation plus f32 bias
     const T* rw = tw.w + L.rgb_w;
@@ -704,58 +802,62 @@ __device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBufs& 
   __syncwarp();
 }
 
-// Pass 2 for one warp: the tower backward of samples [s0, s0 + 16) from
-// the kept state, the sample cotangents (rb.wgt, rb.dzs) and the ray's
-// output cotangent rb.gr; writes the embedding cotangents (or, RAW, the
-// point and direction cotangents) of the valid rows.
-template <typename T, bool RAW>
-__device__ __forceinline__ void warp_backward(const Tower<T>& tw, const RayBufs& rb, Stager<T>& st,
+// The tower backward of one warp over samples [s0, s0 + 16) (vr of them
+// valid) from the state warp_forward kept (KEEP): the sigma head's
+// cotangent dzs[0, 16) (unrounded, the sigmoid applied) and, DIR, the
+// rgb/feature head's A operand grf(r, c), the cotangent rounded to T (0
+// past vr rows and 3 + F columns); writes the embedding cotangents (or,
+// RAW, the point and direction cotangents) of the valid rows; without DIR
+// (the field's sigma mode) the backward starts at the last hidden layer
+// and writes no direction cotangents. dw: the G operands of the dW
+// products (the dir layer's, final's and every hidden layer's output
+// cotangent; the caller writes the heads'). The render backward's pass 2
+// (grf = w_r g_c) and the field backward (the rows' head cotangents).
+template <typename T, bool RAW, bool DIR = true, typename St, typename GRf,
+          typename Dw = WarpDw<T, false>>
+__device__ __forceinline__ void warp_backward(const Tower<T>& tw, const RayBufs& rb, St& st,
                                               int wp, int s0, int S, size_t sample0, const void* x,
-                                              const void* dirs, void* dx, void* ddirs) {
+                                              const void* dirs, void* dx, void* ddirs,
+                                              const float* dzs, GRf grf, const Dw& dw = Dw{}) {
   const Dims& d = tw.d;
   const Layout& L = tw.L;
   const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, C = 3 + d.F, nw = (W + 31) / 32;
   const int ldw = ld_of(W), ldh = ld_of(H), mw = rb.mw;
   const int vr = S - s0 < 0 ? 0 : (S - s0 < WR ? S - s0 : WR);
-  const WarpBufs<T> wb = warp_bufs<T>(d, rb, wp);
+  const WarpBufs<T> wb = warp_bufs<T>(d, rb, wp, false, DIR);
   const uint32_t* bits = rb.mask + (size_t)s0 * mw;
   // relu' of unit c of word block `w0` (a layer) for row r
   auto on = [=](int r, int w0, int c) {
     return r < vr && ((bits[r * mw + w0 + (c >> 5)] >> (c & 31)) & 1u);
   };
-  int k = 0;
-
-  // d_de = grf @ rgb_w^T with grf(r, c) = w_r g_c rounded to T (every
-  // channel: the features reach the head), times relu'(de)
-  T* dzd = wb.xe;
-  {
-    const float* wgt = rb.wgt + s0;
-    const float* gr = rb.gr;
-    auto grf = [=](int r, int c) { return (r < vr && c < C) ? rnd<T>(wgt[r] * gr[c]) : 0.f; };
-    warp_mm<T>(FnA<decltype(grf)>{grf}, C, st.get(tw, mat_at(d, L, true, k++)), H,
+  const T* sw = tw.w + L.sig_w;
+  int k = DIR ? 0 : BWD_HEADS;
+  // d_h of the last hidden layer, times its relu', into hb
+  T* cur = wb.hb;
+  float* dembd = reinterpret_cast<float*>(wb.xd);
+  if constexpr (DIR) {
+    // d_de = grf @ rgb_w^T (every channel: the features reach the head),
+    // times relu'(de), into xe
+    T* dzd = wb.xe;
+    warp_mm<T>(FnA<GRf>{grf}, C, st.get(tw, mat_at(d, L, true, k++)), H,
                [=](int r, int c, float acc) {
                  dzd[r * ldh + c] = from_f<T>(on(r, d.depth * nw, c) ? acc : 0.f);
                });
-  }
-  __syncwarp();
-  // d_final = dzd @ dir_wh^T rounded, into ha; d_embd = dzd @ dir_wd^T in
-  // f32, into xd
-  T* dfin = wb.ha;
-  float* dembd = reinterpret_cast<float*>(wb.xd);
-  {
-    const SmemA<T> a{dzd, ldh};
-    warp_mm<T>(a, H, st.get(tw, mat_at(d, L, true, k++)), W,
-               [=](int r, int c, float acc) { dfin[r * ldw + c] = from_f<T>(acc); });
-    warp_mm<T>(a, H, st.get(tw, mat_at(d, L, true, k++)), Ed,
-               [=](int r, int c, float acc) { dembd[r * Ed + c] = acc; });
-  }
-  __syncwarp();
-  // d_h of the last hidden layer: the sigma head's and final's
-  // cotangents, each rounded, summed in T; times its relu', into hb
-  T* cur = wb.hb;
-  {
-    const float* dzs = rb.dzs + s0;
-    const T* sw = tw.w + L.sig_w;
+    __syncwarp();
+    dw.buf(G_DIR, dzd, ldh);
+    // d_final = dzd @ dir_wh^T rounded, into ha; d_embd = dzd @ dir_wd^T
+    // in f32, into xd
+    T* dfin = wb.ha;
+    {
+      const SmemA<T> a{dzd, ldh};
+      warp_mm<T>(a, H, st.get(tw, mat_at(d, L, true, k++)), W,
+                 [=](int r, int c, float acc) { dfin[r * ldw + c] = from_f<T>(acc); });
+      warp_mm<T>(a, H, st.get(tw, mat_at(d, L, true, k++)), Ed,
+                 [=](int r, int c, float acc) { dembd[r * Ed + c] = acc; });
+    }
+    __syncwarp();
+    dw.buf(G_FIN, dfin, ldw);
+    // the sigma head's and final's cotangents, each rounded, summed in T
     const int w0 = (d.depth - 1) * nw;
     T* o = cur;
     warp_mm<T>(SmemA<T>{dfin, ldw}, W, st.get(tw, mat_at(d, L, true, k++)), W,
@@ -764,6 +866,14 @@ __device__ __forceinline__ void warp_backward(const Tower<T>& tw, const RayBufs&
                      on(r, w0, c) ? rnd<T>(rnd<T>(rnd<T>(dzs[r]) * to_f<T>(sw[c])) + rnd<T>(acc))
                                   : 0.f);
                });
+  } else {
+    // the sigma head's cotangent alone
+    const int w0 = (d.depth - 1) * nw;
+    for (int i = threadIdx.x & (LANES - 1); i < WR * W; i += LANES) {
+      const int r = i / W, c = i - r * W;
+      cur[r * ldw + c] =
+          from_f<T>(on(r, w0, c) ? rnd<T>(rnd<T>(dzs[r]) * to_f<T>(sw[c])) : 0.f);
+    }
   }
   __syncwarp();
   // the hidden layers, last to first; d_emb sums the skip layers' and the
@@ -772,6 +882,7 @@ __device__ __forceinline__ void warp_backward(const Tower<T>& tw, const RayBufs&
   T* nxt = wb.ha;
   bool first = true;
   for (int i = d.depth - 1; i >= 0; --i) {
+    dw.buf(G_DZ + i, cur, ldw);
     const SmemA<T> a{cur, ldw};
     auto add_emb = [=](int r, int c, float acc) {
       demb[r * E + c] = first ? acc : demb[r * E + c] + acc;
@@ -805,15 +916,16 @@ __device__ __forceinline__ void warp_backward(const Tower<T>& tw, const RayBufs&
     for (int i = threadIdx.x & (LANES - 1); i < vr * 3; i += LANES) {
       const int r = i / 3, j = i - 3 * r;
       ox[s * 3 + i] = embed_grad(demb + r * E, px[(s + r) * 3 + j], j, E);
-      od[s * 3 + i] = embed_grad(dembd + r * Ed, pd[(s + r) * 3 + j], j, Ed);
+      if (DIR) od[s * 3 + i] = embed_grad(dembd + r * Ed, pd[(s + r) * 3 + j], j, Ed);
     }
   } else {
     T* ox = static_cast<T*>(dx);
     T* od = static_cast<T*>(ddirs);
     for (int i = threadIdx.x & (LANES - 1); i < vr * E; i += LANES)
       ox[s * E + i] = from_f<T>(demb[i]);
-    for (int i = threadIdx.x & (LANES - 1); i < vr * Ed; i += LANES)
-      od[s * Ed + i] = from_f<T>(dembd[i]);
+    if (DIR)
+      for (int i = threadIdx.x & (LANES - 1); i < vr * Ed; i += LANES)
+        od[s * Ed + i] = from_f<T>(dembd[i]);
   }
   __syncwarp();
 }

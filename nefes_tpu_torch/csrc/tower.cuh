@@ -1,11 +1,12 @@
 // Shared device code of the NeRFH-NFF tower kernels: the dims, layout and
-// embedding every kernel reads, and the first design's block path, which
-// fused_field.cu's field_bwd_kernel (K2/K6, with or without the weight
-// gradients) and micro.cu's chains run: the MLP tower's forward (and, in
-// transient mode, the NeRF-W transient branch), recomputed, and its
-// backward, over one tile of TR samples per block, fed either
-// pre-embedded rows or raw f32 points and directions that the tile embeds
-// itself (the raw-input K6). The forwards K1/K5 in every mode and the
+// embedding every kernel reads, the dW operands' slot layout, and the
+// first design's block path, which fused_field.cu's field_bwd_kernel
+// (K2/K6 in transient mode, with or without the weight gradients) and
+// micro.cu's chains run: the MLP tower's forward (and the NeRF-W
+// transient branch), recomputed, and its backward, over one tile of TR
+// samples per block, fed either pre-embedded rows or raw f32 points and
+// directions that the tile embeds itself (the raw-input K6). The forwards
+// K1/K5 in every mode, the backwards K2/K6 in sigma and full mode and the
 // render kernels K3/K4/K7/K8 run render_bwd.cuh's warp path instead.
 //
 // Replaces the per-tile bodies of the Pallas kernels in
@@ -42,11 +43,12 @@
 // on the CUDA cores, each thread computing 4x4 micro-tiles with FMA. This
 // first version is far from the bound: the A fragments are rebuilt from
 // f32 shared memory with bank conflicts and the B fragments come from L1.
-// The render kernels (K3/K4, K7/K8) and K1/K5 in every mode no longer use
-// this path: render_bwd.cuh runs their products per warp from bf16 tiles
-// with the weights staged in shared memory (the render backward's forward
-// once per sample). Still on it: the forward that K2/K6 recompute and
-// their backward to the inputs.
+// The render kernels (K3/K4, K7/K8), K1/K5 in every mode and K2/K6 in
+// sigma and full mode no longer use this path: render_bwd.cuh runs their
+// products per warp from bf16 tiles with the weights staged in shared
+// memory (the render backward's forward once per sample). Still on it:
+// K2/K6 in transient mode, the forward they recompute and their backward
+// to the inputs.
 //
 // The field backward stores no activations: it recomputes the forward for
 // the tile and keeps one ReLU bit per unit and layer, plus the dir-layer
@@ -260,8 +262,8 @@ struct Smem {
   float* dzs;       // TR      its cotangent
   float* demb;      // TR x E  the cotangent of emb
   uint32_t* mask;   // depth x TR x W/32 ReLU bits
-  float* t1;        // TR x H  transient layers (transient mode; their
-  float* t2;        // TR x H  cotangents, in place)
+  float* t1;        // TR x H  transient layers (their cotangents, in
+  float* t2;        // TR x H  place)
   float* t3;        // TR x H
   float* tz;        // TR x 5  transient head pre-activations (cotangents)
   int* slots;       // 2 x N_SLOTS the dW slots' columns and offsets
@@ -274,10 +276,10 @@ __host__ __device__ inline float* take(char* base, size_t* off, size_t n) {
   return p;
 }
 
-// Carve the backward tile's buffers from `base`; returns the bytes used.
-// With base == nullptr only the size is computed (host side). The
-// transient buffers exist in transient mode only.
-__host__ __device__ inline size_t carve(const Dims& d, int mode, char* base, Smem* s) {
+// Carve the backward tile's buffers (transient mode) from `base`; returns
+// the bytes used. With base == nullptr only the size is computed (host
+// side).
+__host__ __device__ inline size_t carve(const Dims& d, char* base, Smem* s) {
   const int W = d.width, H = d.width / 2;
   size_t off = 0;
   Smem t;
@@ -287,17 +289,14 @@ __host__ __device__ inline size_t carve(const Dims& d, int mode, char* base, Sme
   t.h1 = take(base, &off, (size_t)TR * W);
   t.de = take(base, &off, (size_t)TR * H);
   t.zs = take(base, &off, TR);
-  t.t1 = t.t2 = t.t3 = t.tz = nullptr;
   t.dzs = take(base, &off, TR);
   t.demb = take(base, &off, (size_t)TR * d.E);
   t.mask = reinterpret_cast<uint32_t*>(take(base, &off, (size_t)d.depth * TR * (W / 32)));
   t.slots = reinterpret_cast<int*>(take(base, &off, 2 * N_SLOTS));
-  if (mode == TRANSIENT) {
-    t.t1 = take(base, &off, (size_t)TR * H);
-    t.t2 = take(base, &off, (size_t)TR * H);
-    t.t3 = take(base, &off, (size_t)TR * H);
-    t.tz = take(base, &off, (size_t)TR * 5);
-  }
+  t.t1 = take(base, &off, (size_t)TR * H);
+  t.t2 = take(base, &off, (size_t)TR * H);
+  t.t3 = take(base, &off, (size_t)TR * H);
+  t.tz = take(base, &off, (size_t)TR * 5);
   if (s) *s = t;
   return off;
 }
@@ -563,19 +562,18 @@ __device__ __forceinline__ void embed_backward_tile(const float* de, const float
   }
 }
 
-// The tile's inputs into s.emb and, with dirs, s.embd: rows of the
-// pre-embedded (N, E) / (N, Ed) arrays in T or, RAW, the embedding of the
-// f32 (N, 3) points and directions. Ends with a barrier.
+// The tile's inputs into s.emb and s.embd: rows of the pre-embedded (N,
+// E) / (N, Ed) arrays in T or, RAW, the embedding of the f32 (N, 3)
+// points and directions. Ends with a barrier.
 template <typename T, bool RAW>
 __device__ __forceinline__ void tile_inputs(const Dims& d, const Smem& s, const void* x,
-                                            const void* dirs, bool with_dirs, size_t row0,
-                                            int valid) {
+                                            const void* dirs, size_t row0, int valid) {
   if (RAW) {
     embed_tile<T>(s.emb, static_cast<const float*>(x), row0, valid, d.E);
-    if (with_dirs) embed_tile<T>(s.embd, static_cast<const float*>(dirs), row0, valid, d.Ed);
+    embed_tile<T>(s.embd, static_cast<const float*>(dirs), row0, valid, d.Ed);
   } else {
     load_tile<T>(s.emb, static_cast<const T*>(x), row0, valid, d.E);
-    if (with_dirs) load_tile<T>(s.embd, static_cast<const T*>(dirs), row0, valid, d.Ed);
+    load_tile<T>(s.embd, static_cast<const T*>(dirs), row0, valid, d.Ed);
   }
   __syncthreads();
 }
@@ -587,40 +585,37 @@ __device__ __forceinline__ void tile_inputs(const Dims& d, const Smem& s, const 
 // the buffers.
 template <typename T, bool RAW>
 __device__ __forceinline__ void tile_input_grads(const Dims& d, const Smem& s, const void* x,
-                                                 const void* dirs, bool with_dirs, void* dx,
-                                                 void* ddirs, size_t row0, int valid) {
+                                                 const void* dirs, void* dx, void* ddirs,
+                                                 size_t row0, int valid) {
   if (RAW) {
     embed_backward_tile(s.demb, static_cast<const float*>(x), static_cast<float*>(dx), row0,
                         valid, d.E);
-    if (with_dirs)
-      embed_backward_tile(s.embd, static_cast<const float*>(dirs), static_cast<float*>(ddirs),
-                          row0, valid, d.Ed);
+    embed_backward_tile(s.embd, static_cast<const float*>(dirs), static_cast<float*>(ddirs),
+                        row0, valid, d.Ed);
   } else {
     T* de = static_cast<T*>(dx);
     for (int i = threadIdx.x; i < valid * d.E; i += blockDim.x)
       de[row0 * d.E + i] = from_f<T>(s.demb[i]);
-    if (with_dirs) {
-      T* dd = static_cast<T*>(ddirs);
-      for (int i = threadIdx.x; i < valid * d.Ed; i += blockDim.x)
-        dd[row0 * d.Ed + i] = from_f<T>(s.embd[i]);
-    }
+    T* dd = static_cast<T*>(ddirs);
+    for (int i = threadIdx.x; i < valid * d.Ed; i += blockDim.x)
+      dd[row0 * d.Ed + i] = from_f<T>(s.embd[i]);
   }
   __syncthreads();
 }
 
 
-// Forward tower over the tile in s.emb / s.embd (mirrors _tower_tile),
-// as the backward recomputes it. Leaves the last hidden layer's sigma
-// pre-activation in s.zs, the ReLU bits of every hidden layer in s.mask
-// and, in FULL and TRANSIENT mode, the dir-layer output in s.de; in
-// TRANSIENT mode the three transient layers in s.t1..t3 and the transient
-// heads' pre-activations [sigma, rgb x3, beta] in s.tz; with dw.ops (the
-// backward with dW), every layer input of a dW product (the embeddings,
-// the hidden layers, `final`, the dir layer's output and the transient
-// layers) in its slot of the chunk. The rgb/feature head, whose output
-// the backward does not read, is not computed. Ends with a barrier.
+// Forward tower over the tile in s.emb / s.embd (mirrors _tower_tile) in
+// transient mode, as the backward recomputes it. Leaves the last hidden
+// layer's sigma pre-activation in s.zs, the ReLU bits of every hidden
+// layer in s.mask, the dir-layer output in s.de, the three transient
+// layers in s.t1..t3 and the transient heads' pre-activations [sigma, rgb
+// x3, beta] in s.tz; with dw.ops (the backward with dW), every layer
+// input of a dW product (the embeddings, the hidden layers, `final`, the
+// dir layer's output and the transient layers) in its slot of the chunk.
+// The rgb/feature head, whose output the backward does not read, is not
+// computed. Ends with a barrier.
 template <typename T>
-__device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, const DwOut<T>& dw) {
+__device__ void tower_forward(const Tower<T>& tw, const Smem& s, const DwOut<T>& dw) {
   const Dims& d = tw.d;
   const Layout& L = tw.L;
   const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, nw = W / 32;
@@ -630,7 +625,7 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, const
   auto a_emb = [=](int r, int k) { return emb[r * E + k]; };
   if (dw.ops) {
     put_tile(dw, A_EMB, s.emb);
-    if (mode != SIGMA) put_tile(dw, A_EMBD, s.embd);
+    put_tile(dw, A_EMBD, s.embd);
   }
 
   for (int i = 0; i < d.depth; ++i) {
@@ -678,11 +673,6 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, const
     block_mm<T>(W, 1, tw.w + L.sig_w, 1, [=](int r, int k) { return hc[r * W + k]; },
                 [=](int r, int c, float acc) { zs[r] = acc + sb; });
   }
-  if (mode == SIGMA) {
-    __syncthreads();
-    return;
-  }
-
   // final = h @ fin_w + fin_b (no activation), into the free buffer hn
   {
     const float* hc = h;
@@ -715,47 +705,45 @@ __device__ void tower_forward(const Tower<T>& tw, const Smem& s, int mode, const
   __syncthreads();
   if (dw.ops) put_tile(dw, A_DE, s.de);
 
-  if (mode == TRANSIENT) {
-    // t1 = relu(final @ t1_wh + embd @ t1_wd + t1_b), then two 64-wide
-    // layers, each rounded like the dir layer
-    float* t1 = s.t1;
-    const float* b1 = tw.b + L.t1_b;
-    block_mm<T>(W, H, tw.w + L.t1_wh, H, a_fin,
-                [=](int r, int c, float acc) { t1[r * H + c] = rnd<T>(acc); });
-    block_mm<T>(Ed, H, tw.w + L.t1_wd, H, a_embd, [=](int r, int c, float acc) {
-      float z = rnd<T>(t1[r * H + c] + rnd<T>(acc));
-      z = rnd<T>(z + rnd<T>(b1[c]));
-      t1[r * H + c] = fmaxf(z, 0.f);
-    });
+  // t1 = relu(final @ t1_wh + embd @ t1_wd + t1_b), then two 64-wide
+  // layers, each rounded like the dir layer
+  float* t1 = s.t1;
+  const float* b1 = tw.b + L.t1_b;
+  block_mm<T>(W, H, tw.w + L.t1_wh, H, a_fin,
+              [=](int r, int c, float acc) { t1[r * H + c] = rnd<T>(acc); });
+  block_mm<T>(Ed, H, tw.w + L.t1_wd, H, a_embd, [=](int r, int c, float acc) {
+    float z = rnd<T>(t1[r * H + c] + rnd<T>(acc));
+    z = rnd<T>(z + rnd<T>(b1[c]));
+    t1[r * H + c] = fmaxf(z, 0.f);
+  });
+  __syncthreads();
+  if (dw.ops) put_tile(dw, A_T1, s.t1);
+  const float* src[2] = {s.t1, s.t2};
+  float* dst[2] = {s.t2, s.t3};
+  const int wo[2] = {L.t2_w, L.t3_w}, bo[2] = {L.t2_b, L.t3_b};
+  for (int l = 0; l < 2; ++l) {
+    const float* a = src[l];
+    float* o = dst[l];
+    const float* bb = tw.b + bo[l];
+    block_mm<T>(H, H, tw.w + wo[l], H, [=](int r, int k) { return a[r * H + k]; },
+                [=](int r, int c, float acc) {
+                  o[r * H + c] = fmaxf(rnd<T>(rnd<T>(acc) + rnd<T>(bb[c])), 0.f);
+                });
     __syncthreads();
-    if (dw.ops) put_tile(dw, A_T1, s.t1);
-    const float* src[2] = {s.t1, s.t2};
-    float* dst[2] = {s.t2, s.t3};
-    const int wo[2] = {L.t2_w, L.t3_w}, bo[2] = {L.t2_b, L.t3_b};
-    for (int l = 0; l < 2; ++l) {
-      const float* a = src[l];
-      float* o = dst[l];
-      const float* bb = tw.b + bo[l];
-      block_mm<T>(H, H, tw.w + wo[l], H, [=](int r, int k) { return a[r * H + k]; },
-                  [=](int r, int c, float acc) {
-                    o[r * H + c] = fmaxf(rnd<T>(rnd<T>(acc) + rnd<T>(bb[c])), 0.f);
-                  });
-      __syncthreads();
-      if (dw.ops) put_tile(dw, A_T2 + l, o);
-    }
-    // heads: f32 accumulation plus f32 bias, columns [sigma, rgb x3, beta]
-    const float* t3 = s.t3;
-    float* tz = s.tz;
-    const float bs = tw.b[L.ts_b], bb = tw.b[L.tb_b];
-    const float* br = tw.b + L.tr_b;
-    auto a_t3 = [=](int r, int k) { return t3[r * H + k]; };
-    block_mm<T>(H, 1, tw.w + L.ts_w, 1, a_t3,
-                [=](int r, int, float acc) { tz[r * 5] = acc + bs; });
-    block_mm<T>(H, 3, tw.w + L.tr_w, 3, a_t3,
-                [=](int r, int c, float acc) { tz[r * 5 + 1 + c] = acc + br[c]; });
-    block_mm<T>(H, 1, tw.w + L.tb_w, 1, a_t3,
-                [=](int r, int, float acc) { tz[r * 5 + 4] = acc + bb; });
+    if (dw.ops) put_tile(dw, A_T2 + l, o);
   }
+  // heads: f32 accumulation plus f32 bias, columns [sigma, rgb x3, beta]
+  const float* t3 = s.t3;
+  float* tz = s.tz;
+  const float bs = tw.b[L.ts_b], bb = tw.b[L.tb_b];
+  const float* br = tw.b + L.tr_b;
+  auto a_t3 = [=](int r, int k) { return t3[r * H + k]; };
+  block_mm<T>(H, 1, tw.w + L.ts_w, 1, a_t3,
+              [=](int r, int, float acc) { tz[r * 5] = acc + bs; });
+  block_mm<T>(H, 3, tw.w + L.tr_w, 3, a_t3,
+              [=](int r, int c, float acc) { tz[r * 5 + 1 + c] = acc + br[c]; });
+  block_mm<T>(H, 1, tw.w + L.tb_w, 1, a_t3,
+              [=](int r, int, float acc) { tz[r * 5 + 4] = acc + bb; });
   __syncthreads();
 }
 
@@ -765,12 +753,12 @@ __device__ __forceinline__ float transient_head(float z, int j) {
   return (j == 0 || j == 4) ? softplus(z) : sigmoid(z);
 }
 
-// Backward of the tower (mirrors _mlp_backward up to the embedding).
-// Needs the state tower_forward left with keep_masks. gsig(r): cotangent
-// of the sigma output; grf(r, c), c < 3 + F: of the rgb/feature head
-// (FULL and TRANSIENT); gtr(r, j), j < 5: of the transient heads
-// (TRANSIENT). Leaves the embedding cotangents in f32 in s.demb and,
-// unless SIGMA, in s.embd (the dir embedding is not needed again). With
+// Backward of the tower in transient mode (mirrors _mlp_backward up to
+// the embedding). Needs the state tower_forward left with keep_masks.
+// gsig(r): cotangent of the sigma output; grf(r, c), c < 3 + F: of the
+// rgb/feature head; gtr(r, j), j < 5: of the transient heads. Leaves the
+// embedding cotangents in f32 in s.demb and s.embd (the dir embedding is
+// not needed again). With
 // dw.ops (whose A operands tower_forward wrote) writes every dW product's
 // G operand, a layer's output cotangent rounded to T, to its slot of the
 // chunk, and the heads' bias gradients over the tile (sigma, rgb/feature
@@ -778,8 +766,8 @@ __device__ __forceinline__ float transient_head(float z, int j) {
 // dw.part_b; the other biases' gradients, sums of the rounded G, are the
 // dW kernel's. Ends with a barrier.
 template <typename T, typename GSig, typename GRf, typename GTr>
-__device__ void tower_backward(const Tower<T>& tw, const Smem& s, int mode, GSig gsig, GRf grf,
-                               GTr gtr, const DwOut<T>& dw) {
+__device__ void tower_backward(const Tower<T>& tw, const Smem& s, GSig gsig, GRf grf, GTr gtr,
+                               const DwOut<T>& dw) {
   const Dims& d = tw.d;
   const Layout& L = tw.L;
   const int W = d.width, H = W / 2, E = d.E, C = 3 + d.F, nw = W / 32;
@@ -803,114 +791,103 @@ __device__ void tower_backward(const Tower<T>& tw, const Smem& s, int mode, GSig
     put_g(G_SIG, g_sig);
     block_db(1, g_sig, pb + L.sig_b);
   }
-  if (mode != SIGMA) {
-    float* dzd = s.de;   // overwritten in place: each element by its own thread
-    if (wgrad) {
-      put_g(G_RGB, grf);
-      block_db(C, grf, pb + L.rgb_b);
-    }
-    block_mm<T>(C, H, tw.wt + L.rgb_w, H, [=](int r, int k) { return rnd<T>(grf(r, k)); },
-                [=](int r, int c, float acc) {
-                  dzd[r * H + c] = dzd[r * H + c] > 0.f ? rnd<T>(acc) : 0.f;
-                });
-    if (mode == TRANSIENT) {
-      // head cotangents through softplus / sigmoid, in place, f32
-      float* tz = s.tz;
-      for (int i = threadIdx.x; i < TR * 5; i += blockDim.x) {
-        const int j = i % 5;
-        const float sg = sigmoid(tz[i]);
-        const float g = gtr(i / 5, j);
-        tz[i] = (j == 0 || j == 4) ? g * sg : g * sg * (1.f - sg);
-      }
-    }
-    __syncthreads();
-
-    if (mode == TRANSIENT) {
-      float* t1 = s.t1;
-      float* t2 = s.t2;
-      float* t3 = s.t3;
-      const float* dz5 = s.tz;
-      if (wgrad) {
-        auto g_ts = [=](int r, int) { return dz5[r * 5]; };
-        auto g_tr = [=](int r, int c) { return dz5[r * 5 + 1 + c]; };
-        auto g_tb = [=](int r, int) { return dz5[r * 5 + 4]; };
-        put_g(G_TS, g_ts);
-        put_g(G_TR, g_tr);
-        put_g(G_TB, g_tb);
-        block_db(1, g_ts, pb + L.ts_b);
-        block_db(3, g_tr, pb + L.tr_b);
-        block_db(1, g_tb, pb + L.tb_b);
-      }
-      // dt3: the three heads' products, each rounded to T, summed in T in
-      // the order sigma + rgb + beta; times relu'(t3), in place
-      {
-        const T* tsw = tw.w + L.ts_w;
-        const T* trw = tw.w + L.tr_w;
-        const T* tbw = tw.w + L.tb_w;
-        for (int i = threadIdx.x; i < TR * H; i += blockDim.x) {
-          const int r = i / H, c = i - r * H;
-          const float* g = dz5 + r * 5;
-          const float a = rnd<T>(rnd<T>(g[0]) * to_f<T>(tsw[c]));
-          float acc = 0.f;
-          for (int j = 0; j < 3; ++j) acc = fmaf(rnd<T>(g[1 + j]), to_f<T>(trw[c * 3 + j]), acc);
-          const float b = rnd<T>(acc);
-          const float e = rnd<T>(rnd<T>(g[4]) * to_f<T>(tbw[c]));
-          const float v = rnd<T>(rnd<T>(a + b) + e);
-          t3[i] = t3[i] > 0.f ? v : 0.f;
-        }
-      }
-      __syncthreads();
-      // t3 -> t2 -> t1, each: the output cotangent out as G, then the
-      // input's cotangent in place of the input
-      float* tin[2] = {t2, t1};
-      const float* tout[2] = {t3, t2};
-      const int wo[2] = {L.t3_w, L.t2_w};
-      for (int l = 0; l < 2; ++l) {
-        float* a = tin[l];
-        const float* g = tout[l];
-        auto g_t = [=](int r, int c) { return g[r * H + c]; };
-        if (wgrad) put_g(G_T3 - l, g_t);
-        block_mm<T>(H, H, tw.wt + wo[l], H, g_t, [=](int r, int c, float acc) {
-          a[r * H + c] = a[r * H + c] > 0.f ? rnd<T>(acc) : 0.f;
-        });
-        __syncthreads();
-      }
-    }
-
-    const float* dzt1 = s.t1;
-    auto g_d = [=](int r, int c) { return dzd[r * H + c]; };
-    auto g_t1 = [=](int r, int c) { return dzt1[r * H + c]; };
-    if (wgrad) {
-      put_g(G_DIR, g_d);
-      if (mode == TRANSIENT) put_g(G_T1, g_t1);
-    }
-    // d_final = dzd @ dir_wh^T (+ dzt1 @ t1_wh^T), each rounded, into dn;
-    // d_embd = dzd @ dir_wd^T (+ dzt1 @ t1_wd^T) in f32, into s.embd. The
-    // second product of each pair has the first one's N, so every element
-    // goes to the same thread and no barrier sits between them.
-    block_mm<T>(H, W, tw.wt + L.dir_wh, W, g_d,
-                [=](int r, int c, float acc) { dn[r * W + c] = rnd<T>(acc); });
-    float* dembd = s.embd;
-    block_mm<T>(H, d.Ed, tw.wt + L.dir_wd, d.Ed, g_d,
-                [=](int r, int c, float acc) { dembd[r * d.Ed + c] = acc; });
-    if (mode == TRANSIENT) {
-      block_mm<T>(H, W, tw.wt + L.t1_wh, W, g_t1, [=](int r, int c, float acc) {
-        dn[r * W + c] = rnd<T>(dn[r * W + c] + rnd<T>(acc));
-      });
-      block_mm<T>(H, d.Ed, tw.wt + L.t1_wd, d.Ed, g_t1,
-                  [=](int r, int c, float acc) { dembd[r * d.Ed + c] += acc; });
-    }
-    __syncthreads();
-    const float* dfin = dn;
-    auto g_fin = [=](int r, int c) { return dfin[r * W + c]; };
-    if (wgrad) put_g(G_FIN, g_fin);
-    block_mm<T>(W, W, tw.wt + L.fin_w, W, g_fin, [=](int r, int c, float acc) {
-      dh[r * W + c] = rnd<T>(rnd<T>(rnd<T>(dzs[r]) * to_f<T>(sig_w[c])) + rnd<T>(acc));
-    });
-  } else {
-    for (int i = threadIdx.x; i < TR * W; i += blockDim.x)
-      dh[i] = rnd<T>(rnd<T>(dzs[i / W]) * to_f<T>(sig_w[i % W]));
+  float* dzd = s.de;   // overwritten in place: each element by its own thread
+  if (wgrad) {
+    put_g(G_RGB, grf);
+    block_db(C, grf, pb + L.rgb_b);
   }
+  block_mm<T>(C, H, tw.wt + L.rgb_w, H, [=](int r, int k) { return rnd<T>(grf(r, k)); },
+              [=](int r, int c, float acc) {
+                dzd[r * H + c] = dzd[r * H + c] > 0.f ? rnd<T>(acc) : 0.f;
+              });
+  // head cotangents through softplus / sigmoid, in place, f32
+  float* tz = s.tz;
+  for (int i = threadIdx.x; i < TR * 5; i += blockDim.x) {
+    const int j = i % 5;
+    const float sg = sigmoid(tz[i]);
+    const float g = gtr(i / 5, j);
+    tz[i] = (j == 0 || j == 4) ? g * sg : g * sg * (1.f - sg);
+  }
+  __syncthreads();
+
+  float* t1 = s.t1;
+  float* t2 = s.t2;
+  float* t3 = s.t3;
+  const float* dz5 = s.tz;
+  if (wgrad) {
+    auto g_ts = [=](int r, int) { return dz5[r * 5]; };
+    auto g_tr = [=](int r, int c) { return dz5[r * 5 + 1 + c]; };
+    auto g_tb = [=](int r, int) { return dz5[r * 5 + 4]; };
+    put_g(G_TS, g_ts);
+    put_g(G_TR, g_tr);
+    put_g(G_TB, g_tb);
+    block_db(1, g_ts, pb + L.ts_b);
+    block_db(3, g_tr, pb + L.tr_b);
+    block_db(1, g_tb, pb + L.tb_b);
+  }
+  // dt3: the three heads' products, each rounded to T, summed in T in
+  // the order sigma + rgb + beta; times relu'(t3), in place
+  {
+    const T* tsw = tw.w + L.ts_w;
+    const T* trw = tw.w + L.tr_w;
+    const T* tbw = tw.w + L.tb_w;
+    for (int i = threadIdx.x; i < TR * H; i += blockDim.x) {
+      const int r = i / H, c = i - r * H;
+      const float* g = dz5 + r * 5;
+      const float a = rnd<T>(rnd<T>(g[0]) * to_f<T>(tsw[c]));
+      float acc = 0.f;
+      for (int j = 0; j < 3; ++j) acc = fmaf(rnd<T>(g[1 + j]), to_f<T>(trw[c * 3 + j]), acc);
+      const float b = rnd<T>(acc);
+      const float e = rnd<T>(rnd<T>(g[4]) * to_f<T>(tbw[c]));
+      const float v = rnd<T>(rnd<T>(a + b) + e);
+      t3[i] = t3[i] > 0.f ? v : 0.f;
+    }
+  }
+  __syncthreads();
+  // t3 -> t2 -> t1, each: the output cotangent out as G, then the
+  // input's cotangent in place of the input
+  float* tin[2] = {t2, t1};
+  const float* tout[2] = {t3, t2};
+  const int wo[2] = {L.t3_w, L.t2_w};
+  for (int l = 0; l < 2; ++l) {
+    float* a = tin[l];
+    const float* g = tout[l];
+    auto g_t = [=](int r, int c) { return g[r * H + c]; };
+    if (wgrad) put_g(G_T3 - l, g_t);
+    block_mm<T>(H, H, tw.wt + wo[l], H, g_t, [=](int r, int c, float acc) {
+      a[r * H + c] = a[r * H + c] > 0.f ? rnd<T>(acc) : 0.f;
+    });
+    __syncthreads();
+  }
+
+  const float* dzt1 = s.t1;
+  auto g_d = [=](int r, int c) { return dzd[r * H + c]; };
+  auto g_t1 = [=](int r, int c) { return dzt1[r * H + c]; };
+  if (wgrad) {
+    put_g(G_DIR, g_d);
+    put_g(G_T1, g_t1);
+  }
+  // d_final = dzd @ dir_wh^T (+ dzt1 @ t1_wh^T), each rounded, into dn;
+  // d_embd = dzd @ dir_wd^T (+ dzt1 @ t1_wd^T) in f32, into s.embd. The
+  // second product of each pair has the first one's N, so every element
+  // goes to the same thread and no barrier sits between them.
+  block_mm<T>(H, W, tw.wt + L.dir_wh, W, g_d,
+              [=](int r, int c, float acc) { dn[r * W + c] = rnd<T>(acc); });
+  float* dembd = s.embd;
+  block_mm<T>(H, d.Ed, tw.wt + L.dir_wd, d.Ed, g_d,
+              [=](int r, int c, float acc) { dembd[r * d.Ed + c] = acc; });
+  block_mm<T>(H, W, tw.wt + L.t1_wh, W, g_t1, [=](int r, int c, float acc) {
+    dn[r * W + c] = rnd<T>(dn[r * W + c] + rnd<T>(acc));
+  });
+  block_mm<T>(H, d.Ed, tw.wt + L.t1_wd, d.Ed, g_t1,
+              [=](int r, int c, float acc) { dembd[r * d.Ed + c] += acc; });
+  __syncthreads();
+  const float* dfin = dn;
+  auto g_fin = [=](int r, int c) { return dfin[r * W + c]; };
+  if (wgrad) put_g(G_FIN, g_fin);
+  block_mm<T>(W, W, tw.wt + L.fin_w, W, g_fin, [=](int r, int c, float acc) {
+    dh[r * W + c] = rnd<T>(rnd<T>(rnd<T>(dzs[r]) * to_f<T>(sig_w[c])) + rnd<T>(acc));
+  });
   __syncthreads();
 
   float* demb = s.demb;

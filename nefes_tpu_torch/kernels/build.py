@@ -130,6 +130,8 @@ _SIGNATURES = {
     "nefes_field_dw": [_I] * 10 + [_P, _P, _I, _I, _P, _P],
     "nefes_field_smem_bytes": [_I] * 8,
     "nefes_field_blocks_per_sm": [_I] * 9,
+    "nefes_field_bwd_smem_bytes": [_I] * 8,
+    "nefes_field_bwd_blocks_per_sm": [_I] * 9,
     "nefes_field_dw_reduce": [_I, _I, _P, _P, _P],
     "nefes_render_fwd_pre": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _P, _P],
@@ -145,6 +147,11 @@ _SIGNATURES = {
 # counterparts (points and directions in place of the embeddings)
 for _k in ("field_fwd", "field_bwd", "render_fwd", "render_bwd"):
     _SIGNATURES[f"nefes_{_k}_raw"] = _SIGNATURES[f"nefes_{_k}_pre"]
+# the backward's _grid entry points take its persistent grid before the
+# stream
+for _k in ("pre", "raw"):
+    _SIGNATURES[f"nefes_field_bwd_{_k}_grid"] = (
+        _SIGNATURES[f"nefes_field_bwd_{_k}"][:-1] + [_I, _P])
 
 
 def library(name: str, emulate: bool = False, build_dir: Path | None = None,

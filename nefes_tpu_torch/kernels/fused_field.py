@@ -15,12 +15,16 @@ on pre-embedded inputs (K1, K2) or on raw points and directions (K5, K6).
 
 K1/K5 in every mode (sigma, full and transient) run the render kernels'
 warp path (csrc/render_bwd.cuh) as a persistent grid of fwd_blocks()
-blocks over block tiles of BLOCK_TILE samples; K2/K6 run
-csrc/tower.cuh's tiles of TILE_ROWS. K2/K6 with need_dw run over
-chunks of rows (dw_plan): each launch writes the chunk's dW operands
-(every layer's input and output cotangent, row-major) and per-tile bias
-sums, and the dW kernel (field_dw, csrc/field_dw.cuh) contracts them over
-the chunk's rows into row-slice partials that field_dw_reduce sums.
+blocks over block tiles of BLOCK_TILE samples; K2/K6 in sigma and full
+mode run it too, on a persistent grid that the C entry point sizes to the
+card (one block an SM), each warp recomputing its rows' forward and then
+running their backward; K2/K6 in transient mode run csrc/tower.cuh's
+tiles of TILE_ROWS. K2/K6 with need_dw run over chunks of rows (dw_plan,
+whole TILE_ROWS tiles, so a chunk may end mid block tile): each launch
+writes the chunk's dW operands (every layer's input and output
+cotangent, row-major) and per-tile bias sums, and the dW kernel
+(field_dw, csrc/field_dw.cuh) contracts them over the chunk's rows into
+row-slice partials that field_dw_reduce sums.
 
 All four follow _tower_tile's rounding points: hidden layers accumulate in
 f32 and round to the pack dtype, then take the bias and the ReLU in the
@@ -61,8 +65,8 @@ TILE_ROWS = 64      # samples per tower tile (csrc/tower.cuh TR)
 # sums, and the dW kernel's blocks an SM the row slices aim at
 DW_SCRATCH_BYTES = 1 << 30
 DW_BLOCKS_PER_SM = 4
-BLOCK_TILE = 128    # samples per block tile of the warp path, K1/K5
-#                     (csrc/render_bwd.cuh BT)
+BLOCK_TILE = 128    # samples per block tile of the warp path, K1/K5 and
+#                     K2/K6 in sigma and full mode (csrc/render_bwd.cuh BT)
 
 
 @dataclass(frozen=True)

@@ -23,7 +23,10 @@ their plain versions are held to the JAX package in test_torch_raw.py).
    K2/K6 (the backward over chunks of rows, the dW kernel on each chunk's
    row slices, one and several, and their reduction; the dW kernel alone
    against field_dw_plain; two calls bit for bit; the chunk plan at the
-   training shapes), checked without a card. The render kernels at
+   training shapes), checked without a card. K2/K6's warp path (sigma
+   and full mode) also at the full-width tower, over chunks that end mid
+   block tile, and on a persistent grid of 2 blocks and one block per
+   block tile, bit for bit the same, with its shared memory a block. The render kernels at
    the full-width tower and up to 1,024 samples a ray (the backward's
    per-sample state past a block's 232,448 bytes of shared memory, in its
    global scratch), and the build of another tree's sources
@@ -293,20 +296,26 @@ def _inputs(gen, spec, N, raw):
 _KIND = {False: "pre", True: "raw"}
 
 
-def _host_bwd(lib, raw, p, mode, x, dirs, g, d, chunk=0, slices=0):
+def _host_bwd(lib, raw, p, mode, x, dirs, g, d, chunk=0, slices=0,
+              blocks=None):
     """Call the host-built K2/K6; with chunk > 0 with dW, over chunks of
     `chunk` rows, each followed by the host-built dW kernel on `slices`
-    row slices, returning the reduced f32 weight gradients."""
+    row slices, returning the reduced f32 weight gradients. blocks: the
+    persistent grid of the warp path (sigma and full mode) through the
+    _grid entry point (0: one block per block tile); None: the entry
+    point's own grid (the host build's: one block)."""
     spec, cd = p.spec, p.spec.torch_dtype
-    bwd = getattr(lib, f"nefes_field_bwd_{_KIND[raw]}")
+    grid = () if blocks is None else (blocks,)
+    bwd = getattr(lib, f"nefes_field_bwd_{_KIND[raw]}"
+                  + ("_grid" if grid else ""))
     N, nw, nb = x.shape[0], p.w.numel(), p.b.numel()
 
     def launch(row0, rows, ops, tile_b):
         assert bwd(kf._DTYPE_CODE[cd], mode, N, x.data_ptr(),
-                   dirs.data_ptr(), p.w.data_ptr(), p.wt.data_ptr(),
+                   kf._ptr(dirs), p.w.data_ptr(), p.wt.data_ptr(),
                    p.b.data_ptr(), *kf.dims(spec), *[v.data_ptr() for v in g],
                    *[v.data_ptr() for v in d], row0, rows, nb, kf._ptr(ops),
-                   kf._ptr(tile_b), None) == 0
+                   kf._ptr(tile_b), *grid, None) == 0
 
     if not chunk:
         launch(0, N, None, None)
@@ -723,6 +732,102 @@ def test_field_warp_smem_fits_a_block(host_build):
         assert smem[code, kf.SIGMA] < smem[code, kf.FULL]
         assert smem[code, kf.FULL] <= smem[code, kf.TRANSIENT]
     assert smem[1, kf.SIGMA] == K1_SMEM_BYTES
+
+
+# The backward K2/K6 in sigma and full mode on the warp path, full width:
+# 200 rows, a block tile of 128 and a ragged one of 72 (four whole warps,
+# one of 8 rows, three empty), frozen and with dW in one chunk
+@pytest.mark.parametrize("need_dw", [False, True], ids=["frozen", "dw"])
+@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL], ids=["sigma", "full"])
+@pytest.mark.parametrize("raw", [False, True], ids=["pre", "raw"])
+def test_field_bwd_warp_full_width_matches_plain(raw, mode, need_dw,
+                                                 full_width, host_build):
+    """K2 (pre) or K6 (raw) at the full width (D8/W128/F128, the main
+    path's coarse tower) in f32, 200 rows, host build against the plain
+    version to the scaled 1e-5: the input cotangents and, with dW, every
+    weight and bias gradient of the mode. In sigma mode dirs is null: the
+    warp path reads no directions there."""
+    lib = build.library("fused_field", emulate=True, build_dir=host_build)
+    p, N = full_width[0], 200
+    gen = torch.Generator().manual_seed(201 + 2 * mode + need_dw)
+    x, dirs, hd, (dx_w, dd_w) = _inputs(gen, p.spec, N, raw)
+    g = _cotangents(gen, N, p.spec.feature_dim, hd)
+    d = [torch.empty((N, dx_w), dtype=hd), torch.empty((N, dd_w), dtype=hd)]
+    xd = dirs if mode == kf.FULL else None
+    dw = _host_bwd(lib, raw, p, mode, x, xd, g, d, 256 if need_dw else 0, 2)
+    plain = kf.field_bwd_plain if raw else kf.field_bwd_pre_plain
+    want = plain(p, mode, x, xd, *g, need_dw=need_dw)
+    _scaled_close(d[0], want[0], 1e-5, "d_x")
+    if mode == kf.FULL:
+        _scaled_close(d[1], want[1], 1e-5, "d_dirs")
+    if need_dw:
+        nw = p.w.numel()
+        _scaled_close(dw[:nw], want[2][:nw], 1e-5, "dW")
+        _scaled_close(dw[nw:], want[2][nw:], 1e-5, "db")
+
+
+# 300 rows with dW in chunks of 64 (every chunk half a block tile, the
+# last of 44 rows) and of 192 (the second chunk of 108 rows starts at row
+# 192, mid block tile of the rows, and ends mid its second block tile)
+@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL], ids=["sigma", "full"])
+@pytest.mark.parametrize("raw,chunk,slices", [
+    pytest.param(False, 64, 1, id="float32-chunks-of-64"),
+    pytest.param(True, 64, 2, id="raw-float32-chunks-of-64"),
+    pytest.param(False, 192, 2, id="float32-chunks-of-192")])
+def test_field_bwd_warp_chunks_mid_tile(raw, chunk, slices, mode,
+                                        host_build):
+    """K2/K6 with dW in sigma and full mode over chunks that end in the
+    middle of a 128-row block tile, against the plain version to the
+    scaled 1e-5; then the same chunks on a persistent grid of 2 blocks and
+    on one block per block tile, and a second call, all bit for bit the
+    same as the first call (the host build's own grid: one block)."""
+    spec, p, gen = _emulated_case()
+    lib = build.library("fused_field", emulate=True, build_dir=host_build)
+    N, nw = 300, p.w.numel()
+    x, dirs, hd, (dx_w, dd_w) = _inputs(gen, spec, N, raw)
+    g = _cotangents(gen, N, spec.feature_dim, hd)
+
+    def run(blocks):
+        d = [torch.empty((N, dx_w), dtype=hd),
+             torch.empty((N, dd_w), dtype=hd)]
+        dw = _host_bwd(lib, raw, p, mode, x, dirs, g, d, chunk, slices,
+                       blocks)
+        return [dw, d[0]] + ([d[1]] if mode == kf.FULL else [])
+
+    first = run(None)
+    plain = kf.field_bwd_plain if raw else kf.field_bwd_pre_plain
+    want = plain(p, mode, x, dirs, *g, need_dw=True)
+    _scaled_close(first[0][:nw], want[2][:nw], 1e-5, "dW")
+    _scaled_close(first[0][nw:], want[2][nw:], 1e-5, "db")
+    for o, w in zip(first[1:], want[:2]):
+        _scaled_close(o, w, 1e-5)
+    for blocks in (2, 0, None):
+        for a, b in zip(first, run(blocks)):
+            assert torch.equal(a, b), f"blocks={blocks}"
+
+
+# the shared memory of one K2/K6 block of the warp path in full mode at
+# D8/W128/F128, bf16 and f32 (PERF.md)
+K2_SMEM_BYTES = {1: 208400, 0: 219664}
+
+
+def test_field_bwd_warp_smem_fits_a_block(host_build):
+    """The shared memory of one block of the backward K2/K6's warp path at
+    the full-width ModelConfig() (the coarse tower) in sigma and full
+    mode, bf16 and f32: within an H100 block's 232,448 bytes, sigma mode
+    below full mode, full mode at the figures PERF.md states; one block
+    an SM in the host build's answer."""
+    from nefes_tpu_torch.train.model import ModelConfig
+    lib = build.library("fused_field", emulate=True, build_dir=host_build)
+    dims = kf.dims(kf.FieldSpec.from_model(ModelConfig(), "coarse"))
+    smem = {(code, mode): lib.nefes_field_bwd_smem_bytes(code, mode, *dims)
+            for code in (0, 1) for mode in (kf.SIGMA, kf.FULL)}
+    assert all(0 < b <= BLOCK_SMEM_MAX for b in smem.values())
+    for code in (0, 1):
+        assert smem[code, kf.SIGMA] < smem[code, kf.FULL]
+        assert smem[code, kf.FULL] == K2_SMEM_BYTES[code]
+    assert lib.nefes_field_bwd_blocks_per_sm(1, kf.FULL, 0, *dims) == 1
+    assert lib.nefes_field_bwd_blocks_per_sm(1, kf.TRANSIENT, 0, *dims) == -1
 
 
 def test_build_of_another_tree(host_build, tmp_path):
