@@ -12,8 +12,7 @@ Phases:
          shared memory a block, blocks per SM and the backward's global
          scratch a ray; K1/K5's shared memory a block and blocks per SM in
          sigma and full mode (coarse tower) and transient mode (fine
-         tower); K2/K6's in sigma and full mode (the warp path, coarse
-         tower)
+         tower); K2/K6's likewise (the warp path in every mode)
   check  K1-K8 against their plain PyTorch versions on the card, at the
          shapes of the refinement's main path, in bf16 and f32 (K1/K5 in
          sigma mode, without dirs, and in full mode, also at a sample
@@ -25,14 +24,16 @@ Phases:
          the five transient ones each; two calls and the persistent grid
          against one block per block tile bit for bit the same), K2/K6
          with weight gradients in sigma, full and transient
-         mode (every dW and bias gradient checked), two calls of each
+         mode (every dW and bias gradient checked) and frozen in
+         transient mode, two calls of each
          bit for bit the same, and the dW kernel (field_dw) alone on the
          operands of the first chunk of the fine and the coarse training
-         pass against field_dw_plain; K2/K6 in sigma and full mode (the
-         warp path) at the coarse training shape, frozen and with dW: two
-         calls, and the persistent grid against one block per block
-         tile, bit for bit the same, and with dW over chunks that end in
-         the middle of a block tile against the plain version
+         pass against field_dw_plain; K2/K6 (the warp path) in sigma and
+         full mode at the coarse training shape and in transient mode at
+         the fine one, frozen and with dW: two calls, and the persistent
+         grid against one block per block tile, bit for bit the same, and
+         with dW over chunks that end in the middle of a block tile
+         against the plain version
   mode3  mode-3 refinement at full width (NeFeS D8/W128/F128 in bf16,
          60x80 rays, 64+64 samples) through the pre-embedded kernels
          (fused=fused_pre=fused_render=True, frozen field: K1, K3, K4):
@@ -68,15 +69,17 @@ Phases:
          tree, unpacked with git archive into a git-ignored directory)
          also DIR's, and the
          render kernels K3, K4, K7 and K8, the training backwards K2
-         +dW and K6 +dW (fine pass, transient mode), and K2 and K6 in
-         full mode, frozen at the refinement's fine pass and K6 with dW
-         at the coarse training pass (this tree's also on one block per
-         block tile), of DIR and of this tree in turns on the same
-         inputs, each of DIR's checked against its plain version first;
-         the dW kernel alone on the fine pass's first chunk
+         and K6 in transient mode (fine pass), with dW and frozen, and K2
+         and K6 in full mode, frozen at the refinement's fine pass and K6
+         with dW at the coarse training pass (this tree's backwards also
+         on one block per block tile), of DIR and of this tree in turns
+         on the same inputs, each of DIR's checked against its plain
+         version first; the dW kernel alone on the fine pass's first
+         chunk
   micro  the probe's kernelmicro (nefes_tpu_torch/runtime/probe.py) at the
          fine-pass shape, N = 614,400 rows: K9 (bare bf16 8-layer chain)
-         at tiles 64 (the first design's field block), 512, 2048, 8192, K10 (2 and 4 sub-tiles interleaved),
+         at tiles 64 (micro.cu's sub-tile), 512, 2048, 8192, K10 (2 and
+         4 sub-tiles interleaved),
          K11 (the sin/cos embedding alone) at each tile, K12 (square
          chains of width 128 and 256), then K5, K1 and K1 + K2, each
          timed beside its bound, its plain version and a bf16
@@ -142,17 +145,21 @@ IMG_H, IMG_W, FOCAL_FULL = 4 * H, 4 * W, 4 * FOCAL
 # within PROBE_RGB_TOL (max-abs) of the unfused fine pass + compositor. On
 # an H100 the ratios read 0.06-0.79 and the rgb 2.6e-4 (PERF.md).
 PROBE_BAND, PROBE_RGB_TOL = 4.0, 3e-3
-# The first version of K1/K5, K2/K6 (frozen, full mode) and K3/K4/K7/K8
-# (f32 tiles through tower.cuh, weights through L1; the render kernels'
-# composite in one thread, K4/K8 two tower forwards per sample), at the
-# time phase's shape: PERF.md's times, an H100 80GB HBM3 at 700 W; the
-# time phase prints them beside the new ones.
+# The first version of K1/K5, K2/K6 (frozen, full mode; in transient mode
+# at the fine training pass with dW and frozen) and K3/K4/K7/K8 (f32
+# tiles, weights through L1; the render kernels' composite in one thread,
+# K4/K8 two tower forwards per sample), at the time phase's shape:
+# PERF.md's times, an H100 80GB HBM3 at 700 W; the time phase prints them
+# beside the new ones.
 EARLIER_MS = {"K1 field_fwd_pre": 3.589, "K5 field_fwd": 3.739,
               "K2 field_bwd_pre": 28.915, "K6 field_bwd": 29.821,
               "K3 render_fwd_pre": 16.172, "K4 render_bwd_pre": 42.796,
               "K7 render_fwd": 14.576, "K8 render_bwd": 43.761,
               "K1 field_fwd_pre transient": 20.005,
-              "K5 field_fwd transient": 20.756}
+              "K5 field_fwd transient": 20.756,
+              "K2 field_bwd_pre +dW": 50.784, "K6 field_bwd +dW": 51.629,
+              "K2 field_bwd_pre transient": 42.3,
+              "K6 field_bwd transient": 43.3}
 # The check phase's render kernels at full width: samples a ray (the
 # backward's per-sample state past a block's shared memory from 205 in
 # f32 and 270 in bf16) and rays
@@ -306,14 +313,17 @@ def main() -> int:
                     f"{flib.nefes_field_smem_bytes(code, mode, *fdims)} B "
                     f"of shared memory a block, blocks per SM {blocks[0]} "
                     f"/ {blocks[1]} (pre / raw)")
-            # the backward K2/K6's warp path (sigma and full mode)
-            cdims = kf.dims(kf.FieldSpec.from_model(ModelConfig(), "coarse"))
-            for mode in (kf.SIGMA, kf.FULL):
+            # the backward K2/K6's warp path: sigma and full mode on the
+            # coarse tower, transient mode on the fine one
+            for mode in (kf.SIGMA, kf.FULL, kf.TRANSIENT):
+                bdims = kf.dims(kf.FieldSpec.from_model(
+                    ModelConfig(), "fine" if mode == kf.TRANSIENT
+                    else "coarse"))
                 blocks = [flib.nefes_field_bwd_blocks_per_sm(code, mode, raw,
-                                                             *cdims)
+                                                             *bdims)
                           for raw in (0, 1)]
                 log(f"K2/K6 field_bwd {MODES[mode]} {dt}: "
-                    f"{flib.nefes_field_bwd_smem_bytes(code, mode, *cdims)} "
+                    f"{flib.nefes_field_bwd_smem_bytes(code, mode, *bdims)} "
                     f"B of shared memory a block, blocks per SM {blocks[0]} "
                     f"/ {blocks[1]} (pre / raw)")
 
@@ -486,7 +496,8 @@ def main() -> int:
     def check_training(dt, m):
         """The training variants at the training shapes: K1/K5 transient
         forward (fine pass), K2/K6 with dW in sigma and full mode (coarse
-        pass) and transient mode (fine pass)."""
+        pass) and transient mode (fine pass), and frozen in transient
+        mode."""
         with torch.no_grad():
             tr = train_path_inputs(m, dev)
         state.setdefault("train_inputs", {})[dt] = tr
@@ -547,6 +558,12 @@ def main() -> int:
                     bwd_names,
                     lambda f, p=p, mode=mode, x=x, d=d, g=g: with_dw(
                         p, f(p, mode, x, d, *g, need_dw=True))))
+            # the frozen backward in transient mode, its own kernel
+            cases.append((
+                name.replace(" +dW", ""), "transient", kern, plain,
+                bwd_names[:2],
+                lambda f, x=tr[xs[2]], d=tr[xs[3]], g=gs[1]: f(pf, T, x, d,
+                                                              *g)[:2]))
         with torch.no_grad():
             for name, mode, kern, plain, names, case in cases:
                 got = case(kern)
@@ -575,35 +592,30 @@ def main() -> int:
                     f"against one block per block tile, bit for bit the "
                     f"same")
                 del a, b, tile
-            # two calls give the same bits (fixed summation orders)
-            for name, kern, x, d, g in (
-                    ("K2 field_bwd_pre +dW", kf.field_bwd_pre, tr["emb"],
-                     tr["embd"], g_f_pre),
-                    ("K6 field_bwd +dW", kf.field_bwd, tr["pts"], tr["dirs"],
-                     g_f_raw)):
-                a = kern(pf, T, x, d, *g, need_dw=True)
-                b = kern(pf, T, x, d, *g, need_dw=True)
-                if not all(torch.equal(u, v) for u, v in zip(a, b)):
-                    raise AssertionError(f"{name} {dt}: two calls differ")
-                log(f"{name} transient {dt}: two calls bit for bit the same")
-                del a, b
-            # the warp path of K2/K6 (sigma and full mode) at the coarse
-            # training shape: two calls, and the persistent grid against
-            # one block per block tile, bit for bit; with dW also over
-            # chunks of 64 x 1,001 rows, which end mid block tile, against
-            # the plain version
+            # the warp path of K2/K6, sigma and full mode at the coarse
+            # training shape and transient mode at the fine one: two
+            # calls (fixed summation orders), and the persistent grid
+            # against one block per block tile, bit for bit; with dW also
+            # over chunks of 64 x 1,001 rows, which end mid block tile,
+            # against the plain version
             for name, raw, xs, gs in (("K2 field_bwd_pre", False,
-                                       ("emb_c", "embd_c"), g_c_pre),
+                                       ("emb_c", "embd_c", "emb", "embd"),
+                                       (g_c_pre, g_f_pre)),
                                       ("K6 field_bwd", True,
-                                       ("pts_c", "dirs_c"), g_c_raw)):
+                                       ("pts_c", "dirs_c", "pts", "dirs"),
+                                       (g_c_raw, g_f_raw))):
                 kern = kf.field_bwd if raw else kf.field_bwd_pre
-                for mode in (S, Fm):
-                    x, d = tr[xs[0]], tr[xs[1]] if mode == Fm else None
-                    g = gs[:1] + [None] * 3 if mode == S else gs[:3] + [None]
+                for mode in (S, Fm, T):
+                    p = pf if mode == T else pc
+                    x = tr[xs[2 if mode == T else 0]]
+                    d = (None if mode == S
+                         else tr[xs[3 if mode == T else 1]])
+                    g = (gs[1] if mode == T else gs[0][:1] + [None] * 3
+                         if mode == S else gs[0][:3] + [None])
                     for need_dw in (False, True):
-                        a = kern(pc, mode, x, d, *g, need_dw=need_dw)
-                        b = kern(pc, mode, x, d, *g, need_dw=need_dw)
-                        tile = field_bwd_call(this, raw, mode, pc, x, d, g,
+                        a = kern(p, mode, x, d, *g, need_dw=need_dw)
+                        b = kern(p, mode, x, d, *g, need_dw=need_dw)
+                        tile = field_bwd_call(this, raw, mode, p, x, d, g,
                                               need_dw, dev, blocks=0)
                         what = f"{name}{' +dW' if need_dw else ''}"
                         for u, v, w_ in zip(a, b, tile):
@@ -622,14 +634,15 @@ def main() -> int:
                             f"for bit the same")
                         del a, b, tile
                     chunk = kf.TILE_ROWS * 1001
-                    got = field_bwd_call(this, raw, mode, pc, x, d, g, True,
+                    got = field_bwd_call(this, raw, mode, p, x, d, g, True,
                                          dev, chunk=chunk)
                     plain = kf.field_bwd_plain if raw else \
                         kf.field_bwd_pre_plain
-                    want = plain(pc, mode, x, d, *g[:3], need_dw=True)
+                    want = plain(p, mode, x, d, *(g if mode == T else g[:3]),
+                                 need_dw=True)
                     compare(f"{name} +dW", f"{MODES[mode]} in chunks of "
-                            f"{chunk} rows", dt, with_dw(pc, got),
-                            with_dw(pc, want), bwd_names)
+                            f"{chunk} rows", dt, with_dw(p, got),
+                            with_dw(p, want), bwd_names)
                     del got, want
             # the dW kernel alone on the first chunk of each training pass
             for label, p, mode, x, d, g in (
@@ -1268,10 +1281,11 @@ def main() -> int:
         on their persistent grid and on one block per block tile (whose
         outputs must be equal); with --parent also
         the parent tree's K1 and K5 and, of both trees, K3, K4, K7 and K8,
-        K2 +dW and K6 +dW (the fine training pass), and K2 and K6 in full
-        mode (frozen on the refinement's fine pass; K6 +dW on the coarse
-        training pass; this tree's also on one block per block tile),
-        each of the parent's checked against its plain version first
+        K2 and K6 in transient mode with dW and frozen (the fine training
+        pass), and K2 and K6 in full mode (frozen on the refinement's fine
+        pass; K6 +dW on the coarse training pass), the backwards of this
+        tree also on one block per block tile, each of the parent's
+        checked against its plain version first
         (relative L2). 5 rounds of the variants in
         order and then in reverse (this, tile, tile, this or parent, this,
         this, parent, ...), the median of each one's 10 times."""
@@ -1285,10 +1299,8 @@ def main() -> int:
                          if name in _BWD_ENTRY
                          else ("fused_render", render_call))
             # this tree also on one block per block tile: the field
-            # forward, and the field backward but in transient mode (one
-            # block a 64-row tile there)
-            tile = field or (name in _BWD_ENTRY
-                             and _BWD_ENTRY[name][1] != "transient")
+            # forward and backward
+            tile = field or name in _BWD_ENTRY
             train = (name.endswith("transient")
                      or name in _BWD_ENTRY and _BWD_ENTRY[name][2])
             ins = state["train_inputs" if train else "inputs"]["bfloat16"]
@@ -1326,7 +1338,9 @@ def main() -> int:
             ms = {k: statistics.median(v) for k, v in times.items()}
             label = {"this": "this tree", "parent": "parent",
                      "tile": "this tree on one block per block tile"}
-            log(f"{name} in turns: " + ", ".join(
+            earlier = (f" (first design {EARLIER_MS[name]:.3f} ms, PERF.md)"
+                       if name in EARLIER_MS else "")
+            log(f"{name} in turns{earlier}: " + ", ".join(
                 f"{label[k]} {ms[k]:.3f} ms ({ms[k] / ms['this']:.3f}x)"
                 for k in keys) + "; times " + "; ".join(
                 f"{k} {[round(t, 3) for t in times[k]]}" for k in keys))
@@ -1369,7 +1383,9 @@ def main() -> int:
             f"{fwd:.3f} ms (K1 field_fwd_pre {fwd_pre:.3f} ms), K6 "
             f"field_bwd +dW {bwd:.3f} ms")
         log(f"fine training pass ({n_f} samples, transient mode): K6 "
-            f"field_bwd without dW {frozen:.3f} ms (K2 {frozen_pre:.3f} ms); "
+            f"field_bwd without dW {frozen:.3f} ms (K2 {frozen_pre:.3f} ms; "
+            f"first design {EARLIER_MS['K6 field_bwd transient']} / "
+            f"{EARLIER_MS['K2 field_bwd_pre transient']} ms, PERF.md); "
             f"with dW in {chunks} chunks of {rows} rows: the backward "
             f"{chunk_ms:.3f} ms a chunk, the dW kernel {dw_ms:.3f} ms a chunk "
             f"({slices} slices); {chunks} x both = "
@@ -1391,8 +1407,7 @@ def main() -> int:
 
     def do_micro():
         from types import SimpleNamespace
-        # the JAX probe's tiles, and 64 rows: the field kernels' first
-        # design's (transient mode, K2/K6)
+        # the JAX probe's tiles, and 64 rows (micro.cu's sub-tile, TR)
         tiles = [64, 512, 2048, 8192]
         out, secs, counts = counted("micro", lambda: probe.cmd_kernelmicro(
             SimpleNamespace(device="cuda", tiles=tiles, out="")))
@@ -1653,11 +1668,13 @@ def field_bwd_call(lib, raw, mode, p, x, xd, g, need_dw, dev, blocks=None,
 
 
 # the K2/K6 backwards that the time phase runs in turns with --parent:
-# (raw, mode, need_dw); with dW in transient mode on the fine training
-# pass, frozen in full mode on the refinement's fine pass, with dW in full
-# mode on the coarse training pass
+# (raw, mode, need_dw); in transient mode on the fine training pass with
+# dW and frozen, frozen in full mode on the refinement's fine pass, with
+# dW in full mode on the coarse training pass
 _BWD_ENTRY = {"K2 field_bwd_pre +dW": (False, "transient", True),
               "K6 field_bwd +dW": (True, "transient", True),
+              "K2 field_bwd_pre transient": (False, "transient", False),
+              "K6 field_bwd transient": (True, "transient", False),
               "K2 field_bwd_pre": (False, "full", False),
               "K6 field_bwd": (True, "full", False),
               "K6 field_bwd +dW coarse": (True, "full", True)}

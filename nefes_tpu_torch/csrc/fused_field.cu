@@ -1,7 +1,7 @@
 // Fused NeRFH-NFF field on Hopper: the tower and its heads (forward) and
 // the recompute backward, with or without the weight gradients, on
 // pre-embedded rows (K1, K2) or on raw points and directions that each
-// tile embeds itself (K5, K6); modes sigma, full and transient.
+// warp embeds itself (K5, K6); modes sigma, full and transient.
 //
 // K1 replaces _run_fwd_pre / _fwd_kernel_pre (nefes_tpu/kernels/
 // fused_field.py:686-709, 402-416); K2 replaces _run_bwd_pre /
@@ -10,13 +10,13 @@
 // 332-338): the embedding in the kernel in place of K1's row load, heads
 // written in f32. K6 replaces _run_bwd / _bwd_kernel
 // (fused_field.py:622-648, 341-367): K2 with f32 head cotangents and an
-// epilogue (embed_backward_tile) that takes the embedding cotangents,
-// still in shared memory, to d_pts / d_dirs, recomputing the phases
-// instead of storing them. With need_dw the backward also gives one f32
+// epilogue (embed_grad) that takes the embedding cotangents, still in
+// shared memory, to d_pts / d_dirs, recomputing the phases instead of
+// storing them. With need_dw the backward also gives one f32
 // gradient per packed weight (the TPU kernel's VMEM accumulators,
 // fused_field.py:354-358, 440-444, 634-637, 728-731): the caller runs
 // K2/K6 over chunks of rows, each launch writing the chunk's dW operands
-// and per-tile head bias sums (tower.cuh), then field_dw_kernel
+// (tower.cuh's slot layout) and per-tile head bias sums, then field_dw_kernel
 // (field_dw.cuh) over the chunk, which adds the products into `slices` f32
 // partials; field_dw_reduce sums the slices in order.
 //
@@ -45,20 +45,20 @@
 // takes the shared memory of full mode. f32 runs the same kernel on the
 // CUDA cores (the host build checks it).
 //
-// K2/K6 in sigma and full mode (field_bwd_warp_kernel) run the same warp
-// path: a persistent grid of one block an SM walks block tiles of the
-// chunk's rows; each warp runs warp_forward over its 16 rows, keeping
-// their ReLU bits and sigma pre-activations in shared memory, and at once
+// K2/K6 in every mode (field_bwd_warp_kernel) run the same warp path: a
+// persistent grid of one block an SM walks block tiles of the chunk's
+// rows; each warp runs warp_forward over its 16 rows (in transient mode
+// on through the NeRF-W branch, warp_transient, without the rgb/feature
+// head, whose cotangent is an input), keeping their ReLU bits and the
+// sigma and transient head pre-activations in shared memory, and at once
 // warp_backward from that state, so no forward is rerun and no state
 // crosses warps. The stager copies each tile's forward sequence and then
 // its backward's (ORD_TILE; sigma mode's backward starts at the last
-// hidden layer). With dW the warps write their rows' operands by
-// streaming stores in tower.cuh's slot layout, and the head biases' sums
-// go to tile_b per 64-row tile (warps 0-3 and 4-7 of a block tile, in warp
-// order), so field_dw_kernel reads what the first design wrote. Transient
-// mode stays on tower.cuh's first design (field_bwd_kernel): TR = 64
-// samples a block, f32 activation tiles, weights through L1 (the design
-// notes are in tower.cuh), one block per tile, with or without dW.
+// hidden layer; transient mode's also runs the branch's products, bwd_mat).
+// With dW the warps write their rows' operands by streaming stores in
+// tower.cuh's slot layout, and the head biases' sums go to tile_b per
+// 64-row tile (warps 0-3 and 4-7 of a block tile, in warp order), which
+// field_dw_kernel reads.
 //
 // Plain C interface, loaded with ctypes: each entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
@@ -109,15 +109,74 @@ __host__ __device__ inline size_t carve_field(const Dims& d, const Layout& L, in
   return off;
 }
 
+// The NeRF-W transient branch of warp wp after warp_forward (DIR) left the
+// dir layer's output de and final in its two hidden-layer buffers (LEAN:
+// the field forward's warp layout), with vr of its 16 rows [s0, s0 + 16)
+// of the block tile valid: t1 = relu(rnd(rnd(final t1_wh) + rnd(embd
+// t1_wd)) + rnd(t1_b)) over de (read by the rgb/feature head before, or
+// dead), t2 = relu(rnd(rnd(t1 t2_w) + rnd(t2_b))) over final (dead after
+// t1), t3 likewise over t1, then the five transient heads' pre-activations
+// (f32 sums plus the f32 biases [ts_b, tr_b x3, tb_b]) to head(r, c, z) for
+// every row. Its matrices are the last five of FWD, from k (the kernel
+// counts it once: fwd_count walks the sequence). KEEP: t1, t2 and t3's
+// ReLU bits after the dir layer's in rb.mask; dw: their A operands, each
+// before it is overwritten. Every warp runs every product, so the
+// stager's barriers line up whatever its valid rows.
+template <typename T, Seq FWD, bool LEAN, bool KEEP, typename St, typename HeadFn,
+          typename Dw = WarpDw<T, false>>
+__device__ __forceinline__ void warp_transient(const Tower<T>& tw, const RayBufs& rb, St& st,
+                                               int wp, int s0, int vr, int k, HeadFn head,
+                                               const Dw& dw = Dw{}) {
+  const Dims& d = tw.d;
+  const Layout& L = tw.L;
+  const int W = d.width, H = W / 2, ldw = ld_of(W), ldh = ld_of(H), nh = (H + 31) / 32;
+  const WarpBufs<T> wb = warp_bufs<T>(d, rb, wp, LEAN);
+  T* hd = const_cast<T*>(warp_de<T>(d, rb, wp, LEAN));
+  T* hf = hd == wb.ha ? wb.hb : wb.ha;
+  uint32_t* bits = KEEP ? rb.mask + (size_t)s0 * rb.mw + d.depth * ((W + 31) / 32) + nh : nullptr;
+  const float* b1 = tw.b + L.t1_b;
+  __syncwarp();
+  warp_mm<T>(SmemA<T>{hf, ldw}, W, st.get(tw, fwd_mat<FWD>(d, L, k++)), H,
+             [=](int r, int c, float acc) { hd[r * ldh + c] = from_f<T>(acc); });
+  warp_mm<T>(SmemA<T>{wb.xd, ld_of(d.Ed)}, d.Ed, st.get(tw, fwd_mat<FWD>(d, L, k++)), H,
+             [=](int r, int c, float acc) {
+               float z = rnd<T>(to_f<T>(hd[r * ldh + c]) + rnd<T>(acc));
+               z = rnd<T>(z + rnd<T>(b1[c]));
+               hd[r * ldh + c] = from_f<T>(fmaxf(z, 0.f));
+             });
+  T* io[3] = {hd, hf, hd};   // t1 -> t2 -> t3
+#pragma unroll
+  for (int l = 0; l < 3; ++l) {
+    T* o = io[l];
+    if (l) {
+      const T* a = io[l - 1];
+      const float* bb = tw.b + (l == 2 ? L.t3_b : L.t2_b);
+      __syncwarp();
+      warp_mm<T>(SmemA<T>{a, ldh}, H, st.get(tw, fwd_mat<FWD>(d, L, k++)), H,
+                 [=](int r, int c, float acc) {
+                   const float z = rnd<T>(rnd<T>(acc) + rnd<T>(bb[c]));
+                   o[r * ldh + c] = from_f<T>(fmaxf(z, 0.f));
+                 });
+    }
+    __syncwarp();
+    if constexpr (KEEP) keep_bits(o, ldh, H, vr, bits + l * nh, rb.mw);
+    dw.buf(A_T1 + l, o, ldh);
+  }
+  // the five heads from t3: bias [ts_b, tr_b x3, tb_b] back to back
+  const float* tb = tw.b + L.ts_b;
+  __syncwarp();
+  warp_mm<T>(SmemA<T>{hd, ldh}, H, st.get(tw, fwd_mat<FWD>(d, L, k)), 5,
+             [=](int r, int c, float acc) { head(r, c, acc + tb[c]); });
+  __syncwarp();
+}
+
 // K1 (pre-embedded x, dirs in T, heads in T) and K5 (RAW: f32 points and
 // directions, heads in f32) in MODE: sigma (sigma (N,) only; dirs not
 // read), full (also rgb (N, 3) and feat (N, F)) or transient (also the
 // transient heads (N, 5): [sigma, rgb x3, beta] after softplus / sigmoid x3
-// / softplus). sigma = softplus(zs), zs the sigma head's f32 sum plus its
-// f32 bias; the rgb/feature and transient heads accumulate in f32 plus
-// their f32 bias, written in the head type. The transient branch rounds
-// where tower.cuh's tower_forward does: t1 = relu(rnd(rnd(final t1_wh) +
-// rnd(embd t1_wd)) + rnd(t1_b)), t2, t3 = relu(rnd(rnd(t t_w) + rnd(t_b))).
+// / softplus, warp_transient). sigma = softplus(zs), zs the sigma head's
+// f32 sum plus its f32 bias; the rgb/feature and transient heads
+// accumulate in f32 plus their f32 bias, written in the head type.
 template <typename T, bool RAW, int MODE>
 __global__ void __launch_bounds__(NT, 1)
 field_warp_kernel(Tower<T> tw, int n, const void* __restrict__ x, const void* __restrict__ dirs,
@@ -129,7 +188,7 @@ field_warp_kernel(Tower<T> tw, int n, const void* __restrict__ x, const void* __
   constexpr bool HEADS = MODE != SIGMA;
   RayBufs rb;
   carve_field<FWD>(tw.d, tw.L, sizeof(T), nefes_smem, &rb);
-  const int W = tw.d.width, H = W / 2, F = tw.d.F, ldw = ld_of(W), ldh = ld_of(H);
+  const int H = tw.d.width / 2, F = tw.d.F, ldh = ld_of(H);
   const int k_rgb = fwd_count<SEQ_HEADS>(tw.d, tw.L) - 1;   // the rgb/feature head in FWD
   const int tiles = (n + BT - 1) / BT, warp = threadIdx.x >> 5;
   const int b = blockIdx.x, mine = b < tiles ? (tiles - 1 - b) / (int)gridDim.x + 1 : 0;
@@ -151,48 +210,13 @@ field_warp_kernel(Tower<T> tw, int n, const void* __restrict__ x, const void* __
                      if (c < 3) rgb[row * 3 + c] = v;
                      else feat[row * F + (c - 3)] = v;
                    });
-        if constexpr (MODE == TRANSIENT) {
-          // de and final fill the warp's two hidden-layer buffers: t1
-          // over de (dead after the head), t2 over final (dead after t1),
-          // t3 over t1; every warp runs every product, so the stager's
-          // barriers line up whatever its valid rows
-          const WarpBufs<T> wb = warp_bufs<T>(tw.d, rb, wp, true);
-          T* hd = de == wb.ha ? wb.ha : wb.hb;
-          T* hf = de == wb.ha ? wb.hb : wb.ha;
-          const float* b1 = tw.b + tw.L.t1_b;
-          int k = k_rgb + 1;
-          __syncwarp();
-          warp_mm<T>(SmemA<T>{hf, ldw}, W, st.get(tw, fwd_mat<FWD>(tw.d, tw.L, k++)), H,
-                     [=](int r, int c, float acc) { hd[r * ldh + c] = from_f<T>(acc); });
-          warp_mm<T>(SmemA<T>{wb.xd, ld_of(tw.d.Ed)}, tw.d.Ed,
-                     st.get(tw, fwd_mat<FWD>(tw.d, tw.L, k++)), H, [=](int r, int c, float acc) {
-                       float z = rnd<T>(to_f<T>(hd[r * ldh + c]) + rnd<T>(acc));
-                       z = rnd<T>(z + rnd<T>(b1[c]));
-                       hd[r * ldh + c] = from_f<T>(fmaxf(z, 0.f));
-                     });
-          T* io[3] = {hd, hf, hd};   // t1 -> t2 -> t3
-#pragma unroll
-          for (int l = 0; l < 2; ++l) {
-            const T* a = io[l];
-            T* o = io[l + 1];
-            const float* bb = tw.b + (l ? tw.L.t3_b : tw.L.t2_b);
-            __syncwarp();
-            warp_mm<T>(SmemA<T>{a, ldh}, H, st.get(tw, fwd_mat<FWD>(tw.d, tw.L, k++)), H,
-                       [=](int r, int c, float acc) {
-                         const float z = rnd<T>(rnd<T>(acc) + rnd<T>(bb[c]));
-                         o[r * ldh + c] = from_f<T>(fmaxf(z, 0.f));
-                       });
-          }
-          // the five heads from t3: bias [ts_b, tr_b x3, tb_b] back to back
-          const float* tb = tw.b + tw.L.ts_b;
-          __syncwarp();
-          warp_mm<T>(SmemA<T>{hd, ldh}, H, st.get(tw, fwd_mat<FWD>(tw.d, tw.L, k)), 5,
-                     [=](int r, int c, float acc) {
-                       if (r < vr)
-                         trans[((size_t)s0 + r) * 5 + c] =
-                             from_f<O>(transient_head(acc + tb[c], c));
-                     });
-        }
+        if constexpr (MODE == TRANSIENT)
+          warp_transient<T, FWD, true, false>(tw, rb, st, wp, wp * WR, vr, k_rgb + 1,
+                                              [=](int r, int c, float z) {
+                                                if (r < vr)
+                                                  trans[((size_t)s0 + r) * 5 + c] =
+                                                      from_f<O>(transient_head(z, c));
+                                              });
       }
       for (int r = threadIdx.x & (LANES - 1); r < vr; r += LANES)
         sigma[s0 + r] = from_f<O>(softplus(zs[r]));
@@ -228,20 +252,32 @@ int launch_fwd(int n, const void* x, const void* dirs, const void* w, const void
   return (int)cudaGetLastError();
 }
 
-// Carve one block of field_bwd_warp_kernel in MODE (sigma or full) from
-// base (nullptr: size only): two weight stages of the largest matrix of
-// the forward sequence and of the backward's (a 2-byte pack dtype stages
-// its weights), eight full warp regions (warp_layout, the dir rows in full
-// mode only), the block tile's ReLU bits (BT x mw words), sigma
-// pre-activations and their cotangents, the warps' head bias sums (WARPS x
-// (4 + F)) and the dW slot table (2 x N_SLOTS ints, into *slots); returns
-// the bytes used.
+// The recompute's forward sequence and the stager's order of the
+// backward K2/K6 in `mode`.
+__host__ __device__ constexpr Seq bwd_seq(int mode) {
+  return mode == SIGMA ? SEQ_SIGMA : mode == FULL ? SEQ_DIR : SEQ_TRANSIENT_BWD;
+}
+
+__host__ __device__ constexpr Order bwd_order(int mode) {
+  return mode == SIGMA ? ORD_TILE_SIGMA : mode == FULL ? ORD_TILE : ORD_TILE_TRANSIENT;
+}
+
+// Carve one block of field_bwd_warp_kernel in MODE from base (nullptr:
+// size only): two weight stages of the largest matrix of the forward
+// sequence and of the backward's (a 2-byte pack dtype stages its weights),
+// eight full warp regions (warp_layout, the dir rows but in sigma mode),
+// the block tile's ReLU bits (BT x mw words: the hidden layers', the dir
+// layer's and in transient mode t1, t2 and t3's), sigma pre-activations
+// and their cotangents, in transient mode the five transient heads'
+// pre-activations (BT x 5), the warps' head bias sums (WARPS x (4 + F),
+// transient mode 5 more) and the dW slot table (2 x N_SLOTS ints, into
+// *slots); returns the bytes used.
 template <int MODE>
 __host__ __device__ inline size_t carve_field_bwd(const Dims& d, const Layout& L, int ts,
                                                   char* base, RayBufs* rb, int** slots) {
-  constexpr bool DIR = MODE == FULL;
-  constexpr Seq FWD = DIR ? SEQ_DIR : SEQ_SIGMA;
-  constexpr int B0 = DIR ? 0 : BWD_HEADS;
+  constexpr bool TRANS = MODE == TRANSIENT;
+  constexpr Seq FWD = bwd_seq(MODE);
+  constexpr Order ORD = bwd_order(MODE);
   RayBufs t{};
   size_t off = 0;
   auto bytes = [&](size_t n) {
@@ -255,20 +291,21 @@ __host__ __device__ inline size_t carve_field_bwd(const Dims& d, const Layout& L
       const size_t e = staged_elems(fwd_mat<FWD>(d, L, k));
       stage = stage > e ? stage : e;
     }
-    for (int k = B0; mat_at(d, L, true, k).off >= 0; ++k) {
-      const size_t e = staged_elems(mat_at(d, L, true, k));
+    for (int k = 0; k < bwd_count<ORD>(d, L); ++k) {
+      const size_t e = staged_elems(bwd_mat<ORD>(d, L, k));
       stage = stage > e ? stage : e;
     }
   }
   t.wbuf[0] = bytes(stage * ts);
   t.wbuf[1] = bytes(stage * ts);
-  t.wbytes = warp_layout(d, ts, false, DIR).total;
+  t.wbytes = warp_layout(d, ts, false, MODE != SIGMA).total;
   t.warps = bytes(WARPS * t.wbytes);
-  t.mw = d.depth * ((d.width + 31) / 32) + (d.width / 2 + 31) / 32;
+  t.mw = d.depth * ((d.width + 31) / 32) + (TRANS ? 4 : 1) * ((d.width / 2 + 31) / 32);
   t.mask = reinterpret_cast<uint32_t*>(take(base, &off, (size_t)BT * t.mw));
   t.zs = take(base, &off, BT);
   t.dzs = take(base, &off, BT);
-  t.part = take(base, &off, (size_t)WARPS * (4 + d.F));
+  if (TRANS) t.tz = take(base, &off, (size_t)BT * 5);
+  t.part = take(base, &off, (size_t)WARPS * (4 + d.F + (TRANS ? 5 : 0)));
   int* sl = reinterpret_cast<int*>(take(base, &off, 2 * N_SLOTS));
   if (rb) *rb = t;
   if (slots) *slots = sl;
@@ -277,36 +314,43 @@ __host__ __device__ inline size_t carve_field_bwd(const Dims& d, const Layout& L
 
 // K2 (pre-embedded x, dirs and head cotangents in T; dx, ddirs (N, E),
 // (N, Ed) in T) and K6 (RAW: f32 points, directions and cotangents; d_pts,
-// d_dirs (N, 3) in f32) in sigma or full MODE over rows [row0, row0 +
-// rows): a persistent grid of blocks walking block tiles of BT rows of the
-// chunk (tile t its rows [t BT, t BT + BT), whatever row0 is); warp w
-// runs warp_forward over its 16 rows, keeping their ReLU bits and sigma
-// pre-activations, and then warp_backward from that state, the weights
-// staged tile by tile in forward-then-backward order (ORD_TILE). The
-// cotangents round where tower_backward's do: dzs = g_sigma sigmoid(zs)
-// unrounded, the rgb/feature head's A operand g_rgb | g_feat rounded to
-// T, the last hidden layer's rnd(rnd(rnd(dzs) sw) + rnd(d_final)) (sigma
-// mode: rnd(rnd(dzs) sw)). DW: also the chunk's dW operands in ops (A
-// slots from the forward, G slots from the backward, by streaming stores)
-// and the head biases' sums (sigma, and in full mode rgb/feature) over
-// each 64-row tile of the chunk in its row of tile_b (nb floats a tile):
-// the tile's four warps' row-order sums, added in warp order.
+// d_dirs (N, 3) in f32) in MODE over rows [row0, row0 + rows): a
+// persistent grid of blocks walking block tiles of BT rows of the chunk
+// (tile t its rows [t BT, t BT + BT), whatever row0 is); warp w runs
+// warp_forward over its 16 rows (in transient mode on through
+// warp_transient, without the rgb/feature head), keeping their ReLU bits,
+// sigma and transient head pre-activations, and then warp_backward from
+// that state, the weights staged tile by tile in forward-then-backward
+// order (ORD_TILE*). The cotangents round where the plain version's do:
+// dzs = g_sigma sigmoid(zs) unrounded, the rgb/feature head's A operand
+// g_rgb | g_feat rounded to T, the transient heads' (g_trans (N, 5))
+// through softplus' / sigmoid' in f32, the last hidden layer's
+// rnd(rnd(rnd(dzs) sw) + rnd(d_final)) (sigma mode: rnd(rnd(dzs) sw)). DW:
+// also the chunk's dW operands in ops (A slots from the forward, G slots
+// from the backward, by streaming stores) and the head biases' sums
+// (sigma; full mode also rgb/feature; transient mode also the transient
+// heads) over each 64-row tile of the chunk in its row of tile_b (nb
+// floats a tile): the tile's four warps' row-order sums, added in warp
+// order.
 template <typename T, bool RAW, int MODE, bool DW>
 __global__ void __launch_bounds__(NT, 1)
 field_bwd_warp_kernel(Tower<T> tw, int row0, int rows, const void* __restrict__ x,
                       const void* __restrict__ dirs, const Head<T, RAW>* __restrict__ g_sigma,
                       const Head<T, RAW>* __restrict__ g_rgb,
-                      const Head<T, RAW>* __restrict__ g_feat, void* __restrict__ dx,
+                      const Head<T, RAW>* __restrict__ g_feat,
+                      const Head<T, RAW>* __restrict__ g_trans, void* __restrict__ dx,
                       void* __restrict__ ddirs, T* __restrict__ ops, float* __restrict__ tile_b,
                       int nb) {
   using O = Head<T, RAW>;
-  constexpr bool DIR = MODE == FULL;
+  constexpr bool DIR = MODE != SIGMA, TRANS = MODE == TRANSIENT;
   static_assert(BT == 2 * TR, "a block tile holds two of tile_b's 64-row tiles");
   extern __shared__ __align__(16) char nefes_smem[];
   RayBufs rb;
   int* slots;
   carve_field_bwd<MODE>(tw.d, tw.L, sizeof(T), nefes_smem, &rb, &slots);
-  const int F = tw.d.F, C = 3 + F, P = 1 + C;   // P: the head bias sums of a warp
+  // P: the head bias sums of a warp, [sigma, rgb/feature (C), transient (5)]
+  const int F = tw.d.F, C = 3 + F, P = 1 + C + (TRANS ? 5 : 0);
+  const int k_tr = fwd_count<bwd_seq(MODE)>(tw.d, tw.L) - 5;   // t1_wh in the sequence
   const int tiles = (rows + BT - 1) / BT, warp = threadIdx.x >> 5;
   const int lane0 = threadIdx.x & (LANES - 1);
   const int b = blockIdx.x, mine = b < tiles ? (tiles - 1 - b) / (int)gridDim.x + 1 : 0;
@@ -314,7 +358,7 @@ field_bwd_warp_kernel(Tower<T> tw, int row0, int rows, const void* __restrict__ 
     dw_table(tw.d, MODE, slots);
     __syncthreads();
   }
-  Stager<T, DIR ? SEQ_DIR : SEQ_SIGMA, DIR ? ORD_TILE : ORD_TILE_SIGMA> st(tw, rb, mine, true);
+  Stager<T, bwd_seq(MODE), bwd_order(MODE)> st(tw, rb, mine, true);
   for (int t = b; t < tiles; t += gridDim.x) {
     const int base = t * BT;   // the block tile's first row in the chunk
     for (int wp = warp; wp < WARPS; wp += WARP_STEP) {
@@ -323,8 +367,21 @@ field_bwd_warp_kernel(Tower<T> tw, int row0, int rows, const void* __restrict__ 
       const size_t row = (size_t)row0 + base + s0;   // the warp's first row
       float* zs = rb.zs + s0;
       float* dzs = rb.dzs + s0;
+      float* dz5 = TRANS ? rb.tz + s0 * 5 : nullptr;
       const WarpDw<T, DW> dw{ops, slots, rows, base + s0, vr};
       warp_forward<T, RAW, KEEP_BITS, DIR>(tw, rb, st, wp, s0, S, row0 + base, x, dirs, zs, dw);
+      if constexpr (TRANS) {
+        warp_transient<T, bwd_seq(MODE), false, true>(
+            tw, rb, st, wp, s0, vr, k_tr, [=](int r, int c, float z) { dz5[r * 5 + c] = z; }, dw);
+        // the heads' cotangents through softplus / sigmoid x3 / softplus,
+        // in f32, in place
+        for (int i = lane0; i < WR * 5; i += LANES) {
+          const int r = i / 5, j = i - 5 * r;
+          const float g = r < vr ? to_f<O>(g_trans[(row + r) * 5 + j]) : 0.f;
+          const float sg = sigmoid(dz5[i]);
+          dz5[i] = (j == 0 || j == 4) ? g * sg : g * sg * (1.f - sg);
+        }
+      }
       for (int r = lane0; r < WR; r += LANES)
         dzs[r] = r < vr ? to_f<O>(g_sigma[row + r]) * sigmoid(zs[r]) : 0.f;   // softplus'
       __syncwarp();
@@ -334,16 +391,22 @@ field_bwd_warp_kernel(Tower<T> tw, int row0, int rows, const void* __restrict__ 
       if constexpr (DW) {
         dw.fn(G_SIG, [=](int r, int) { return dzs[r]; });
         if (DIR) dw.fn(G_RGB, g_head);
+        if (TRANS) {
+          dw.fn(G_TS, [=](int r, int) { return dz5[r * 5]; });
+          dw.fn(G_TR, [=](int r, int c) { return dz5[r * 5 + 1 + c]; });
+          dw.fn(G_TB, [=](int r, int) { return dz5[r * 5 + 4]; });
+        }
         float* part = rb.part + wp * P;
         for (int j = lane0; j < (DIR ? P : 1); j += LANES) {
           float acc = 0.f;
-          for (int r = 0; r < vr; ++r) acc += j ? g_head(r, j - 1) : dzs[r];
+          for (int r = 0; r < vr; ++r)
+            acc += j == 0 ? dzs[r] : !TRANS || j <= C ? g_head(r, j - 1) : dz5[r * 5 + j - 1 - C];
           part[j] = acc;
         }
       }
-      warp_backward<T, RAW, DIR>(
+      warp_backward<T, RAW, DIR, TRANS>(
           tw, rb, st, wp, s0, S, row0 + base, x, dirs, dx, ddirs, dzs,
-          [=](int r, int c) { return (r < vr && c < C) ? rnd<T>(g_head(r, c)) : 0.f; }, dw);
+          [=](int r, int c) { return (r < vr && c < C) ? rnd<T>(g_head(r, c)) : 0.f; }, dw, dz5);
     }
     if constexpr (DW) {
       // the two 64-row tiles of the block tile: warps 0-3 and 4-7
@@ -354,7 +417,10 @@ field_bwd_warp_kernel(Tower<T> tw, int row0, int rows, const void* __restrict__ 
         const float* p = rb.part + h * (WARPS / 2) * P + j;
         float acc = 0.f;
         for (int w = 0; w < WARPS / 2; ++w) acc += p[w * P];
-        tile_b[(size_t)t64 * nb + (j ? tw.L.rgb_b + j - 1 : tw.L.sig_b)] = acc;
+        const int at = j == 0                ? tw.L.sig_b
+                       : !TRANS || j <= C ? tw.L.rgb_b + j - 1
+                                          : tw.L.ts_b + j - 1 - C;
+        tile_b[(size_t)t64 * nb + at] = acc;
       }
       __syncthreads();
     }
@@ -362,13 +428,12 @@ field_bwd_warp_kernel(Tower<T> tw, int row0, int rows, const void* __restrict__ 
 }
 
 // Shared-memory bytes of one block of the backward K2/K6 in `mode`, in a
-// pack dtype of ts bytes: the warp path's in sigma and full mode,
-// tower.cuh's tile in transient mode.
+// pack dtype of ts bytes.
 inline size_t bwd_smem(const Dims& d, int ts, int mode) {
   const Layout L = make_layout(d);
   return mode == SIGMA  ? carve_field_bwd<SIGMA>(d, L, ts, nullptr, nullptr, nullptr)
          : mode == FULL ? carve_field_bwd<FULL>(d, L, ts, nullptr, nullptr, nullptr)
-                        : carve(d, nullptr, nullptr);
+                        : carve_field_bwd<TRANSIENT>(d, L, ts, nullptr, nullptr, nullptr);
 }
 
 // Blocks of kern (smem bytes of shared memory) that the current device
@@ -388,14 +453,14 @@ int resident_blocks(K kern, size_t smem) {
 #endif
 }
 
-// K2/K6 in sigma or full MODE on the warp path; blocks: the persistent
-// grid (< 0: resident_blocks; 0: one block per block tile), at most one
-// block per block tile.
+// K2/K6 in MODE on the warp path; blocks: the persistent grid (< 0:
+// resident_blocks; 0: one block per block tile), at most one block per
+// block tile.
 template <typename T, bool RAW, int MODE, bool DW>
 int launch_bwd_warp(int row0, int rows, const void* x, const void* dirs, const void* w,
                     const void* wt, const float* b, Dims d, const void* g_sigma,
-                    const void* g_rgb, const void* g_feat, void* dx, void* ddirs, void* ops,
-                    float* tile_b, int nb, int blocks, void* stream) {
+                    const void* g_rgb, const void* g_feat, const void* g_trans, void* dx,
+                    void* ddirs, void* ops, float* tile_b, int nb, int blocks, void* stream) {
   using O = Head<T, RAW>;
   const size_t smem = bwd_smem(d, sizeof(T), MODE);
   auto* kern = &field_bwd_warp_kernel<T, RAW, MODE, DW>;
@@ -410,51 +475,9 @@ int launch_bwd_warp(int row0, int rows, const void* x, const void* dirs, const v
   const int grid = blocks > 0 && blocks < tiles ? blocks : tiles;
   NEFES_LAUNCH(kern, grid, smem, stream, make_tower<T>(w, wt, b, d), row0, rows, x, dirs,
                static_cast<const O*>(g_sigma), static_cast<const O*>(g_rgb),
-               static_cast<const O*>(g_feat), dx, ddirs, static_cast<T*>(ops), tile_b, nb);
+               static_cast<const O*>(g_feat), static_cast<const O*>(g_trans), dx, ddirs,
+               static_cast<T*>(ops), tile_b, nb);
   return (int)cudaGetLastError();
-}
-
-// K2/K6 in transient mode on tower.cuh's first design (the other modes
-// run field_bwd_warp_kernel). Cotangents g_sigma (N,), g_rgb (N, 3),
-// g_feat (N, F), g_trans (N, 5) in the head type; writes dx (N, E) and
-// ddirs (N, Ed) in T, or RAW d_pts and d_dirs (N, 3) in f32, for rows
-// [row0, row0 + rows), one tile a block. With ops (need_dw): also the chunk's dW operands, the
-// chunk being those rows (tower.cuh's slots, `rows` rows a slot), and
-// each tile's head bias sums to tile_b (nb floats a tile).
-template <typename T, bool RAW>
-__global__ void __launch_bounds__(NT)
-field_bwd_kernel(Tower<T> tw, int row0, int rows, const void* __restrict__ x,
-                 const void* __restrict__ dirs, const Head<T, RAW>* __restrict__ g_sigma,
-                 const Head<T, RAW>* __restrict__ g_rgb, const Head<T, RAW>* __restrict__ g_feat,
-                 const Head<T, RAW>* __restrict__ g_trans, void* __restrict__ dx,
-                 void* __restrict__ ddirs, T* __restrict__ ops, float* __restrict__ tile_b,
-                 int nb) {
-  using O = Head<T, RAW>;
-  extern __shared__ __align__(16) char nefes_smem[];
-  Smem s;
-  carve(tw.d, nefes_smem, &s);
-  const int F = tw.d.F;
-  const int local = blockIdx.x * TR;   // the tile's first row in the chunk
-  const int tile0 = row0 + local;
-  const int valid = rows - local < TR ? rows - local : TR;
-  const DwOut<T> dw{ops, ops ? tile_b + (size_t)blockIdx.x * nb : nullptr, s.slots, rows, local,
-                   valid};
-  if (ops) dw_table(tw.d, TRANSIENT, s.slots);   // published by tile_inputs' barrier
-  tile_inputs<T, RAW>(tw.d, s, x, dirs, tile0, valid);
-  tower_forward<T>(tw, s, dw);
-  tower_backward<T>(
-      tw, s,
-      [=](int r) { return r < valid ? to_f<O>(g_sigma[tile0 + r]) : 0.f; },
-      [=](int r, int c) {
-        if (r >= valid) return 0.f;
-        const size_t row = tile0 + r;
-        return c < 3 ? to_f<O>(g_rgb[row * 3 + c]) : to_f<O>(g_feat[row * F + (c - 3)]);
-      },
-      [=](int r, int j) {
-        return r < valid ? to_f<O>(g_trans[(size_t)(tile0 + r) * 5 + j]) : 0.f;
-      },
-      dw);
-  tile_input_grads<T, RAW>(tw.d, s, x, dirs, dx, ddirs, tile0, valid);
 }
 
 // out[j] = sum over s < slices of part[s * n + j], in slice order.
@@ -465,24 +488,6 @@ dw_reduce_kernel(int slices, int n, const float* __restrict__ part, float* __res
     for (int k = 0; k < slices; ++k) acc += part[(size_t)k * n + j];
     out[j] = acc;
   }
-}
-
-template <typename T, bool RAW>
-int launch_bwd(int row0, int rows, const void* x, const void* dirs, const void* w,
-               const void* wt, const float* b, Dims d, const void* g_sigma, const void* g_rgb,
-               const void* g_feat, const void* g_trans, void* dx, void* ddirs, void* ops,
-               float* tile_b, int nb, void* stream) {
-  using O = Head<T, RAW>;
-  const size_t smem = carve(d, nullptr, nullptr);
-  auto* kern = &field_bwd_kernel<T, RAW>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  NEFES_LAUNCH(kern, (rows + TR - 1) / TR, smem, stream, make_tower<T>(w, wt, b, d), row0, rows,
-               x, dirs, static_cast<const O*>(g_sigma), static_cast<const O*>(g_rgb),
-               static_cast<const O*>(g_feat), static_cast<const O*>(g_trans), dx, ddirs,
-               static_cast<T*>(ops), tile_b, nb);
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -545,45 +550,48 @@ int field_bwd(int dtype, int mode, int n, const void* x, const void* dirs, const
     return -3;
   if (rows == 0) return 0;
   using bf16 = __nv_bfloat16;
-  if (mode == TRANSIENT)
-    return dtype == 1
-               ? launch_bwd<bf16, RAW>(row0, rows, x, dirs, w, wt, b, d, g_sigma, g_rgb, g_feat,
-                                       g_trans, dx, ddirs, ops, tile_b, nb, stream)
-               : launch_bwd<float, RAW>(row0, rows, x, dirs, w, wt, b, d, g_sigma, g_rgb, g_feat,
-                                        g_trans, dx, ddirs, ops, tile_b, nb, stream);
   auto go = [&](auto launch) {
-    return launch(row0, rows, x, dirs, w, wt, b, d, g_sigma, g_rgb, g_feat, dx, ddirs, ops,
-                  tile_b, nb, blocks, stream);
+    return launch(row0, rows, x, dirs, w, wt, b, d, g_sigma, g_rgb, g_feat, g_trans, dx, ddirs,
+                  ops, tile_b, nb, blocks, stream);
   };
   const bool dw = ops != nullptr;
   if (dtype == 1) {
     if (mode == SIGMA)
       return dw ? go(launch_bwd_warp<bf16, RAW, SIGMA, true>)
                 : go(launch_bwd_warp<bf16, RAW, SIGMA, false>);
-    return dw ? go(launch_bwd_warp<bf16, RAW, FULL, true>)
-              : go(launch_bwd_warp<bf16, RAW, FULL, false>);
+    if (mode == FULL)
+      return dw ? go(launch_bwd_warp<bf16, RAW, FULL, true>)
+                : go(launch_bwd_warp<bf16, RAW, FULL, false>);
+    return dw ? go(launch_bwd_warp<bf16, RAW, TRANSIENT, true>)
+              : go(launch_bwd_warp<bf16, RAW, TRANSIENT, false>);
   }
   if (mode == SIGMA)
     return dw ? go(launch_bwd_warp<float, RAW, SIGMA, true>)
               : go(launch_bwd_warp<float, RAW, SIGMA, false>);
-  return dw ? go(launch_bwd_warp<float, RAW, FULL, true>)
-            : go(launch_bwd_warp<float, RAW, FULL, false>);
+  if (mode == FULL)
+    return dw ? go(launch_bwd_warp<float, RAW, FULL, true>)
+              : go(launch_bwd_warp<float, RAW, FULL, false>);
+  return dw ? go(launch_bwd_warp<float, RAW, TRANSIENT, true>)
+            : go(launch_bwd_warp<float, RAW, TRANSIENT, false>);
 }
 
 #ifndef NEFES_EMULATE
-// Blocks of the backward K2 (or, RAW, K6) in sigma or full `mode` that one
-// SM holds, from the occupancy calculator; -1 on an error.
+// Blocks of the backward K2 (or, RAW, K6) in `mode` that one SM holds,
+// from the occupancy calculator; -1 on an error.
 template <typename T, bool RAW>
 int bwd_blocks_per_sm(const Dims& d, int mode) {
   const size_t smem = bwd_smem(d, sizeof(T), mode);
-  auto* kern = mode == SIGMA ? &field_bwd_warp_kernel<T, RAW, SIGMA, false>
-                             : &field_bwd_warp_kernel<T, RAW, FULL, false>;
-  int nb = -1;
-  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kern, NT, smem) != cudaSuccess)
-    return -1;
-  return nb;
+  auto blocks = [&](auto kern) {
+    int nb = -1;
+    if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kern, NT, smem) != cudaSuccess)
+      return -1;
+    return nb;
+  };
+  if (mode == SIGMA) return blocks(&field_bwd_warp_kernel<T, RAW, SIGMA, false>);
+  if (mode == FULL) return blocks(&field_bwd_warp_kernel<T, RAW, FULL, false>);
+  return blocks(&field_bwd_warp_kernel<T, RAW, TRANSIENT, false>);
 }
 #endif
 
@@ -614,11 +622,10 @@ extern "C" int nefes_field_fwd_pre(int dtype, int mode, int n, const void* emb,
 // (nefes_field_dw_row_elems elements of the pack dtype a row) and tile_b,
 // ceil(rows / 64) x nb f32 (nb the bias blob's length), whose entries the
 // mode's head biases overwrite (the others are left as they are). In
-// sigma and full mode a persistent grid of as many blocks as the card
-// holds at once (nefes_field_bwd_blocks_per_sm a multiprocessor, at most
-// one a block tile of 128 rows of the chunk); the _grid entry points take
-// that grid's size (0: one block a block tile; transient mode, one block
-// a 64-row tile, does not read it).
+// every mode a persistent grid of as many blocks as the card holds at once
+// (nefes_field_bwd_blocks_per_sm a multiprocessor, at most one a block
+// tile of 128 rows of the chunk); the _grid entry points take that grid's
+// size (0: one block a block tile).
 extern "C" int nefes_field_bwd_pre_grid(int dtype, int mode, int n, const void* emb,
                                         const void* embd, const void* w, const void* wt,
                                         const float* b, int depth, int width, int skipmask,
@@ -758,12 +765,11 @@ extern "C" int nefes_field_bwd_smem_bytes(int dtype, int mode, int depth, int wi
   return (int)nefes::bwd_smem(Dims{depth, width, skipmask, E, Ed, F}, dtype == 1 ? 2 : 4, mode);
 }
 
-// Blocks of the backward K2 (or, raw, K6) in sigma or full `mode` that one
-// SM holds, from the occupancy calculator (1 in the host build); -1 on an
-// error or in transient mode.
+// Blocks of the backward K2 (or, raw, K6) in `mode` that one SM holds,
+// from the occupancy calculator (1 in the host build); -1 on an error.
 extern "C" int nefes_field_bwd_blocks_per_sm(int dtype, int mode, int raw, int depth, int width,
                                              int skipmask, int E, int Ed, int F) {
-  if (mode != nefes::SIGMA && mode != nefes::FULL) return -1;
+  if (mode < nefes::SIGMA || mode > nefes::TRANSIENT) return -1;
 #ifdef NEFES_EMULATE
   return 1;
 #else

@@ -6,9 +6,9 @@
 // header: fused_render.cu (K3 render_fwd_pre, K4 render_bwd_pre, K7
 // render_fwd, K8 render_bwd) and fused_field.cu, whose forward K1/K5 runs
 // warp_forward in sigma, full and transient mode (field_warp_kernel) and
-// whose backward K2/K6 in sigma and full mode runs warp_forward and then
+// whose backward K2/K6 in every mode runs warp_forward and then
 // warp_backward per warp, with or without the dW operands
-// (field_bwd_warp_kernel; transient mode stays on tower.cuh).
+// (field_bwd_warp_kernel).
 //
 // A block renders one ray in block tiles of BT = 128 samples: warp w owns
 // the tile's rows [16 w, 16 w + 16) through every layer, so the layers
@@ -41,12 +41,11 @@
 // f32 activations on the CUDA cores, reading the weights from global
 // memory (the parity mode; the host build checks it on the CPU).
 //
-// Same function and rounding points as tower.cuh's tower_forward /
-// tower_backward in SIGMA and FULL mode (and fused_render.py's and
-// fused_field.py's plain versions): hidden layers accumulate in f32 and
-// round to T before the bias and ReLU in T; heads accumulate in f32. With
-// dW (the field backward) a warp writes its rows' dW operands in
-// tower.cuh's DwSlot layout (WarpDw).
+// Same function and rounding points as fused_render.py's and
+// fused_field.py's plain versions (and the TPU kernels): hidden layers
+// accumulate in f32 and round to T before the bias and ReLU in T; heads
+// accumulate in f32. With dW (the field backward) a warp writes its rows'
+// dW operands in tower.cuh's DwSlot layout (WarpDw).
 //
 // Host emulation (NEFES_EMULATE): a block is one thread, so a "warp" is
 // one thread looping over its 32 lanes (LANES = 1) and the block loops
@@ -80,10 +79,12 @@ constexpr bool kStaged = HAS_BF16 && std::is_same<T, __nv_bfloat16>::value;
 // The forward sequences a block stages, each in the order its products
 // read the matrices: to the sigma head (the field forward's sigma mode),
 // to the dir layer (the render kernels), to the rgb/feature head (the
-// field forward's full mode), and on through the NeRF-W transient branch
-// (the field forward's transient mode). They share their prefix, mat_at's
-// forward.
-enum Seq { SEQ_SIGMA, SEQ_DIR, SEQ_HEADS, SEQ_TRANSIENT };
+// field forward's full mode), on through the NeRF-W transient branch (the
+// field forward's transient mode), and to the dir layer and on through
+// that branch without the rgb/feature head (the field backward's
+// recompute in transient mode, whose head cotangents are inputs). They
+// share their prefix, mat_at's forward.
+enum Seq { SEQ_SIGMA, SEQ_DIR, SEQ_HEADS, SEQ_TRANSIENT, SEQ_TRANSIENT_BWD };
 
 // One matrix of the packed blobs as a product reads it: rows x cols,
 // row-major at offset `off` of w (or wt); nk: stored (N, K) rather than
@@ -123,21 +124,16 @@ __host__ __device__ inline MatDesc mat_at(const Dims& d, const Layout& L, bool b
   return {-1, 0, 0, false, false};
 }
 
-__host__ __device__ inline int mat_count(const Dims& d, const Layout& L, bool bwd) {
-  int n = 0;
-  while (mat_at(d, L, bwd, n).off >= 0) ++n;
-  return n;
-}
-
 // The k-th matrix of forward sequence FWD (off = -1 past the last): the
-// hidden layers as mat_at's forward lists them, then (SEQ_HEADS and
-// SEQ_TRANSIENT) final, the dir layer's two and the rgb/feature head,
-// which reads wt, (C, H) as (N, K), since w's rows of C values are not
-// 16-byte aligned; then (SEQ_TRANSIENT) t1's two, t2 and t3 from w, and
-// the five transient head columns as one (5, H) matrix read as (N, K):
-// wt holds ts_w (1, H), tr_w (3, H) and tb_w (1, H) back to back from
-// ts_w's offset. Listed, not counted from mat_at: the stager calls it for
-// every matrix it copies.
+// hidden layers as mat_at's forward lists them, then (all but SEQ_SIGMA)
+// final and the dir layer's two, then (SEQ_HEADS and SEQ_TRANSIENT) the
+// rgb/feature head, which reads wt, (C, H) as (N, K), since w's rows of C
+// values are not 16-byte aligned; then (SEQ_TRANSIENT and
+// SEQ_TRANSIENT_BWD) t1's two, t2 and t3 from w, and the five transient
+// head columns as one (5, H) matrix read as (N, K): wt holds ts_w (1, H),
+// tr_w (3, H) and tb_w (1, H) back to back from ts_w's offset. Listed,
+// not counted from mat_at: the stager calls it for every matrix it
+// copies.
 template <Seq FWD>
 __host__ __device__ inline MatDesc fwd_mat(const Dims& d, const Layout& L, int k) {
   if constexpr (FWD == SEQ_DIR) {
@@ -154,9 +150,11 @@ __host__ __device__ inline MatDesc fwd_mat(const Dims& d, const Layout& L, int k
       if (k == n++) return {L.fin_w, W, W, false, false};
       if (k == n++) return {L.dir_wh, W, H, false, false};
       if (k == n++) return {L.dir_wd, d.Ed, H, false, false};
+    }
+    if (FWD == SEQ_HEADS || FWD == SEQ_TRANSIENT) {
       if (k == n++) return {L.rgb_w, 3 + d.F, H, true, true};
     }
-    if (FWD == SEQ_TRANSIENT) {
+    if (FWD == SEQ_TRANSIENT || FWD == SEQ_TRANSIENT_BWD) {
       if (k == n++) return {L.t1_wh, W, H, false, false};
       if (k == n++) return {L.t1_wd, d.Ed, H, false, false};
       if (k == n++) return {L.t2_w, H, H, false, false};
@@ -179,13 +177,37 @@ __host__ __device__ inline int fwd_count(const Dims& d, const Layout& L) {
 // backward), or each tile's forward and then its backward (ORD_TILE, the
 // field backward in full mode; ORD_TILE_SIGMA in sigma mode, whose
 // backward starts at the last hidden layer: mat_at's backward from
-// BWD_HEADS on, without the rgb head, the dir layer and final).
-enum Order { ORD_RAY, ORD_TILE, ORD_TILE_SIGMA };
+// BWD_HEADS on, without the rgb head, the dir layer and final;
+// ORD_TILE_TRANSIENT in transient mode, whose backward also runs the
+// transient branch's: bwd_mat).
+enum Order { ORD_RAY, ORD_TILE, ORD_TILE_SIGMA, ORD_TILE_TRANSIENT };
 constexpr int BWD_HEADS = 4;
 
+// The k-th matrix of the backward's sequence in order ORD (off = -1 past
+// the last): mat_at's backward (from BWD_HEADS on in ORD_TILE_SIGMA) or,
+// in ORD_TILE_TRANSIENT, the rgb/feature head's, t3's and t2's from wt
+// (K, N), the dir layer's two, t1's two (t1_wh from wt, t1_wd from w as
+// (N, K), since wt's rows of Ed values are not 16-byte aligned), then
+// final and the hidden layers as mat_at lists them.
 template <Order ORD>
-__host__ __device__ constexpr int bwd_first() {
-  return ORD == ORD_TILE_SIGMA ? BWD_HEADS : 0;
+__host__ __device__ inline MatDesc bwd_mat(const Dims& d, const Layout& L, int k) {
+  if constexpr (ORD == ORD_TILE_TRANSIENT) {
+    const int W = d.width, H = W / 2;
+    if (k == 1) return {L.t3_w, H, H, true, false};
+    if (k == 2) return {L.t2_w, H, H, true, false};
+    if (k == 5) return {L.t1_wh, H, W, true, false};
+    if (k == 6) return {L.t1_wd, d.Ed, H, false, true};
+    return mat_at(d, L, true, k < 1 ? k : k < 5 ? k - 2 : k - 4);
+  } else {
+    return mat_at(d, L, true, ORD == ORD_TILE_SIGMA ? k + BWD_HEADS : k);
+  }
+}
+
+template <Order ORD>
+__host__ __device__ inline int bwd_count(const Dims& d, const Layout& L) {
+  int n = 0;
+  while (bwd_mat<ORD>(d, L, n).off >= 0) ++n;
+  return n;
 }
 
 // elements of one staged matrix
@@ -212,7 +234,8 @@ struct RayBufs {
   float* scan;      // 32 the composite's scan
   // the backward's
   float* gr;        // C + 2 the ray's output cotangent
-  uint32_t* mask;   // S x mw: ReLU bits of every hidden layer, then the dir layer's
+  uint32_t* mask;   // S x mw: ReLU bits of every hidden layer, then the dir
+                    // layer's (and the field backward's t1, t2, t3)
   int mw;
   float* zs;        // S sigma pre-activation
   float* rgb;       // S x 3
@@ -221,6 +244,8 @@ struct RayBufs {
   float* trans;     // S transmittance
   float* dzs;       // S cotangent of zs
   float* dd;        // S cotangent of delta
+  float* tz;        // BT x 5 the field backward's transient head
+                    // pre-activations, then their cotangents
   // the forward's (the field forward's: tzs only)
   float* tzs;       // BT the tile's sigma pre-activations
   float* twgt;      // BT the tile's composite weights
@@ -378,7 +403,7 @@ __device__ void stage_copy(const MatDesc& m, const T* __restrict__ src, T* dst) 
 // The weight pipeline of one block: every thread calls get() for every
 // product in the same order, so g counts the matrices of the whole kernel
 // (the forward's sequence FWD per block tile of the block and, in a
-// backward, the backward's per block tile, in the order ORD; the copy of
+// backward, the backward's (bwd_mat) per block tile, in the order ORD; the copy of
 // a block tile's first matrix overlaps the previous tile's last
 // product). get() waits for matrix g, makes it visible to the block (the
 // barrier also means every warp is done with matrix g - 1), starts the
@@ -389,6 +414,7 @@ __device__ void stage_copy(const MatDesc& m, const T* __restrict__ src, T* dst) 
 // kernel's parameters or the two stage pointers in local memory.
 template <typename T, Seq FWD = SEQ_DIR, Order ORD = ORD_RAY>
 struct Stager {
+  static constexpr Order order = ORD;
   T* buf0;
   T* buf1;
   int tiles, n_fwd, n_bwd, g;
@@ -396,7 +422,7 @@ struct Stager {
   __device__ Stager(const Tower<T>& tw, const RayBufs& rb, int tiles_, bool bwd)
       : buf0(reinterpret_cast<T*>(rb.wbuf[0])), buf1(reinterpret_cast<T*>(rb.wbuf[1])),
         tiles(tiles_), n_fwd(fwd_count<FWD>(tw.d, tw.L)),
-        n_bwd(bwd ? mat_count(tw.d, tw.L, true) - bwd_first<ORD>() : 0), g(0) {
+        n_bwd(bwd ? bwd_count<ORD>(tw.d, tw.L) : 0), g(0) {
     if (kStaged<T>) fetch(tw, 0);
   }
 
@@ -407,12 +433,10 @@ struct Stager {
       if (k < tiles * n_fwd)
         copy(tw, fwd_mat<FWD>(tw.d, tw.L, k % n_fwd), stage(k));
       else if (k < tiles * (n_fwd + n_bwd))
-        copy(tw, mat_at(tw.d, tw.L, true, (k - tiles * n_fwd) % n_bwd), stage(k));
+        copy(tw, bwd_mat<ORD>(tw.d, tw.L, (k - tiles * n_fwd) % n_bwd), stage(k));
     } else if (k < tiles * (n_fwd + n_bwd)) {
       const int j = k % (n_fwd + n_bwd);
-      copy(tw,
-           j < n_fwd ? fwd_mat<FWD>(tw.d, tw.L, j)
-                     : mat_at(tw.d, tw.L, true, j - n_fwd + bwd_first<ORD>()),
+      copy(tw, j < n_fwd ? fwd_mat<FWD>(tw.d, tw.L, j) : bwd_mat<ORD>(tw.d, tw.L, j - n_fwd),
            stage(k));
     }
     cp_async_commit();
@@ -813,12 +837,20 @@ __device__ __forceinline__ void warp_forward(const Tower<T>& tw, const RayBufs& 
 // products (the dir layer's, final's and every hidden layer's output
 // cotangent; the caller writes the heads'). The render backward's pass 2
 // (grf = w_r g_c) and the field backward (the rows' head cotangents).
-template <typename T, bool RAW, bool DIR = true, typename St, typename GRf,
+// TRANS (the field backward in transient mode, DIR): also the NeRF-W
+// branch from dz5 (16 x 5 f32, the transient heads' cotangents after
+// their activations, 0 past vr rows) and the ReLU bits of t1, t2, t3
+// that warp_transient kept after the dir layer's; G operands also the
+// branch's layers'. The products read the stager's sequence bwd_mat<ORD>.
+template <typename T, bool RAW, bool DIR = true, bool TRANS = false, typename St, typename GRf,
           typename Dw = WarpDw<T, false>>
 __device__ __forceinline__ void warp_backward(const Tower<T>& tw, const RayBufs& rb, St& st,
                                               int wp, int s0, int S, size_t sample0, const void* x,
                                               const void* dirs, void* dx, void* ddirs,
-                                              const float* dzs, GRf grf, const Dw& dw = Dw{}) {
+                                              const float* dzs, GRf grf, const Dw& dw = Dw{},
+                                              const float* dz5 = nullptr) {
+  constexpr Order ORD = St::order;
+  static_assert(DIR || !TRANS, "the transient branch starts from final and the dir embedding");
   const Dims& d = tw.d;
   const Layout& L = tw.L;
   const int W = d.width, H = W / 2, E = d.E, Ed = d.Ed, C = 3 + d.F, nw = (W + 31) / 32;
@@ -831,36 +863,84 @@ __device__ __forceinline__ void warp_backward(const Tower<T>& tw, const RayBufs&
     return r < vr && ((bits[r * mw + w0 + (c >> 5)] >> (c & 31)) & 1u);
   };
   const T* sw = tw.w + L.sig_w;
-  int k = DIR ? 0 : BWD_HEADS;
-  // d_h of the last hidden layer, times its relu', into hb
-  T* cur = wb.hb;
+  int k = 0;
+  // d_h of the last hidden layer, times its relu', into hb (TRANS: ha)
+  T* cur = TRANS ? wb.ha : wb.hb;
   float* dembd = reinterpret_cast<float*>(wb.xd);
   if constexpr (DIR) {
     // d_de = grf @ rgb_w^T (every channel: the features reach the head),
     // times relu'(de), into xe
     T* dzd = wb.xe;
-    warp_mm<T>(FnA<GRf>{grf}, C, st.get(tw, mat_at(d, L, true, k++)), H,
+    warp_mm<T>(FnA<GRf>{grf}, C, st.get(tw, bwd_mat<ORD>(d, L, k++)), H,
                [=](int r, int c, float acc) {
                  dzd[r * ldh + c] = from_f<T>(on(r, d.depth * nw, c) ? acc : 0.f);
                });
     __syncwarp();
     dw.buf(G_DIR, dzd, ldh);
-    // d_final = dzd @ dir_wh^T rounded, into ha; d_embd = dzd @ dir_wd^T
-    // in f32, into xd
-    T* dfin = wb.ha;
+    T* dt1 = wb.ha;
+    if constexpr (TRANS) {
+      // dt3: the three transient heads' products, each rounded to T,
+      // summed in T in the order sigma + rgb + beta (a loop, not a
+      // product over K = 5, which would sum the three in f32), times
+      // relu'(t3), into ha; dt2 = dt3 @ t3_w^T into hb, dt1 = dt2 @ t2_w^T
+      // into ha, each rounded, times relu' of its layer
+      const int nh = (H + 31) / 32, wt1 = d.depth * nw + nh;   // t1's bits
+      const T* tsw = tw.w + L.ts_w;
+      const T* trw = tw.w + L.tr_w;
+      const T* tbw = tw.w + L.tb_w;
+      T* dt3 = wb.ha;
+      T* dt2 = wb.hb;
+      for (int i = threadIdx.x & (LANES - 1); i < WR * H; i += LANES) {
+        const int r = i / H, c = i - r * H;
+        const float* g = dz5 + r * 5;
+        const float a = rnd<T>(rnd<T>(g[0]) * to_f<T>(tsw[c]));
+        float acc = 0.f;
+        for (int j = 0; j < 3; ++j) acc = fmaf(rnd<T>(g[1 + j]), to_f<T>(trw[c * 3 + j]), acc);
+        const float e = rnd<T>(rnd<T>(g[4]) * to_f<T>(tbw[c]));
+        dt3[r * ldh + c] =
+            from_f<T>(on(r, wt1 + 2 * nh, c) ? rnd<T>(rnd<T>(a + rnd<T>(acc)) + e) : 0.f);
+      }
+      __syncwarp();
+      dw.buf(G_T3, dt3, ldh);
+      warp_mm<T>(SmemA<T>{dt3, ldh}, H, st.get(tw, bwd_mat<ORD>(d, L, k++)), H,
+                 [=](int r, int c, float acc) {
+                   dt2[r * ldh + c] = from_f<T>(on(r, wt1 + nh, c) ? acc : 0.f);
+                 });
+      __syncwarp();
+      dw.buf(G_T2, dt2, ldh);
+      warp_mm<T>(SmemA<T>{dt2, ldh}, H, st.get(tw, bwd_mat<ORD>(d, L, k++)), H,
+                 [=](int r, int c, float acc) {
+                   dt1[r * ldh + c] = from_f<T>(on(r, wt1, c) ? acc : 0.f);
+                 });
+      __syncwarp();
+      dw.buf(G_T1, dt1, ldh);
+    }
+    // d_final = dzd @ dir_wh^T rounded, into ha (TRANS: hb); d_embd = dzd
+    // @ dir_wd^T in f32, into xd; TRANS: then d_final = rnd(d_final +
+    // rnd(dt1 @ t1_wh^T)) and d_embd += dt1 @ t1_wd^T (each element on the
+    // lane that wrote it: the products have the same N)
+    T* dfin = TRANS ? wb.hb : wb.ha;
     {
       const SmemA<T> a{dzd, ldh};
-      warp_mm<T>(a, H, st.get(tw, mat_at(d, L, true, k++)), W,
+      warp_mm<T>(a, H, st.get(tw, bwd_mat<ORD>(d, L, k++)), W,
                  [=](int r, int c, float acc) { dfin[r * ldw + c] = from_f<T>(acc); });
-      warp_mm<T>(a, H, st.get(tw, mat_at(d, L, true, k++)), Ed,
+      warp_mm<T>(a, H, st.get(tw, bwd_mat<ORD>(d, L, k++)), Ed,
                  [=](int r, int c, float acc) { dembd[r * Ed + c] = acc; });
+    }
+    if constexpr (TRANS) {
+      const SmemA<T> a{dt1, ldh};
+      warp_mm<T>(a, H, st.get(tw, bwd_mat<ORD>(d, L, k++)), W, [=](int r, int c, float acc) {
+        dfin[r * ldw + c] = from_f<T>(rnd<T>(to_f<T>(dfin[r * ldw + c]) + rnd<T>(acc)));
+      });
+      warp_mm<T>(a, H, st.get(tw, bwd_mat<ORD>(d, L, k++)), Ed,
+                 [=](int r, int c, float acc) { dembd[r * Ed + c] += acc; });
     }
     __syncwarp();
     dw.buf(G_FIN, dfin, ldw);
     // the sigma head's and final's cotangents, each rounded, summed in T
     const int w0 = (d.depth - 1) * nw;
     T* o = cur;
-    warp_mm<T>(SmemA<T>{dfin, ldw}, W, st.get(tw, mat_at(d, L, true, k++)), W,
+    warp_mm<T>(SmemA<T>{dfin, ldw}, W, st.get(tw, bwd_mat<ORD>(d, L, k++)), W,
                [=](int r, int c, float acc) {
                  o[r * ldw + c] = from_f<T>(
                      on(r, w0, c) ? rnd<T>(rnd<T>(rnd<T>(dzs[r]) * to_f<T>(sw[c])) + rnd<T>(acc))
@@ -879,7 +959,7 @@ __device__ __forceinline__ void warp_backward(const Tower<T>& tw, const RayBufs&
   // the hidden layers, last to first; d_emb sums the skip layers' and the
   // first layer's products in f32, in that order, into xe
   float* demb = reinterpret_cast<float*>(wb.xe);
-  T* nxt = wb.ha;
+  T* nxt = TRANS ? wb.hb : wb.ha;
   bool first = true;
   for (int i = d.depth - 1; i >= 0; --i) {
     dw.buf(G_DZ + i, cur, ldw);
@@ -888,16 +968,16 @@ __device__ __forceinline__ void warp_backward(const Tower<T>& tw, const RayBufs&
       demb[r * E + c] = first ? acc : demb[r * E + c] + acc;
     };
     if (i == 0) {
-      warp_mm<T>(a, W, st.get(tw, mat_at(d, L, true, k++)), E, add_emb);
+      warp_mm<T>(a, W, st.get(tw, bwd_mat<ORD>(d, L, k++)), E, add_emb);
       break;
     }
     const int w0 = (i - 1) * nw;
     T* o = nxt;
-    warp_mm<T>(a, W, st.get(tw, mat_at(d, L, true, k++)), W, [=](int r, int c, float acc) {
+    warp_mm<T>(a, W, st.get(tw, bwd_mat<ORD>(d, L, k++)), W, [=](int r, int c, float acc) {
       o[r * ldw + c] = from_f<T>(on(r, w0, c) ? acc : 0.f);
     });
     if ((d.skipmask >> i) & 1) {
-      warp_mm<T>(a, W, st.get(tw, mat_at(d, L, true, k++)), E, add_emb);
+      warp_mm<T>(a, W, st.get(tw, bwd_mat<ORD>(d, L, k++)), E, add_emb);
       first = false;
     }
     __syncwarp();

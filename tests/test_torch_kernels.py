@@ -23,10 +23,11 @@ their plain versions are held to the JAX package in test_torch_raw.py).
    K2/K6 (the backward over chunks of rows, the dW kernel on each chunk's
    row slices, one and several, and their reduction; the dW kernel alone
    against field_dw_plain; two calls bit for bit; the chunk plan at the
-   training shapes), checked without a card. K2/K6's warp path (sigma
-   and full mode) also at the full-width tower, over chunks that end mid
-   block tile, and on a persistent grid of 2 blocks and one block per
-   block tile, bit for bit the same, with its shared memory a block. The render kernels at
+   training shapes), checked without a card. K2/K6's warp path (every
+   mode, transient mode on the fine tower) also at the full-width tower,
+   over chunks that end mid block tile, and on a persistent grid of 2
+   blocks and one block per block tile, bit for bit the same, with its
+   shared memory a block. The render kernels at
    the full-width tower and up to 1,024 samples a ray (the backward's
    per-sample state past a block's 232,448 bytes of shared memory, in its
    global scratch), and the build of another tree's sources
@@ -734,31 +735,33 @@ def test_field_warp_smem_fits_a_block(host_build):
     assert smem[1, kf.SIGMA] == K1_SMEM_BYTES
 
 
-# The backward K2/K6 in sigma and full mode on the warp path, full width:
-# 200 rows, a block tile of 128 and a ragged one of 72 (four whole warps,
-# one of 8 rows, three empty), frozen and with dW in one chunk
+# The backward K2/K6 on the warp path, full width: 200 rows, a block tile
+# of 128 and a ragged one of 72 (four whole warps, one of 8 rows, three
+# empty), frozen and with dW in one chunk
 @pytest.mark.parametrize("need_dw", [False, True], ids=["frozen", "dw"])
-@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL], ids=["sigma", "full"])
+@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL, kf.TRANSIENT],
+                         ids=["sigma", "full", "transient"])
 @pytest.mark.parametrize("raw", [False, True], ids=["pre", "raw"])
 def test_field_bwd_warp_full_width_matches_plain(raw, mode, need_dw,
                                                  full_width, host_build):
-    """K2 (pre) or K6 (raw) at the full width (D8/W128/F128, the main
-    path's coarse tower) in f32, 200 rows, host build against the plain
-    version to the scaled 1e-5: the input cotangents and, with dW, every
-    weight and bias gradient of the mode. In sigma mode dirs is null: the
-    warp path reads no directions there."""
+    """K2 (pre) or K6 (raw) at the full width (D8/W128/F128) in f32, 200
+    rows, host build against the plain version to the scaled 1e-5: the
+    input cotangents and, with dW, every weight and bias gradient of the
+    mode. Sigma and full mode on the main path's coarse tower, transient
+    mode on the fine tower (training's fine pass). In sigma mode dirs is
+    null: the warp path reads no directions there."""
     lib = build.library("fused_field", emulate=True, build_dir=host_build)
-    p, N = full_width[0], 200
+    p, N = full_width[int(mode == kf.TRANSIENT)], 200
     gen = torch.Generator().manual_seed(201 + 2 * mode + need_dw)
     x, dirs, hd, (dx_w, dd_w) = _inputs(gen, p.spec, N, raw)
     g = _cotangents(gen, N, p.spec.feature_dim, hd)
     d = [torch.empty((N, dx_w), dtype=hd), torch.empty((N, dd_w), dtype=hd)]
-    xd = dirs if mode == kf.FULL else None
+    xd = dirs if mode != kf.SIGMA else None
     dw = _host_bwd(lib, raw, p, mode, x, xd, g, d, 256 if need_dw else 0, 2)
     plain = kf.field_bwd_plain if raw else kf.field_bwd_pre_plain
     want = plain(p, mode, x, xd, *g, need_dw=need_dw)
     _scaled_close(d[0], want[0], 1e-5, "d_x")
-    if mode == kf.FULL:
+    if mode != kf.SIGMA:
         _scaled_close(d[1], want[1], 1e-5, "d_dirs")
     if need_dw:
         nw = p.w.numel()
@@ -769,14 +772,15 @@ def test_field_bwd_warp_full_width_matches_plain(raw, mode, need_dw,
 # 300 rows with dW in chunks of 64 (every chunk half a block tile, the
 # last of 44 rows) and of 192 (the second chunk of 108 rows starts at row
 # 192, mid block tile of the rows, and ends mid its second block tile)
-@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL], ids=["sigma", "full"])
+@pytest.mark.parametrize("mode", [kf.SIGMA, kf.FULL, kf.TRANSIENT],
+                         ids=["sigma", "full", "transient"])
 @pytest.mark.parametrize("raw,chunk,slices", [
     pytest.param(False, 64, 1, id="float32-chunks-of-64"),
     pytest.param(True, 64, 2, id="raw-float32-chunks-of-64"),
     pytest.param(False, 192, 2, id="float32-chunks-of-192")])
 def test_field_bwd_warp_chunks_mid_tile(raw, chunk, slices, mode,
                                         host_build):
-    """K2/K6 with dW in sigma and full mode over chunks that end in the
+    """K2/K6 with dW in each mode over chunks that end in the
     middle of a 128-row block tile, against the plain version to the
     scaled 1e-5; then the same chunks on a persistent grid of 2 blocks and
     on one block per block tile, and a second call, all bit for bit the
@@ -792,7 +796,7 @@ def test_field_bwd_warp_chunks_mid_tile(raw, chunk, slices, mode,
              torch.empty((N, dd_w), dtype=hd)]
         dw = _host_bwd(lib, raw, p, mode, x, dirs, g, d, chunk, slices,
                        blocks)
-        return [dw, d[0]] + ([d[1]] if mode == kf.FULL else [])
+        return [dw, d[0]] + ([d[1]] if mode != kf.SIGMA else [])
 
     first = run(None)
     plain = kf.field_bwd_plain if raw else kf.field_bwd_pre_plain
@@ -806,28 +810,37 @@ def test_field_bwd_warp_chunks_mid_tile(raw, chunk, slices, mode,
             assert torch.equal(a, b), f"blocks={blocks}"
 
 
-# the shared memory of one K2/K6 block of the warp path in full mode at
-# D8/W128/F128, bf16 and f32 (PERF.md)
+# the shared memory of one K2/K6 block of the warp path at D8/W128/F128,
+# bf16 and f32 (PERF.md): full mode, and transient mode (the fine tower)
 K2_SMEM_BYTES = {1: 208400, 0: 219664}
+K2_TRANSIENT_SMEM_BYTES = {1: 214192, 0: 225456}
 
 
 def test_field_bwd_warp_smem_fits_a_block(host_build):
     """The shared memory of one block of the backward K2/K6's warp path at
-    the full-width ModelConfig() (the coarse tower) in sigma and full
-    mode, bf16 and f32: within an H100 block's 232,448 bytes, sigma mode
-    below full mode, full mode at the figures PERF.md states; one block
-    an SM in the host build's answer."""
+    the full-width ModelConfig() in sigma and full mode (the coarse tower)
+    and transient mode (the fine tower), bf16 and f32: within an H100
+    block's 232,448 bytes, sigma mode below full mode, transient mode at
+    least full mode (its ReLU bits, head pre-activations and bias sums
+    besides), full and transient mode at the figures PERF.md states; one
+    block an SM in the host build's answer, in every mode."""
     from nefes_tpu_torch.train.model import ModelConfig
     lib = build.library("fused_field", emulate=True, build_dir=host_build)
-    dims = kf.dims(kf.FieldSpec.from_model(ModelConfig(), "coarse"))
-    smem = {(code, mode): lib.nefes_field_bwd_smem_bytes(code, mode, *dims)
-            for code in (0, 1) for mode in (kf.SIGMA, kf.FULL)}
+    dims = {mode: kf.dims(kf.FieldSpec.from_model(
+        ModelConfig(), "fine" if mode == kf.TRANSIENT else "coarse"))
+        for mode in (kf.SIGMA, kf.FULL, kf.TRANSIENT)}
+    smem = {(code, mode): lib.nefes_field_bwd_smem_bytes(code, mode,
+                                                         *dims[mode])
+            for code in (0, 1) for mode in (kf.SIGMA, kf.FULL, kf.TRANSIENT)}
     assert all(0 < b <= BLOCK_SMEM_MAX for b in smem.values())
     for code in (0, 1):
         assert smem[code, kf.SIGMA] < smem[code, kf.FULL]
+        assert smem[code, kf.FULL] <= smem[code, kf.TRANSIENT]
         assert smem[code, kf.FULL] == K2_SMEM_BYTES[code]
-    assert lib.nefes_field_bwd_blocks_per_sm(1, kf.FULL, 0, *dims) == 1
-    assert lib.nefes_field_bwd_blocks_per_sm(1, kf.TRANSIENT, 0, *dims) == -1
+        assert smem[code, kf.TRANSIENT] == K2_TRANSIENT_SMEM_BYTES[code]
+    for mode in (kf.FULL, kf.TRANSIENT):
+        assert lib.nefes_field_bwd_blocks_per_sm(1, mode, 0,
+                                                 *dims[mode]) == 1
 
 
 def test_build_of_another_tree(host_build, tmp_path):
