@@ -1,7 +1,7 @@
 """On-card smoke run of nefes_tpu_torch on one NVIDIA GPU (written for the
 H100: the kernels build for sm_90a).
 
-    python3 chip_smoke.py [--phases build,check,mode3,mode2,paths,train,time,micro,probe,profile]
+    python3 chip_smoke.py [--phases build,check,mode3,mode2,paths,serve,train,time,micro,probe,profile]
         [--parent DIR]
 
 Phases:
@@ -37,18 +37,33 @@ Phases:
   mode3  mode-3 refinement at full width (NeFeS D8/W128/F128 in bf16,
          60x80 rays, 64+64 samples) through the pre-embedded kernels
          (fused=fused_pre=fused_render=True, frozen field: K1, K3, K4):
-         time per frame, losses, launch counts, peak memory
+         time per frame, losses, launch counts, peak memory; then the
+         captured serving loop (refine/graph.py: one iteration captured
+         as a CUDA graph, replayed 50 times) beside the eager one, in
+         turns (eager, captured, captured, eager): s/frame of each, the
+         launches of a captured frame, losses within PATHS_RTOL of the
+         first loss and poses within CAPTURED_POSE_TOL of the eager ones
   mode2  mode-2 refinement at full width (DFNet in f32 on a 240x320
          query, the same NeFeS field and render) through the raw-input
          kernels (fused=fused_render=True, fused_pre=False: K5, K7, K8):
          one warm-up frame, one timed frame with losses, PSNR/SSIM, the
          verification's decision, launch counts and peak memory; then
-         one timed frame through the pre-embedded kernels (K1, K3, K4)
+         one timed frame through the pre-embedded kernels (K1, K3, K4);
+         the captured loop on the raw kernels in turns with the eager one,
+         as mode 3's, and the verification's choice the same
   paths  a few iterations of each mode through the other paths: mode 3
          with fused_render=False (K1 + K2), unfused (plain PyTorch) and
          the raw paths (K5 + K7/K8, K5 + K6); mode 2 through the raw
          paths, the pre-embedded render and unfused. Their losses must
          agree with the mode's first path's
+  serve  the refinement CLI (nefes_tpu_torch.cli.refine) on an 8-frame
+         7-Scenes fixture written under tmp/ at the real layout (480x640
+         PNGs, splits, pose txts, COLMAP tables, world setup) in mode 3
+         and mode 2 at the defaults (df 2, tinyscale 4: 60x80 rays, 64+64
+         samples, NeFeS D8/W128/F128 bf16, DFNet f32, 50 iterations, seeded
+         random weights), every frame through the captured loop: s/frame,
+         summary, peak memory, the kernels it ran and how often; the pose
+         txt 8 x 12 finite and the evaluate CLI's medians the CLI's own
   train  field training at full width (NeFeS D8/W128/F128 in bf16, stage
          1, 4 images x 1536 random rays of a 60x80 render, 64+64 samples,
          perturbed, NeRF-W transient heads): 2 warm-up and 20 timed steps
@@ -91,8 +106,8 @@ Phases:
          (the pieces of a mode-3 iteration through K1, K3, K4; one timed
          50-iteration refine) commands once
   profile torch.profiler over 3 train_raw steps and 5 iterations of mode 3
-         and mode 2: the device's busy share of the wall time, device
-         time per kernel
+         and mode 2, eager and captured: the device's busy share of the
+         wall time, device time per kernel
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits with 1 and prints
@@ -127,6 +142,12 @@ TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 # The paths phase: largest |loss difference| between a mode's paths over
 # their iterations, relative to the first path's first loss.
 PATHS_RTOL = 2e-3
+# The captured serving loop (refine/graph.py) against the eager one:
+# losses within PATHS_RTOL of the first loss, refined poses within this
+# (max abs). Its Adam (GraphAdam) is the eager one bit for bit, but mode
+# 2's svd_reg runs the polar iteration instead of the SVD. With torch's
+# capturable Adam mode 3's poses parted by 3.7e-2 (PERF.md, PR 13).
+CAPTURED_POSE_TOL = 1e-4
 # The train phase: B images x N_rand rays per step (bench.py's
 # train_throughput leg), timed steps, and the parameters of the three
 # paths after PATH_STEPS steps from one state, relative L2 ||p_path -
@@ -138,6 +159,8 @@ PATHS_RTOL = 2e-3
 # the other way. The limits are about 10x those.
 TRAIN_B, N_RAND, TRAIN_STEPS, PATH_STEPS, TRAIN_LR = 4, 1536, 20, 3, 5e-4
 PARAM_TOL = {"float32": 5e-6, "bfloat16": 1e-3}
+# The serve phase: test frames of its 7-Scenes fixture (480x640 PNGs)
+SERVE_FRAMES = 8
 # Mode 2: the query at 7-Scenes H/2, rendered at a quarter of that
 IMG_H, IMG_W, FOCAL_FULL = 4 * H, 4 * W, 4 * FOCAL
 # The probe phase: K5's bf16 max-abs error from the plain f32 field within
@@ -208,8 +231,8 @@ def log(*a):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="build,check,mode3,mode2,paths,train,time,"
-                    "micro,probe,profile")
+                    default="build,check,mode3,mode2,paths,serve,train,"
+                    "time,micro,probe,profile")
     ap.add_argument("--parent", default=None,
                     help="an earlier tree whose K1, K5 and render kernels "
                     "the time phase times beside this tree's")
@@ -689,8 +712,9 @@ def main() -> int:
     from nefes_tpu_torch.features import DFNet, extract_target_features
     from nefes_tpu_torch.geometry.se3 import learn_pose
     from nefes_tpu_torch.refine import (
-        RefineConfig, apply_verification, refine_apr_single,
-        refine_pose_single, render_feature_image,
+        RefineConfig, apply_verification, graph, refine_apr_captured,
+        refine_apr_single, refine_pose_captured, refine_pose_single,
+        render_feature_image,
     )
     rcfg = RefineConfig(opt_iter=ITERS, lr_r=0.0087, lr_t=0.01)
     rcfg2 = RefineConfig(opt_iter=ITERS, learning_rate=1e-5)
@@ -740,6 +764,8 @@ def main() -> int:
         "K2/K6 field_dw": kf.field_dw,
     }
     all_kernels = tuple(wrappers.values())
+    # graph.launch_counts()'s wrapper names -> the kernels' names
+    kernel_name_of = {k.__name__: n for n, k in wrappers.items()}
     # the training variants' own counters (also counted in `launches`)
     variants = {
         "K1 field_fwd_pre transient": (kf.field_fwd_pre,
@@ -841,6 +867,92 @@ def main() -> int:
             replace_cfg(rcfg2, opt_iter=iters)))
         return out, out["losses"].cpu(), dt, counts
 
+    def captured3(cfg_name, iters):
+        """refine3 through the captured loop: (refined, losses, s)."""
+        t0 = time.perf_counter()
+        refined, losses = refine_pose_captured(
+            model, init, target, hist, ws_vec, (H, W, FOCAL), NEAR, FAR,
+            cfgs[cfg_name], replace_cfg(rcfg, opt_iter=iters))
+        torch.cuda.synchronize()
+        return refined, losses.cpu(), time.perf_counter() - t0
+
+    def captured2(cfg_name, iters):
+        """refine2 through the captured loop: (out, losses, s)."""
+        dfnet, image, target2 = mode2_inputs()
+        t0 = time.perf_counter()
+        out = refine_apr_captured(
+            model, dfnet, image, target2, hist, ws_vec, (H, W, FOCAL),
+            (IMG_H, IMG_W, FOCAL_FULL), NEAR, FAR, cfgs[cfg_name],
+            replace_cfg(rcfg2, opt_iter=iters))
+        torch.cuda.synchronize()
+        return out, out["losses"].cpu(), time.perf_counter() - t0
+
+    def loop_of(name, cfg_name, iters):
+        """The cached captured loop of a mode, path and iteration count."""
+        want = replace_cfg(rcfg if name == "mode3" else rcfg2,
+                           opt_iter=iters)
+        hits = [lp for lp in graph.loops() if lp.name == name
+                and lp.cfg == cfgs[cfg_name] and lp.rcfg == want]
+        return hits[0]
+
+    def captured_turns(name, cfg_name, eager, captured, pose_key=None):
+        """The eager and the captured loop at ITERS iterations, in turns
+        (eager, captured, captured, eager) after a first captured frame
+        that captures. Checks the captured losses against the eager ones
+        (PATHS_RTOL of the first loss) and the poses (CAPTURED_POSE_TOL
+        max abs), that the captured frames called no kernel wrapper, and
+        that one captured iteration launches the path's kernels once
+        each. Returns (eager runs, captured runs)."""
+        captured(cfg_name, ITERS)                   # warm-up + capture
+        runs = {"eager": [], "captured": []}
+        peaks = {}
+        for kind in ("eager", "captured", "captured", "eager"):
+            torch.cuda.reset_peak_memory_stats()
+            if kind == "eager":
+                out, losses, dt, _ = eager(cfg_name, ITERS)
+            else:
+                reset_counts()
+                out, losses, dt = captured(cfg_name, ITERS)
+                called = {n: k.launches for n, k in wrappers.items()
+                          if k.launches}
+                if called:
+                    raise AssertionError(f"captured {name} frame called "
+                                         f"the wrappers: {called}")
+            runs[kind].append((out, losses, dt))
+            peaks[kind] = torch.cuda.max_memory_allocated() / 2**20
+        loop = loop_of(name, cfg_name, ITERS)
+        per_iter = {kernel_name_of[k]: c
+                    for k, c in loop.graph.launches.items()}
+        if per_iter != {k: 1 for k in path_kernels[cfg_name]}:
+            raise AssertionError(f"captured {name} iteration launches "
+                                 f"{per_iter}")
+        (oe, le, _), (oc, lc, _) = runs["eager"][0], runs["captured"][0]
+        pe = oe if pose_key is None else oe[pose_key]
+        pc = oc if pose_key is None else oc[pose_key]
+        tol = PATHS_RTOL * float(le[0])
+        dl = (lc - le).abs().max().item()
+        dp = (pc - pe).abs().max().item()
+        te = [r[2] for r in runs["eager"]]
+        tc = [r[2] for r in runs["captured"]]
+        log(f"{name} {cfg_name} in turns (eager, captured, captured, "
+            f"eager): eager {te[0]:.4f} / {te[1]:.4f} s/frame, captured "
+            f"{tc[0]:.4f} / {tc[1]:.4f} s/frame; captured / eager = "
+            f"{sum(tc) / sum(te):.4f}")
+        log(f"  peak memory of a frame: eager {peaks['eager']:.1f} MiB, "
+            f"captured {peaks['captured']:.1f} MiB (the graphs' pools and "
+            f"everything held included)")
+        log(f"  a captured frame launches {ITERS} x {per_iter} "
+            f"(CapturedIteration.launches, the wrappers' counts while "
+            f"capturing, times {ITERS} replays; the wrappers' counters read "
+            f"0 over the captured frames)")
+        log(f"  captured vs eager: max |loss diff| {dl:.3e} (tolerance "
+            f"{tol:.3e} = {PATHS_RTOL:g} x first loss), max |pose diff| "
+            f"{dp:.3e} (tolerance {CAPTURED_POSE_TOL:g})"
+            + ("; bit for bit the same" if dl == 0 and dp == 0 else ""))
+        if not (dl <= tol and dp <= CAPTURED_POSE_TOL):
+            raise AssertionError(f"captured {name} disagrees with eager")
+        return runs["eager"], runs["captured"]
+
     def do_mode3():
         refine3("render_pre", 2)                    # warm: build, caches
         torch.cuda.reset_peak_memory_stats()
@@ -861,6 +973,8 @@ def main() -> int:
         for name in path_kernels["render_pre"]:
             kernels[name]["launches"] = counts[name]
             kernels[name]["path"] = "mode3 render_pre"
+        captured_turns("mode3", "render_pre",
+                       lambda c, i: refine3(c, i), captured3)
 
     phase("mode3", do_mode3)
 
@@ -901,6 +1015,20 @@ def main() -> int:
         _, losses_p, dt_p, counts_p = refine2("render_pre", ITERS)
         log(f"mode2 render_pre: {dt_p:.3f} s/frame, launches {counts_p}; "
             f"render_raw / render_pre = {dt / dt_p:.3f}")
+        eager, captured = captured_turns("mode2", "render_raw", refine2,
+                                         captured2, "refined_pose")
+        for (oe, _, _), (oc, _, _) in zip(eager, captured):
+            choice = [bool(o["end_psnr"] < o["init_psnr"]
+                           or o["end_ssim"] < o["init_ssim"])
+                      for o in (oe, oc)]
+            if choice[0] != choice[1]:
+                raise AssertionError(f"verification: eager retreats "
+                                     f"{choice[0]}, captured {choice[1]}")
+            if not torch.equal(apply_verification(oc), oc["initial_pose"]
+                               if choice[1] else oc["refined_pose"]):
+                raise AssertionError("captured verification chose wrong")
+        log(f"  verification psnr_ssim: the same choice in every turn "
+            f"({'retreat' if choice[0] else 'keep the refined pose'})")
 
     phase("mode2", do_mode2)
 
@@ -936,6 +1064,97 @@ def main() -> int:
                     raise AssertionError(f"{mode} {name} losses disagree")
 
     phase("paths", do_paths)
+
+    def do_serve():
+        """The refinement CLI on an 8-frame 7-Scenes fixture at its real
+        layout and size, in mode 3 and mode 2 at the defaults, each frame
+        served by the captured loop; then the evaluate CLI on its pose
+        txt."""
+        import importlib.util
+        from nefes_tpu_torch.cli import evaluate as ev
+        from nefes_tpu_torch.cli import refine as cli
+        from nefes_tpu_torch.data import load_7scenes_colmap
+        from nefes_tpu_torch.evaluation import save_pose_txt
+        log("image readers on this machine: "
+            + ", ".join(f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
+                        for m in ("PIL", "cv2")))
+        root = Path("tmp") / "serve_fixture"
+        paths = write_7scenes_fixture(root, SERVE_FRAMES)
+        test = load_7scenes_colmap("chess", str(root / "deepslam"),
+                                   str(root / "data"), train=False)
+        gt_txt = root / "gt.txt"
+        save_pose_txt(gt_txt, test.poses)
+        # what DFNet's batches of 8 (the CLI's chunks) take on their own
+        with torch.no_grad():
+            dfnet = DFNet(output_dim=model.cfg.feature_dim, device=dev,
+                          generator=torch.Generator().manual_seed(1))
+            imgs = torch.from_numpy(test.images[:8]).to(dev)
+            for what, fn in (
+                    ("target features at 240x320", lambda: (
+                        extract_target_features(dfnet, imgs, test.H,
+                                                test.W))),
+                    ("poses", lambda: dfnet(imgs, return_feature=False))):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                fn()
+                peak = peak_mib(held, "the batch")
+                log(f"  DFNet's {what} of 8 frames: peak {peak}")
+            del dfnet, imgs
+        torch.cuda.empty_cache()
+        for mode, path_name in ((3, "render_pre"), (2, "render_raw")):
+            out_dir = root / f"out_mode{mode}"
+            argv = ["--datadir", paths["datadir"],
+                    "--data_root", paths["data_root"],
+                    "--pose_only", str(mode), "--save_dir", str(out_dir)]
+            graph.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            called = {n: k.launches for n, k in wrappers.items()
+                      if k.launches}
+            (loop,) = graph.loops()
+            per_iter = {kernel_name_of[k]: c
+                        for k, c in loop.graph.launches.items()}
+            replayed = {k: c * loop.graph.replays
+                        for k, c in per_iter.items()}
+            log(f"serve mode {mode}: {wall:.3f} s for {SERVE_FRAMES} frames "
+                f"of main() ({wall / SERVE_FRAMES:.4f} s/frame, set-up and "
+                f"the first frame's capture included; the CLI's own "
+                f"s/frame line above counts from the models being ready)")
+            log(f"  summary {json.dumps(summary)}")
+            log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+                f" MiB (the graph's pool included)")
+            log(f"  kernels: wrapper calls (the warm-up and the capture) "
+                f"{called}; captured launches {per_iter} an iteration x "
+                f"{loop.graph.replays} replays = {replayed}")
+            if per_iter != {k: 1 for k in path_kernels[path_name]}:
+                raise AssertionError(f"serve mode {mode} launched {per_iter}")
+            if loop.graph.replays != SERVE_FRAMES * ITERS:
+                raise AssertionError(f"{loop.graph.replays} replays")
+            txt = out_dir / (f"DFNet_chess_NeFeS{ITERS}_APR_pose_results"
+                             ".txt")
+            poses = np.loadtxt(txt)
+            if not (poses.shape == (SERVE_FRAMES, 12)
+                    and np.isfinite(poses).all()):
+                raise AssertionError(f"pose txt {poses.shape}, finite "
+                                     f"{np.isfinite(poses).all()}")
+            scored = ev.main(["--pred", str(txt), "--gt", str(gt_txt)])
+            for key in ("median_t_m", "median_r_deg"):
+                if scored[key] != summary[key]:
+                    raise AssertionError(f"evaluate's {key} {scored[key]} "
+                                         f"!= the CLI's {summary[key]}")
+            log(f"  {txt}: {SERVE_FRAMES} x 12 finite; evaluate reads the "
+                f"same medians")
+        graph.clear()
+        torch.cuda.empty_cache()
+
+    phase("serve", do_serve)
 
     def train_batch(F):
         """rgb targets uniform (seed 5), feature targets normal (seed 6),
@@ -1517,7 +1736,7 @@ def main() -> int:
     def do_profile():
         """The device's busy share and time per kernel on each main path:
         3 train_raw steps, 5 iterations of mode 3 (render_pre) and of mode
-        2 (render_raw)."""
+        2 (render_raw), eager and through the captured loop."""
         from nefes_tpu_torch.train import create_train_state
         batch = train_batch(ModelConfig().feature_dim)
         st = create_train_state(train_model("bfloat16"))
@@ -1529,6 +1748,13 @@ def main() -> int:
                  lambda: refine3("render_pre", 5))
         profiled("mode2 render_raw, 5 iterations",
                  lambda: refine2("render_raw", 5))
+        # the captured loops: captured first, then 5 replays profiled
+        captured3("render_pre", 5)
+        captured2("render_raw", 5)
+        profiled("mode3 render_pre captured, 5 iterations",
+                 lambda: captured3("render_pre", 5))
+        profiled("mode2 render_raw captured, 5 iterations",
+                 lambda: captured2("render_raw", 5))
 
     phase("profile", do_profile)
     return finish(failed, kernels, smi)
@@ -1761,6 +1987,51 @@ def field_call(lib, name, ins, dev, blocks=None):
                            *[kf._ptr(o) for o in outs], *tail, kf._stream())
     kf.raise_on(err, fn)
     return [o for o in outs if o is not None]
+
+
+def write_7scenes_fixture(root: Path, n_test: int, n_train: int = 2,
+                          hw=(480, 640), focal: float = 585.0) -> dict:
+    """A 7-Scenes scene "chess" at the real layout and image size, as
+    tests/fixture_datasets.py writes it: seq-01 (train) and seq-02 (test)
+    of smooth random colour PNGs and c2w pose txts, the split files, the
+    COLMAP tables, world_setup.json and the centring stats. Returns the
+    CLI's datadir and data_root."""
+    from PIL import Image
+    rng = np.random.default_rng(0)
+    base = root / "deepslam" / "chess"
+    data = root / "data" / "7Scenes" / "chess"
+    data.mkdir(parents=True, exist_ok=True)
+    base.mkdir(parents=True, exist_ok=True)
+    (base / "TrainSplit.txt").write_text("sequence1\n")
+    (base / "TestSplit.txt").write_text("sequence2\n")
+    for seq, split, count in ((1, "train", n_train), (2, "test", n_test)):
+        seq_dir = base / f"seq-{seq:02d}"
+        seq_dir.mkdir(exist_ok=True)
+        rows = []
+        for i in range(count):
+            small = rng.uniform(0, 255, (6, 8, 3))
+            img = np.kron(small, np.ones((hw[0] // 6, hw[1] // 8, 1)))
+            Image.fromarray(img.astype(np.uint8)).save(
+                seq_dir / f"frame-{i:06d}.color.png")
+            a = 0.05 * i + 0.3 * seq
+            c2w = np.eye(4)
+            c2w[:3, :3] = [[np.cos(a), -np.sin(a), 0],
+                           [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+            c2w[:3, 3] = [0.1 * i, 0.05 * seq, 1.0 + 0.02 * i]
+            np.savetxt(seq_dir / f"frame-{i:06d}.pose.txt", c2w)
+            R = c2w[:3, :3].T
+            w = np.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2.0
+            q = [w, (R[2, 1] - R[1, 2]) / (4 * w),
+                 (R[0, 2] - R[2, 0]) / (4 * w), (R[1, 0] - R[0, 1]) / (4 * w)]
+            rows.append(f"seq-{seq:02d}/frame-{i:06d}.color.png " + " ".join(
+                f"{v:.9f}" for v in [*q, *(-R @ c2w[:3, 3]), focal]))
+        (base / f"chess_{split}.txt").write_text("\n".join(rows) + "\n")
+    (data / "world_setup.json").write_text(json.dumps(
+        {"near": 0.3, "far": 4.0, "pose_scale": 1.0, "pose_scale2": 1.0,
+         "move_all_cam_vec": [0.0, 0.0, 0.0]}))
+    for name in ("pose_avg_stats.txt", "pose_avg_stats_colmap.txt"):
+        np.savetxt(data / name, np.eye(4)[:3])
+    return {"datadir": str(base), "data_root": str(root / "data")}
 
 
 def replace_cfg(cfg, **kw):

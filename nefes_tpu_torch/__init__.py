@@ -5,10 +5,13 @@ The layout mirrors nefes_tpu so that each module's counterpart is found by
 name; the JAX package is the reference every module is tested against.
 This package imports torch, numpy and the standard library only.
 
-  geometry/   SE(3) exp-map pose deltas, SVD re-orthogonalisation,
-              pinhole rays, world setup
+  geometry/   SE(3) exp-map pose deltas, SVD (and, capturable, polar)
+              re-orthogonalisation, pinhole rays, world setup and the
+              dataset-frame alignments (dSLAM, COLMAP, Cambridge)
   fields/     frequency embedding, NeRFH-NFF field, exposure MLP, FusionNet
-  features/   DFNet (VGG16 hypercolumn features + pose regressor)
+  features/   DFNet (VGG16 hypercolumn features + pose regressor); the
+              reference's torch checkpoints (NeFeS .tar, DFNet) converted
+              to the port's state dicts
   render/     stratified + inverse-CDF sampling, compositor, renderer
   kernels/    hand-written Hopper kernels (csrc/) with their plain PyTorch
               versions: the fused field (modes sigma / full / transient,
@@ -22,9 +25,18 @@ This package imports torch, numpy and the standard library only.
               torch.save checkpoints
   refine/     mode-3 pose refinement (explicit SE(3) delta + Adam) and
               mode-2 APR refinement (Adam on DFNet's weights, with the
-              PSNR/SSIM verification fail-safe)
+              PSNR/SSIM verification fail-safe): the eager loops, and the
+              serving functions that on the card replay one captured
+              iteration as a CUDA graph (graph.py)
   utils/      torch-semantics bicubic / bilinear resizes, SSIM
-  data/       SceneData, luminance histograms, the synthetic blob scene
+  data/       SceneData, luminance histograms, the synthetic blob scene,
+              the 7-Scenes (dSLAM, COLMAP) and Cambridge loaders, image
+              reading (images.py: Pillow + OpenCV)
+  evaluation/ pose errors, accuracy buckets, pose txts, ATE, the
+              paper-result golden files
+  cli/        Options and the reference's config txts, the scene and model
+              builders, the refinement CLI (python -m
+              nefes_tpu_torch.cli.refine) and the evaluation CLI
 
 Entry points run on the card unless the caller passes device="cpu".
 """

@@ -72,6 +72,12 @@ class DFNet(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.dtype = dtype
+        # the ImageNet statistics live on the module's device: a copy
+        # from the host on every call could not be captured in a CUDA graph
+        self.register_buffer("rgb_mean", torch.tensor(IMAGENET_MEAN),
+                             persistent=False)
+        self.register_buffer("rgb_std", torch.tensor(IMAGENET_STD),
+                             persistent=False)
         ch = 3
         for item in VGG16_PLAN:
             if item != "M":
@@ -105,8 +111,8 @@ class DFNet(nn.Module):
             assert x.shape[1] >= 32 and x.shape[2] >= 32, (
                 f"DFNet pose head needs >=32x32 input, got "
                 f"{x.shape[1]}x{x.shape[2]}")
-        mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-        std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+        mean = self.rgb_mean.to(x.dtype)
+        std = self.rgb_std.to(x.dtype)
         h = ((x - mean) / std).to(self.dtype).permute(0, 3, 1, 2)
         taps = []
         for item in VGG16_PLAN:

@@ -5,6 +5,7 @@ checkpoints hit the same input rows. Autograd differentiates it."""
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,11 +38,20 @@ class EmbedConfig:
         return d + 2 * self.num_freqs * self.input_dims
 
 
+@functools.lru_cache(maxsize=None)
+def _freqs(cfg: EmbedConfig, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """cfg's frequency bands on `device`, copied there once (a copy from
+    the host cannot be captured in a CUDA graph; the first, uncaptured
+    call fills the cache)."""
+    return torch.as_tensor(cfg.freq_bands, dtype=dtype, device=device)
+
+
 def embed(x: torch.Tensor, cfg: EmbedConfig) -> torch.Tensor:
     """Frequency-encode (..., D) -> (..., out_dim)."""
     if cfg.num_freqs == 0:
         return x
-    freqs = torch.as_tensor(cfg.freq_bands, dtype=x.dtype, device=x.device)
+    freqs = _freqs(cfg, x.dtype, x.device)
     xf = x[..., None, :] * freqs[:, None]                     # (..., F, D)
     flat = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2).reshape(
         *x.shape[:-1], 2 * cfg.num_freqs * cfg.input_dims)

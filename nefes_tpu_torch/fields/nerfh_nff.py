@@ -157,6 +157,12 @@ class FusionNet(nn.Module):
                  no_bn: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.residual, self.no_bn, self.dtype = residual, no_bn, dtype
+        # the ImageNet statistics live on the module's device: a copy
+        # from the host on every call could not be captured in a CUDA graph
+        self.register_buffer("rgb_mean", torch.tensor(IMAGENET_MEAN),
+                             persistent=False)
+        self.register_buffer("rgb_std", torch.tensor(IMAGENET_STD),
+                             persistent=False)
         self.conv0 = nn.Conv2d(3 + feature_dim, 64, 3, padding=1)
         self.conv1 = nn.Conv2d(64, 64, 3, padding=1)
         self.conv2 = nn.Conv2d(64, 64, 3, padding=1)
@@ -179,8 +185,8 @@ class FusionNet(nn.Module):
         batch, {"running_mean", "running_var"} detached, or None without
         BN); the caller applies them (train_step_patch does, after the
         step), as the JAX step persists its new batch_stats."""
-        mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-        std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+        mean = self.rgb_mean.to(x.dtype)
+        std = self.rgb_std.to(x.dtype)
         rgb = (x[..., :3] - mean) / std
         h = torch.cat([rgb, x[..., 3:]], dim=-1).to(self.dtype)
         h = h.permute(0, 3, 1, 2)                                  # NCHW

@@ -74,7 +74,7 @@ def pack_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) + (..., 3) -> homogeneous (..., 4, 4)."""
     top = torch.cat([R, t[..., :, None]], dim=-1)
     bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)    # a fill, not a copy from the host
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -120,3 +120,28 @@ def orthogonalize_rotation(pose: torch.Tensor) -> torch.Tensor:
     SVD, which is well defined while the singular values are distinct."""
     u, _, vh = torch.linalg.svd(pose[..., :3, :3], full_matrices=False)
     return torch.cat([u @ vh, pose[..., :3, 3:4]], dim=-1)
+
+
+# Newton steps of the polar iteration: f64 rounding at condition number
+# 4e3 (tests/test_torch_serve.py)
+POLAR_ITERS = 12
+
+
+def orthogonalize_rotation_polar(pose: torch.Tensor) -> torch.Tensor:
+    """orthogonalize_rotation in elementwise operations only: U Vᵀ is the
+    orthogonal factor of R's polar decomposition, reached by Newton's
+    iteration X <- (ζX + (ζX)⁻ᵀ)/2 with ζ = |det X|^(-1/3) (Higham), the
+    3×3 inverse as cofactors over the determinant. torch.linalg.svd reads
+    its error flag back to the host on a CUDA tensor, which a CUDA graph
+    cannot capture; this can be. Differentiable through the iterations;
+    R must be non-singular."""
+    X = pose[..., :3, :3]
+    for _ in range(POLAR_ITERS):
+        r0, r1, r2 = X[..., 0, :], X[..., 1, :], X[..., 2, :]
+        cof = torch.stack([torch.linalg.cross(r1, r2),
+                           torch.linalg.cross(r2, r0),
+                           torch.linalg.cross(r0, r1)], dim=-2)
+        det = (r0 * cof[..., 0, :]).sum(-1)[..., None, None]
+        zeta = det.abs() ** (-1.0 / 3.0)
+        X = 0.5 * (zeta * X + cof / (zeta * det))
+    return torch.cat([X, pose[..., :3, 3:4]], dim=-1)

@@ -14,7 +14,11 @@ Per iteration:
 Each frame starts from a fresh copy of the APR. The loss, PSNR and SSIM
 of step i are those of the weights before step i's update; the refined
 pose is taken after all updates. The JAX package compiles the loop as one
-lax.scan; here it is a Python loop of opt_iter steps.
+lax.scan. Here refine_apr_single is a Python loop of opt_iter steps (the
+CPU path, and the baseline on the card); the serving functions
+(refine_apr_verified, refine_apr_verified_scanned) run it on a CPU tensor
+and, on the card, replay one captured iteration (AprLoop,
+refine/graph.py).
 """
 
 from __future__ import annotations
@@ -24,12 +28,18 @@ import copy
 import torch
 
 from nefes_tpu_torch.features.dfnet import DFNet
-from nefes_tpu_torch.geometry.se3 import orthogonalize_rotation
+from nefes_tpu_torch.geometry.se3 import (
+    orthogonalize_rotation, orthogonalize_rotation_polar,
+)
 from nefes_tpu_torch.geometry.transforms import fix_coord_supp
+from nefes_tpu_torch.refine import graph
 from nefes_tpu_torch.refine.losses import (
     feature_cosine_loss, masked_feature_cosine_loss,
 )
-from nefes_tpu_torch.refine.pose_opt import RefineConfig, render_feature_image
+from nefes_tpu_torch.refine.pose_opt import (
+    RefineConfig, clone_packed, on_card, refresh_packed_,
+    render_feature_image,
+)
 from nefes_tpu_torch.render.renderer import RenderConfig
 from nefes_tpu_torch.train.losses import psnr as psnr_fn
 from nefes_tpu_torch.utils.image import resize_bicubic
@@ -43,14 +53,32 @@ def _crop(img: torch.Tensor) -> torch.Tensor:
 
 
 def apr_pose(dfnet: DFNet, image: torch.Tensor, svd_reg: bool = True,
-             freeze_bn: bool = True) -> torch.Tensor:
+             freeze_bn: bool = True,
+             ortho=orthogonalize_rotation) -> torch.Tensor:
     """APR forward: (H, W, 3) image -> (3, 4) pose. freeze_bn=False runs
     BN on batch statistics (the reference's un-frozen train() mode)
     without updating the running ones; the pose branch of DFNet has no BN,
-    so for DFNet both give the same pose."""
+    so for DFNet both give the same pose. ortho: the svd_reg
+    orthogonalisation (the captured loop passes the polar iteration)."""
     _, pose12 = dfnet(image[None], return_feature=False, return_pose=True,
                       train_bn=not freeze_bn)
     pose = pose12.reshape(3, 4)
+    return ortho(pose) if svd_reg else pose
+
+
+def apr_poses_batched(kind: str, dfnet: DFNet, images: torch.Tensor,
+                      svd_reg: bool = True, freeze_bn: bool = True
+                      ) -> torch.Tensor:
+    """(B, H, W, 3) images -> (B, 3, 4) APR poses (the JAX package's
+    vmapped apr_pose_any, nefes_tpu/refine/apr_opt.py:94): one batched
+    forward on running BN statistics, one forward an image on batch
+    statistics (each image its own, as the vmap gives)."""
+    _check_kind(kind)
+    if not freeze_bn:
+        return torch.stack([apr_pose(dfnet, im, svd_reg, False)
+                            for im in images])
+    _, pose12 = dfnet(images, return_feature=False, return_pose=True)
+    pose = pose12.reshape(-1, 3, 4)
     return orthogonalize_rotation(pose) if svd_reg else pose
 
 
@@ -59,6 +87,20 @@ def _check_kind(apr_kind: str) -> None:
         raise NotImplementedError(
             f"APR kind {apr_kind!r}: only DFNet is ported; the rest of the "
             "APR zoo is ROADMAP Queue A item 10")
+
+
+def _upsampled_loss(fused, rgb_img, tgt_crop, mask, H: int, W: int,
+                    per_pixel: bool):
+    """The render upsampled (bicubic) to the query's size and cropped:
+    (the cosine loss against the cropped target, the cropped rgb)."""
+    fused_up = _crop(resize_bicubic(fused[None], H, W)[0])
+    rgb_up = resize_bicubic(rgb_img[None], H, W)[0]
+    if mask is not None:
+        loss = masked_feature_cosine_loss(fused_up, tgt_crop, _crop(mask),
+                                          per_pixel=per_pixel)
+    else:
+        loss = feature_cosine_loss(fused_up, tgt_crop, per_pixel=per_pixel)
+    return loss, _crop(rgb_up)
 
 
 def refine_apr_single(model, dfnet: DFNet, image: torch.Tensor,
@@ -94,20 +136,12 @@ def refine_apr_single(model, dfnet: DFNet, image: torch.Tensor,
         rgb_img, fused = render_feature_image(
             model, fix_coord_supp(pose, ws_vec), hist, hwf_render, near, far,
             cfg, fusion_bn=rcfg.fusion, packed=packed)
-        fused_up = resize_bicubic(fused[None], H, W)[0]
-        rgb_up = resize_bicubic(rgb_img[None], H, W)[0]
-        if mask is not None:
-            loss = masked_feature_cosine_loss(_crop(fused_up), tgt_crop,
-                                              _crop(mask),
-                                              per_pixel=rcfg.per_pixel)
-        else:
-            loss = feature_cosine_loss(_crop(fused_up), tgt_crop,
-                                       per_pixel=rcfg.per_pixel)
+        loss, rgb_crop = _upsampled_loss(fused, rgb_img, tgt_crop, mask,
+                                         H, W, rcfg.per_pixel)
         # only the APR's gradients: the frozen field, exposure and fusion
         # weights take none, whatever their requires_grad
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         with torch.no_grad():
-            rgb_crop = _crop(rgb_up)
             psnrs.append(psnr_fn(rgb_crop, img_crop))
             ssims.append(ssim(rgb_crop[None], img_crop[None]).mean())
         for p, g in zip(params, grads):
@@ -166,14 +200,169 @@ def refine_apr_verified(model, dfnet: DFNet, images, targets, hists, idx: int,
                         ) -> torch.Tensor:
     """The serving step: refine frame `idx` of the staged batch (histogram
     `hist_idx`), apply the verification fail-safe, return the (3, 4)
-    pose."""
-    out = refine_apr_single(
-        model, dfnet, images[idx], targets[idx], hists[hist_idx], ws_vec,
-        hwf_render, hwf_full, near, far, cfg, rcfg, svd_reg=svd_reg,
-        mask=None if masks is None else masks[idx], freeze_bn=freeze_bn,
-        apr_kind=apr_kind)
+    pose (the JAX package's one-launch step,
+    nefes_tpu/refine/apr_opt.py:238). The eager loop on a CPU tensor, the
+    captured one on the card."""
+    run = refine_apr_captured if on_card(images) else refine_apr_single
+    out = run(model, dfnet, images[idx], targets[idx], hists[hist_idx],
+              ws_vec, hwf_render, hwf_full, near, far, cfg, rcfg,
+              svd_reg=svd_reg, mask=None if masks is None else masks[idx],
+              freeze_bn=freeze_bn, apr_kind=apr_kind)
     return (apply_verification(out, verification_metric)
             if use_verification else out["refined_pose"])
+
+
+def refine_apr_verified_scanned(model, dfnet: DFNet, images, targets, hists,
+                                idxs, hist_idxs, ws_vec, hwf_render: tuple,
+                                hwf_full: tuple, near: float, far: float,
+                                cfg: RenderConfig, rcfg: RefineConfig,
+                                svd_reg: bool = True, masks=None,
+                                freeze_bn: bool = True,
+                                apr_kind: str = "DFNet",
+                                use_verification: bool = True,
+                                verification_metric: str = "psnr_ssim"
+                                ) -> torch.Tensor:
+    """Frames idxs (histograms hist_idxs) one after another through
+    refine_apr_verified (the JAX package's lax.scan over frames,
+    nefes_tpu/refine/apr_opt.py:276). Returns (N, 3, 4)."""
+    return torch.stack([refine_apr_verified(
+        model, dfnet, images, targets, hists, int(i), int(hi), ws_vec,
+        hwf_render, hwf_full, near, far, cfg, rcfg, svd_reg=svd_reg,
+        masks=masks, freeze_bn=freeze_bn, apr_kind=apr_kind,
+        use_verification=use_verification,
+        verification_metric=verification_metric)
+        for i, hi in zip(idxs, hist_idxs)])
+
+
+# --- serving on the card: the captured iteration ---
+
+class AprLoop:
+    """Mode 2 on the card for one (model, APR, render config, refine
+    config, shapes): one static copy of the APR whose weights are reloaded
+    from the APR in place each frame (the eager loop's deep copy), and one
+    captured iteration of refine_apr_single. svd_reg orthogonalises by the
+    polar iteration (se3.orthogonalize_rotation_polar): the SVD reads
+    back to the host on the card."""
+
+    name = "mode2"
+
+    def __init__(self, model, dfnet: DFNet, hwf_render: tuple,
+                 hwf_full: tuple, near: float, far: float,
+                 cfg: RenderConfig, rcfg: RefineConfig, svd_reg: bool,
+                 freeze_bn: bool, target_channels: int, hist_shape,
+                 has_mask: bool, device):
+        self.model, self.hwf_render, self.hwf_full = model, hwf_render, \
+            hwf_full
+        self.near, self.far, self.cfg, self.rcfg = near, far, cfg, rcfg
+        self.svd_reg, self.freeze_bn = svd_reg, freeze_bn
+        H, W, _ = hwf_full
+        z = dict(device=device)
+        self.image = torch.zeros((H, W, 3), **z)
+        self.target = torch.zeros((H, W, target_channels), **z)
+        self.hist = torch.zeros(hist_shape, **z)
+        self.mask = torch.zeros((H, W), **z) if has_mask else None
+        self.ws_vec = torch.zeros(5, **z)
+        self.apr = copy.deepcopy(dfnet).requires_grad_(True)
+        self.params = list(self.apr.parameters())
+        # refine_apr_single's Adam, bit for bit
+        self.opt = graph.GraphAdam([(self.params, rcfg.learning_rate)],
+                                   rcfg.opt_iter)
+        self.losses, self.psnrs, self.ssims = (
+            torch.zeros(rcfg.opt_iter, **z) for _ in range(3))
+        self.it = torch.zeros(1, dtype=torch.int64, **z)
+        with torch.no_grad():
+            self.packed = (clone_packed(model.pack_fused()) if cfg.fused
+                           else None)
+        self.dfnet = None           # the APR the state is reset from
+        self.graph = None
+
+    def _pose(self, apr, freeze_bn):
+        return apr_pose(apr, self.image, self.svd_reg, freeze_bn,
+                        ortho=orthogonalize_rotation_polar)
+
+    def _step(self) -> None:
+        H, W, _ = self.hwf_full
+        pose = self._pose(self.apr, self.freeze_bn)
+        rgb_img, fused = render_feature_image(
+            self.model, fix_coord_supp(pose, self.ws_vec), self.hist,
+            self.hwf_render, self.near, self.far, self.cfg,
+            fusion_bn=self.rcfg.fusion, packed=self.packed)
+        loss, rgb_crop = _upsampled_loss(fused, rgb_img, _crop(self.target),
+                                         self.mask, H, W,
+                                         self.rcfg.per_pixel)
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        with torch.no_grad():
+            img_crop = _crop(self.image)
+            graph.record_(self.psnrs, self.it, psnr_fn(rgb_crop, img_crop))
+            graph.record_(self.ssims, self.it,
+                          ssim(rgb_crop[None], img_crop[None]).mean())
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.opt.step(self.it)
+        with torch.no_grad():
+            graph.record_(self.losses, self.it, loss)
+            self.it.add_(1)
+
+    @torch.no_grad()
+    def _reset(self) -> None:
+        for a, d in zip(self.apr.state_dict().values(),
+                        self.dfnet.state_dict().values()):
+            a.copy_(d)
+        self.it.zero_()
+        self.opt.zero_()
+
+    def _release_grads(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def run(self, dfnet: DFNet, image, target, hist, ws_vec,
+            mask=None) -> dict:
+        """One frame from dfnet's weights: refine_apr_single's dict."""
+        self.dfnet = dfnet
+        with torch.no_grad():
+            for buf, x in ((self.image, image), (self.target, target),
+                           (self.hist, hist), (self.ws_vec, ws_vec),
+                           (self.mask, mask)):
+                if buf is not None:
+                    buf.copy_(x)
+            if self.packed is not None:
+                refresh_packed_(self.packed, self.model.pack_fused())
+        if self.graph is None:
+            self.graph = graph.CapturedIteration(self._step, self._reset,
+                                                 self._release_grads)
+        self._reset()
+        self.graph.replay(self.rcfg.opt_iter)
+        with torch.no_grad():
+            refined = self._pose(self.apr, True)
+            initial = self._pose(dfnet, True)
+        losses, psnrs, ssims = (b.clone() for b in (self.losses, self.psnrs,
+                                                    self.ssims))
+        return {"refined_pose": refined, "initial_pose": initial,
+                "losses": losses, "init_psnr": psnrs[0],
+                "end_psnr": psnrs[-1], "init_ssim": ssims[0],
+                "end_ssim": ssims[-1]}
+
+
+def refine_apr_captured(model, dfnet: DFNet, image: torch.Tensor,
+                        target_feat: torch.Tensor, hist: torch.Tensor,
+                        ws_vec: torch.Tensor, hwf_render: tuple,
+                        hwf_full: tuple, near: float, far: float,
+                        cfg: RenderConfig, rcfg: RefineConfig,
+                        svd_reg: bool = True,
+                        mask: torch.Tensor | None = None,
+                        freeze_bn: bool = True,
+                        apr_kind: str = "DFNet") -> dict:
+    """refine_apr_single through the cached AprLoop (CUDA tensors)."""
+    _check_kind(apr_kind)
+    key = ("mode2", id(model), id(dfnet), hwf_render, hwf_full, float(near),
+           float(far), cfg, rcfg, svd_reg, freeze_bn,
+           target_feat.shape[-1], tuple(hist.shape), mask is not None,
+           str(image.device))
+    loop = graph.cached(key, (model, dfnet), lambda: AprLoop(
+        model, dfnet, hwf_render, hwf_full, near, far, cfg, rcfg, svd_reg,
+        freeze_bn, target_feat.shape[-1], tuple(hist.shape),
+        mask is not None, image.device))
+    return loop.run(dfnet, image, target_feat, hist, ws_vec, mask)
 
 
 def refine_apr_batch(model, dfnet: DFNet, images, targets, hists, ws_vec,

@@ -9,6 +9,15 @@ from __future__ import annotations
 import torch
 
 
+def _bound(v, n_rays: int, device) -> torch.Tensor:
+    """A near or far bound as (n_rays, 1) f32; a Python number is filled
+    on the device (no host copy, so the render can be captured as a CUDA
+    graph)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32).expand(n_rays, 1)
+    return torch.full((n_rays, 1), float(v), device=device)
+
+
 def stratified_samples(rng: torch.Generator | None, n_rays: int,
                        n_samples: int, near, far, lindisp: bool = False,
                        perturb: bool = True, device="cuda") -> torch.Tensor:
@@ -16,10 +25,7 @@ def stratified_samples(rng: torch.Generator | None, n_rays: int,
     or (n_rays, 1). perturb jitters each sample inside its interval; with
     rng None or perturb False the grid is deterministic."""
     t = torch.linspace(0.0, 1.0, n_samples, device=device)
-    near = torch.as_tensor(near, dtype=torch.float32,
-                           device=device).expand(n_rays, 1)
-    far = torch.as_tensor(far, dtype=torch.float32,
-                          device=device).expand(n_rays, 1)
+    near, far = (_bound(v, n_rays, device) for v in (near, far))
     if lindisp:
         z = 1.0 / (1.0 / near * (1.0 - t) + 1.0 / far * t)
     else:

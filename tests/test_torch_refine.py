@@ -15,6 +15,8 @@ the CPU in f32 at a small size, plus the import rule of the port.
 """
 
 import re
+import subprocess
+import sys
 from dataclasses import replace
 from pathlib import Path
 
@@ -216,6 +218,14 @@ _FORBIDDEN = re.compile(
     re.M)
 
 
+_SERVING_MODULES = (
+    "cli/options.py", "cli/train.py", "cli/refine.py", "cli/evaluate.py",
+    "data/images.py", "data/seven_scenes.py", "data/cambridge.py",
+    "evaluation/metrics.py", "evaluation/ate.py", "evaluation/golden.py",
+    "features/convert.py", "refine/graph.py", "geometry/transforms.py",
+    "refine/pose_opt.py")
+
+
 def test_port_imports_no_jax():
     root = Path(__file__).resolve().parents[1]
     files = sorted((root / "nefes_tpu_torch").rglob("*.py"))
@@ -224,9 +234,19 @@ def test_port_imports_no_jax():
     for module in ("features/dfnet.py", "refine/apr_opt.py", "utils/image.py",
                    "utils/ssim.py", "train/losses.py", "train/trainer.py",
                    "train/checkpoint.py", "data/histograms.py",
-                   "data/scene.py", "data/synthetic.py"):
+                   "data/scene.py", "data/synthetic.py", *_SERVING_MODULES):
         assert f"nefes_tpu_torch/{module}" in names, module
     assert len(files) > 25
     hits = [f"{f.relative_to(root)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
+    # importing every serving module (and chip_smoke) loads neither JAX
+    # nor the JAX package, in a process that had neither
+    mods = ["nefes_tpu_torch." + m[:-3].replace("/", ".")
+            for m in _SERVING_MODULES] + ["chip_smoke"]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'nefes_tpu'))\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                   timeout=120)
