@@ -1,7 +1,7 @@
 """On-card smoke run of nefes_tpu_torch on one NVIDIA GPU (written for the
 H100: the kernels build for sm_90a).
 
-    python3 chip_smoke.py [--phases build,check,mode3,mode2,paths,serve,train,time,micro,probe,profile]
+    python3 chip_smoke.py [--phases build,check,mode3,mode2,apr,paths,serve,train,time,micro,probe,profile]
         [--parent DIR]
 
 Phases:
@@ -51,6 +51,20 @@ Phases:
          one timed frame through the pre-embedded kernels (K1, K3, K4);
          the captured loop on the raw kernels in turns with the eager one,
          as mode 3's, and the verification's choice the same
+  apr    mode 2 with each APR of the zoo (PoseNet, PoseNetV2,
+         EfficientNetB3, MapNet, MsTransformer; f32, seeded random weights
+         aimed as DFNet is, no svd_reg, PoseNetV2 on batch BN
+         statistics) after a 2-iteration warm-up, on the 240x320
+         query, the same field and render, through the raw kernels (K5, K7,
+         K8): the eager and the captured loop in turns as mode 2's (losses
+         within PATHS_RTOL of the first loss, refined poses within
+         APR_POSE_TOL, the verification's choice the same; eager against
+         eager and captured against captured printed; cuDNN's
+         deterministic algorithms), s/frame, peak
+         memory, a captured frame's launches (50 of each); the APR's own
+         forward + backward in an iteration, eager and captured as a CUDA
+         graph (CUDA events); mode 3's
+         apr_poses_batched on 8 queries against one at a time (1e-5)
   paths  a few iterations of each mode through the other paths: mode 3
          with fused_render=False (K1 + K2), unfused (plain PyTorch) and
          the raw paths (K5 + K7/K8, K5 + K6); mode 2 through the raw
@@ -61,7 +75,9 @@ Phases:
          PNGs, splits, pose txts, COLMAP tables, world setup) in mode 3
          and mode 2 at the defaults (df 2, tinyscale 4: 60x80 rays, 64+64
          samples, NeFeS D8/W128/F128 bf16, DFNet f32, 50 iterations, seeded
-         random weights), every frame through the captured loop: s/frame,
+         random weights), then with --PoseEstimatorType MsTransformer in
+         mode 2 and PoseNet in mode 3, every frame through the captured
+         loop: s/frame,
          summary, peak memory, the kernels it ran and how often; the pose
          txt 8 x 12 finite and the evaluate CLI's medians the CLI's own
   train  field training at full width (NeFeS D8/W128/F128 in bf16, stage
@@ -117,6 +133,7 @@ no result; so does a machine without a card.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import subprocess
@@ -148,6 +165,13 @@ PATHS_RTOL = 2e-3
 # 2's svd_reg runs the polar iteration instead of the SVD. With torch's
 # capturable Adam mode 3's poses parted by 3.7e-2 (PERF.md, PR 13).
 CAPTURED_POSE_TOL = 1e-4
+# The apr phase: the APR zoo in mode 2 (features/apr_loader.py kinds), and
+# its captured loop's refined pose against the eager one's (max abs),
+# written before the first run on the card: cuDNN's convolution backward
+# may sum in another order from run to run, and Adam's normalised steps
+# carry such differences to the weights.
+ZOO = ("PoseNet", "PoseNetV2", "EfficientNetB3", "MapNet", "MsTransformer")
+APR_POSE_TOL = 1e-3
 # The train phase: B images x N_rand rays per step (bench.py's
 # train_throughput leg), timed steps, and the parameters of the three
 # paths after PATH_STEPS steps from one state, relative L2 ||p_path -
@@ -231,8 +255,8 @@ def log(*a):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="build,check,mode3,mode2,paths,serve,train,"
-                    "time,micro,probe,profile")
+                    default="build,check,mode3,mode2,apr,paths,serve,"
+                    "train,time,micro,probe,profile")
     ap.add_argument("--parent", default=None,
                     help="an earlier tree whose K1, K5 and render kernels "
                     "the time phase times beside this tree's")
@@ -859,12 +883,35 @@ def main() -> int:
             state["mode2_inputs"] = (dfnet, image, target2)
         return state["mode2_inputs"]
 
-    def refine2(cfg_name, iters):
-        dfnet, image, target2 = mode2_inputs()
+    def apr_of(kind):
+        """The APR of a kind and its refinement options: DFNet (the
+        feature extractor's own), or the zoo's with seeded random weights
+        (seed 4) aimed as DFNet is (aim_apr), without svd_reg (the CLI's
+        default), PoseNetV2 on batch BN statistics (the CLI's default),
+        the rest on running ones. Without svd_reg the eager and the
+        captured loop do the same arithmetic (with it the captured loop
+        runs the polar iteration, the eager one the SVD): a random tower
+        refined at lr 1e-5 moves the pose by ~1 in 50 iterations and
+        carries a 1e-7 difference as far (PoseNet, H100: 1.19 apart)."""
+        dfnet = mode2_inputs()[0]
+        if kind == "DFNet":
+            return dfnet, {}
+        if kind not in state.setdefault("aprs", {}):
+            from nefes_tpu_torch.features import load_apr
+            apr, _ = load_apr(kind, None, (IMG_H, IMG_W),
+                              torch.Generator().manual_seed(4), device=dev)
+            aim_apr(kind, apr.requires_grad_(False), init)
+            state["aprs"][kind] = apr
+        return state["aprs"][kind], dict(apr_kind=kind, svd_reg=False,
+                                         freeze_bn=kind != "PoseNetV2")
+
+    def refine2(cfg_name, iters, kind="DFNet"):
+        _, image, target2 = mode2_inputs()
+        apr, kw = apr_of(kind)
         out, dt, counts = counted(cfg_name, lambda: refine_apr_single(
-            model, dfnet, image, target2, hist, ws_vec, (H, W, FOCAL),
+            model, apr, image, target2, hist, ws_vec, (H, W, FOCAL),
             (IMG_H, IMG_W, FOCAL_FULL), NEAR, FAR, cfgs[cfg_name],
-            replace_cfg(rcfg2, opt_iter=iters)))
+            replace_cfg(rcfg2, opt_iter=iters), **kw))
         return out, out["losses"].cpu(), dt, counts
 
     def captured3(cfg_name, iters):
@@ -876,33 +923,38 @@ def main() -> int:
         torch.cuda.synchronize()
         return refined, losses.cpu(), time.perf_counter() - t0
 
-    def captured2(cfg_name, iters):
+    def captured2(cfg_name, iters, kind="DFNet"):
         """refine2 through the captured loop: (out, losses, s)."""
-        dfnet, image, target2 = mode2_inputs()
+        _, image, target2 = mode2_inputs()
+        apr, kw = apr_of(kind)
         t0 = time.perf_counter()
         out = refine_apr_captured(
-            model, dfnet, image, target2, hist, ws_vec, (H, W, FOCAL),
+            model, apr, image, target2, hist, ws_vec, (H, W, FOCAL),
             (IMG_H, IMG_W, FOCAL_FULL), NEAR, FAR, cfgs[cfg_name],
-            replace_cfg(rcfg2, opt_iter=iters))
+            replace_cfg(rcfg2, opt_iter=iters), **kw)
         torch.cuda.synchronize()
         return out, out["losses"].cpu(), time.perf_counter() - t0
 
-    def loop_of(name, cfg_name, iters):
-        """The cached captured loop of a mode, path and iteration count."""
+    def loop_of(name, cfg_name, iters, kind="DFNet"):
+        """The cached captured loop of a mode, path, iteration count and
+        (mode 2) APR kind."""
         want = replace_cfg(rcfg if name == "mode3" else rcfg2,
                            opt_iter=iters)
         hits = [lp for lp in graph.loops() if lp.name == name
-                and lp.cfg == cfgs[cfg_name] and lp.rcfg == want]
+                and lp.cfg == cfgs[cfg_name] and lp.rcfg == want
+                and getattr(lp, "apr_kind", "DFNet") == kind]
         return hits[0]
 
-    def captured_turns(name, cfg_name, eager, captured, pose_key=None):
+    def captured_turns(name, cfg_name, eager, captured, pose_key=None,
+                       apr_kind="DFNet", pose_tol=CAPTURED_POSE_TOL):
         """The eager and the captured loop at ITERS iterations, in turns
         (eager, captured, captured, eager) after a first captured frame
         that captures. Checks the captured losses against the eager ones
-        (PATHS_RTOL of the first loss) and the poses (CAPTURED_POSE_TOL
-        max abs), that the captured frames called no kernel wrapper, and
-        that one captured iteration launches the path's kernels once
-        each. Returns (eager runs, captured runs)."""
+        (PATHS_RTOL of the first loss) and the poses (pose_tol max abs),
+        that the captured frames called no kernel wrapper, and that one
+        captured iteration launches the path's kernels once each; prints
+        how far the two eager runs and the two captured runs are apart.
+        Returns (eager runs, captured runs)."""
         captured(cfg_name, ITERS)                   # warm-up + capture
         runs = {"eager": [], "captured": []}
         peaks = {}
@@ -920,7 +972,7 @@ def main() -> int:
                                          f"the wrappers: {called}")
             runs[kind].append((out, losses, dt))
             peaks[kind] = torch.cuda.max_memory_allocated() / 2**20
-        loop = loop_of(name, cfg_name, ITERS)
+        loop = loop_of(name, cfg_name, ITERS, apr_kind)
         per_iter = {kernel_name_of[k]: c
                     for k, c in loop.graph.launches.items()}
         if per_iter != {k: 1 for k in path_kernels[cfg_name]}:
@@ -932,6 +984,13 @@ def main() -> int:
         tol = PATHS_RTOL * float(le[0])
         dl = (lc - le).abs().max().item()
         dp = (pc - pe).abs().max().item()
+        for kind in ("eager", "captured"):
+            (o1, l1, _), (o2, l2, _) = runs[kind]
+            p1 = o1 if pose_key is None else o1[pose_key]
+            p2 = o2 if pose_key is None else o2[pose_key]
+            log(f"  {kind} against {kind}: max |loss diff| "
+                f"{(l1 - l2).abs().max().item():.3e}, max |pose diff| "
+                f"{(p1 - p2).abs().max().item():.3e}")
         te = [r[2] for r in runs["eager"]]
         tc = [r[2] for r in runs["captured"]]
         log(f"{name} {cfg_name} in turns (eager, captured, captured, "
@@ -945,11 +1004,16 @@ def main() -> int:
             f"(CapturedIteration.launches, the wrappers' counts while "
             f"capturing, times {ITERS} replays; the wrappers' counters read "
             f"0 over the captured frames)")
+        if pose_key == "refined_pose":
+            log(f"  the APR moved the pose by "
+                f"{(oe['refined_pose'] - oe['initial_pose']).abs().max():.3e}"
+                f" (max abs, eager), the loss from {le[0]:.6f} to "
+                f"{le[-1]:.6f}")
         log(f"  captured vs eager: max |loss diff| {dl:.3e} (tolerance "
             f"{tol:.3e} = {PATHS_RTOL:g} x first loss), max |pose diff| "
-            f"{dp:.3e} (tolerance {CAPTURED_POSE_TOL:g})"
+            f"{dp:.3e} (tolerance {pose_tol:g})"
             + ("; bit for bit the same" if dl == 0 and dp == 0 else ""))
-        if not (dl <= tol and dp <= CAPTURED_POSE_TOL):
+        if not (dl <= tol and dp <= pose_tol):
             raise AssertionError(f"captured {name} disagrees with eager")
         return runs["eager"], runs["captured"]
 
@@ -1015,8 +1079,12 @@ def main() -> int:
         _, losses_p, dt_p, counts_p = refine2("render_pre", ITERS)
         log(f"mode2 render_pre: {dt_p:.3f} s/frame, launches {counts_p}; "
             f"render_raw / render_pre = {dt / dt_p:.3f}")
-        eager, captured = captured_turns("mode2", "render_raw", refine2,
-                                         captured2, "refined_pose")
+        same_verification(*captured_turns("mode2", "render_raw", refine2,
+                                          captured2, "refined_pose"))
+
+    def same_verification(eager, captured):
+        """The verification (psnr_ssim) makes the same choice in every
+        eager and captured turn, and apply_verification takes it."""
         for (oe, _, _), (oc, _, _) in zip(eager, captured):
             choice = [bool(o["end_psnr"] < o["init_psnr"]
                            or o["end_ssim"] < o["init_ssim"])
@@ -1031,6 +1099,89 @@ def main() -> int:
             f"({'retreat' if choice[0] else 'keep the refined pose'})")
 
     phase("mode2", do_mode2)
+
+    def apr_family(kind, image, queries):
+        """One APR of the zoo: the eager and the captured loop in turns,
+        the APR's forward and backward alone (eager and captured), mode
+        3's batched initial poses against one image at a time."""
+        from nefes_tpu_torch.refine import apr_pose_any, apr_poses_batched
+        apr, kw = apr_of(kind)
+        log(f"apr {kind}: {sum(p.numel() for p in apr.parameters()):,} "
+            f"weights, BN on "
+            f"{'running' if kw['freeze_bn'] else 'batch'} statistics")
+        graph.clear()
+        torch.cuda.empty_cache()
+        refine2("render_raw", 2, kind)          # warm: cuDNN's set-up
+        eager, captured = captured_turns(
+            "mode2", "render_raw", lambda c, i: refine2(c, i, kind),
+            lambda c, i: captured2(c, i, kind), "refined_pose", kind,
+            APR_POSE_TOL)
+        for out, losses, _ in eager + captured:
+            if not (torch.isfinite(losses).all()
+                    and torch.isfinite(out["refined_pose"]).all()):
+                raise AssertionError(f"{kind}: non-finite result")
+        same_verification(eager, captured)
+        # the APR's own forward and backward in an iteration
+        apr_copy = copy.deepcopy(apr).requires_grad_(True)
+        params = list(apr_copy.parameters())
+        cot = torch.randn((3, 4), generator=torch.Generator().manual_seed(
+            6)).to(dev)
+
+        def fwd_bwd():
+            pose = apr_pose_any(kind, apr_copy, image, False,
+                                kw["freeze_bn"])
+            torch.autograd.grad((pose * cot).sum(), params,
+                                allow_unused=True)
+        ms = time_ms(fwd_bwd)
+        # the same captured as a CUDA graph: the device's share alone
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fwd_bwd()
+        torch.cuda.current_stream().wait_stream(side)
+        fb_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(fb_graph):
+            fwd_bwd()
+        ms_graph = time_ms(fb_graph.replay)
+        log(f"  the APR's forward + backward ({IMG_H}x{IMG_W} query, CUDA "
+            f"events, median of 5): eager {ms:.3f} ms, captured "
+            f"{ms_graph:.3f} ms an iteration; x {ITERS} = "
+            f"{ms * ITERS / 1e3:.3f} / {ms_graph * ITERS / 1e3:.3f} s a "
+            f"frame")
+        del apr_copy, params, fb_graph
+        # mode 3's initial poses: a batch of 8 against one at a time
+        with torch.no_grad():
+            batched = apr_poses_batched(kind, apr, queries)
+            single = torch.cat([apr_poses_batched(kind, apr, q[None])
+                                for q in queries])
+        diff = (batched - single).abs().max().item()
+        log(f"  apr_poses_batched on 8 queries against one at a time: max "
+            f"|diff| {diff:.3e} (tolerance 1e-5)")
+        if not (torch.isfinite(batched).all() and diff <= 1e-5):
+            raise AssertionError(f"{kind}: batched initial poses")
+
+    def do_apr():
+        """Mode 2 with each APR of the zoo at full width through the raw
+        kernels (K5, K7, K8), on cuDNN's deterministic algorithms: with
+        its default ones two eager PoseNet frames ended 1.02 apart (H100),
+        and the turns would test cuDNN's summation order, not the
+        captured loop."""
+        _, image, _ = mode2_inputs()
+        queries = torch.rand((8, IMG_H, IMG_W, 3),
+                             generator=torch.Generator().manual_seed(5)
+                             ).to(dev)
+        torch.backends.cudnn.deterministic = True
+        try:
+            for kind in ZOO:
+                apr_family(kind, image, queries)
+        finally:
+            torch.backends.cudnn.deterministic = False
+            graph.clear()
+            state.pop("aprs", None)
+            torch.cuda.empty_cache()
+
+    phase("apr", do_apr)
 
     def do_paths():
         n_it = 5
@@ -1102,11 +1253,15 @@ def main() -> int:
                 log(f"  DFNet's {what} of 8 frames: peak {peak}")
             del dfnet, imgs
         torch.cuda.empty_cache()
-        for mode, path_name in ((3, "render_pre"), (2, "render_raw")):
-            out_dir = root / f"out_mode{mode}"
+        for mode, path_name, kind in ((3, "render_pre", "DFNet"),
+                                      (2, "render_raw", "DFNet"),
+                                      (2, "render_raw", "MsTransformer"),
+                                      (3, "render_pre", "PoseNet")):
+            out_dir = root / f"out_mode{mode}_{kind}"
             argv = ["--datadir", paths["datadir"],
                     "--data_root", paths["data_root"],
-                    "--pose_only", str(mode), "--save_dir", str(out_dir)]
+                    "--pose_only", str(mode), "--save_dir", str(out_dir),
+                    "--PoseEstimatorType", kind]
             graph.clear()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -1123,7 +1278,8 @@ def main() -> int:
                         for k, c in loop.graph.launches.items()}
             replayed = {k: c * loop.graph.replays
                         for k, c in per_iter.items()}
-            log(f"serve mode {mode}: {wall:.3f} s for {SERVE_FRAMES} frames "
+            log(f"serve mode {mode} {kind}: {wall:.3f} s for {SERVE_FRAMES} "
+                f"frames "
                 f"of main() ({wall / SERVE_FRAMES:.4f} s/frame, set-up and "
                 f"the first frame's capture included; the CLI's own "
                 f"s/frame line above counts from the models being ready)")
@@ -1134,10 +1290,11 @@ def main() -> int:
                 f"{called}; captured launches {per_iter} an iteration x "
                 f"{loop.graph.replays} replays = {replayed}")
             if per_iter != {k: 1 for k in path_kernels[path_name]}:
-                raise AssertionError(f"serve mode {mode} launched {per_iter}")
+                raise AssertionError(f"serve mode {mode} {kind} launched "
+                                     f"{per_iter}")
             if loop.graph.replays != SERVE_FRAMES * ITERS:
                 raise AssertionError(f"{loop.graph.replays} replays")
-            txt = out_dir / (f"DFNet_chess_NeFeS{ITERS}_APR_pose_results"
+            txt = out_dir / (f"{kind}_chess_NeFeS{ITERS}_APR_pose_results"
                              ".txt")
             poses = np.loadtxt(txt)
             if not (poses.shape == (SERVE_FRAMES, 12)
@@ -2037,6 +2194,36 @@ def write_7scenes_fixture(root: Path, n_test: int, n_train: int = 2,
 def replace_cfg(cfg, **kw):
     from dataclasses import replace
     return replace(cfg, **kw)
+
+
+@torch.no_grad()
+def aim_apr(kind: str, apr, pose: torch.Tensor) -> None:
+    """Aim a zoo APR (seeded random weights) at pose (3, 4), as
+    mode2_inputs aims DFNet: its last layer's weights scaled by 1e-2
+    and its biases set to what gives pose (MapNet: t and the log quaternion;
+    MsTransformer: t and the quaternion in every scene's head, and scene
+    0 chosen)."""
+    from nefes_tpu_torch.geometry.se3 import rotmat_to_quat
+    q = rotmat_to_quat(pose[:, :3])
+    if kind == "MapNet":
+        v = q[1:]
+        logq = v / v.norm().clamp(min=1e-12) * torch.acos(q[0].clamp(max=1))
+        outs = ((apr.mapnet.fc_xyz, pose[:, 3]), (apr.mapnet.fc_wpqr, logq))
+        for fc, bias in outs:
+            fc.weight.mul_(1e-2)
+            fc.bias.copy_(bias)
+    elif kind == "MsTransformer":
+        # scene 0 for every query (equal logits, the argmax's first): a
+        # random tower's scene logits lie within 1e-3 of each other, and a
+        # change of scene would part the eager and the captured loop
+        apr.scene_embed.weight.zero_()
+        for head, bias in ((apr.regressor_head_t, pose[:, 3]),
+                           (apr.regressor_head_rot, q)):
+            head.fc_o_kernel.mul_(1e-2)
+            head.fc_o_bias.copy_(bias.expand_as(head.fc_o_bias))
+    else:
+        apr.fc_pose.weight.mul_(1e-2)
+        apr.fc_pose.bias.copy_(pose.reshape(12))
 
 
 def look_at() -> np.ndarray:

@@ -6,6 +6,11 @@ test_refinement.py).
 
 pose_only=2: APR-weight refinement (the paper's headline,
 DFM_APR_refine.py), through the raw-input kernels K5/K7/K8.
+--PoseEstimatorType picks the APR: DFNet (the feature extractor's own
+checkpoint, or --pretrain_model_path), or one of the zoo (PoseNet,
+PoseNetV2, EfficientNetB3, MapNet, MsTransformer) from a reference
+checkpoint in --pretrain_model_path (features/apr_loader.py) or seeded
+random weights; DFNet stays the feature extractor.
 pose_only=3: explicit SE(3)-delta refinement (DFM_pose_refine.py),
 through the pre-embedded kernels K1/K3/K4.
 
@@ -31,7 +36,9 @@ import torch
 from nefes_tpu_torch.cli.options import options_from_cli
 from nefes_tpu_torch.cli.train import build_model, build_scene
 from nefes_tpu_torch.evaluation import pose_errors, save_pose_txt, summarize
-from nefes_tpu_torch.features import DFNet, extract_target_features
+from nefes_tpu_torch.features import (
+    DFNet, extract_target_features, load_apr,
+)
 from nefes_tpu_torch.features.convert import (
     convert_dfnet, convert_nefes_checkpoint, load_torch_state_dict,
 )
@@ -136,15 +143,20 @@ def main(argv=None) -> dict:
         print("WARNING: random DFNet feature extractor (smoke mode)")
         dfnet = load_dfnet("", opts, dev, 1)
     # the pose estimator (load_APR_and_FeatureNet,
-    # direct_pose_model.py:148-173): DFNet only in the port
+    # direct_pose_model.py:148-173)
+    pose_avg = getattr(test, "pose_avg_stats", None)
     if opts.PoseEstimatorType != "DFNet":
-        raise NotImplementedError(
-            f"APR kind {opts.PoseEstimatorType!r}: only DFNet is ported; the "
-            "rest of the APR zoo is ROADMAP Queue A item 10")
-    apr = dfnet
-    if opts.pretrain_model_path and opts.pretrain_featurenet_path:
+        apr, _ = load_apr(
+            opts.PoseEstimatorType, opts.pretrain_model_path or None,
+            (test.H, test.W), torch.Generator().manual_seed(2),
+            feature_dim=opts.feature_dim, dataset_type=opts.dataset_type,
+            pose_avg_stats=pose_avg, device=dev)
+        apr.requires_grad_(False)
+    elif opts.pretrain_model_path and opts.pretrain_featurenet_path:
         # distinct APR and FeatureNet checkpoints (config_stairs_DFM.txt)
         apr = load_dfnet(opts.pretrain_model_path, opts, dev, 1)
+    else:
+        apr = dfnet
 
     phase("models/weights ready")
     h, w = opts.render_hw(test.H, test.W)
@@ -206,7 +218,8 @@ def main(argv=None) -> dict:
             masks_all = masks_all.to(dev) if resident else masks_all
         phase("targets precomputed")
         kw = dict(svd_reg=opts.svd_reg, freeze_bn=opts.freezeBN,
-                  apr_kind=opts.PoseEstimatorType)
+                  apr_kind=opts.PoseEstimatorType,
+                  dataset_type=opts.dataset_type, pose_avg=pose_avg)
         verify = dict(use_verification=not opts.no_verification_step,
                       verification_metric=opts.verification_metric)
         hwf_full = (test.H, test.W, float(test.focal))
@@ -241,7 +254,9 @@ def main(argv=None) -> dict:
         with torch.no_grad():
             init_poses = torch.cat([
                 apr_poses_batched(opts.PoseEstimatorType, apr,
-                                  images[i:i + 8].to(dev), opts.svd_reg)
+                                  images[i:i + 8].to(dev), opts.svd_reg,
+                                  dataset_type=opts.dataset_type,
+                                  pose_avg=pose_avg)
                 for i in range(0, n, 8)])
         phase("init poses computed")
         if len(opts.feature_matching_lvl) != 1:

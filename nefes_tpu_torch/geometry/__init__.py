@@ -1,7 +1,7 @@
 from nefes_tpu_torch.geometry.se3 import (  # noqa: F401
     compose_delta, learn_pose, orthogonalize_rotation, pack_se3,
-    rotation_angle, se3_exp, skew, so3_exp, so3_left_jacobian,
-    to_homogeneous,
+    quat_to_rotmat, rotation_angle, rotmat_to_quat, se3_exp, skew, so3_exp,
+    so3_left_jacobian, to_homogeneous,
 )
 from nefes_tpu_torch.geometry.transforms import (  # noqa: F401
     WorldSetup, fix_coord_supp,

@@ -114,12 +114,33 @@ def rotation_angle(R: torch.Tensor, degrees: bool = True) -> torch.Tensor:
     return torch.rad2deg(ang) if degrees else ang
 
 
+class _PolarFactor(torch.autograd.Function):
+    """U Vᵀ of R = U Σ Vᵀ, the orthogonal factor of R's polar
+    decomposition. Its derivative dQ = U X Vᵀ, X = (Ω - Ωᵀ) / (σi + σj)
+    elementwise with Ω = Uᵀ dR V, needs only R non-singular; the SVD's
+    own backward divides by σi² - σj², which is 0 on a rotation (the
+    quaternion-headed APRs) and gives NaN."""
+
+    @staticmethod
+    def forward(ctx, R):
+        u, s, vh = torch.linalg.svd(R, full_matrices=False)
+        ctx.save_for_backward(u, s, vh)
+        return u @ vh
+
+    @staticmethod
+    def backward(ctx, g):
+        u, s, vh = ctx.saved_tensors
+        m = u.transpose(-1, -2) @ g @ vh.transpose(-1, -2)
+        k = (m - m.transpose(-1, -2)) / (s[..., :, None] + s[..., None, :])
+        return u @ k @ vh
+
+
 def orthogonalize_rotation(pose: torch.Tensor) -> torch.Tensor:
     """SVD re-orthogonalisation of the rotation block of (..., 3, 4) poses:
-    R -> U Vᵀ (the reference's ``svd_reg``). Differentiable through the
-    SVD, which is well defined while the singular values are distinct."""
-    u, _, vh = torch.linalg.svd(pose[..., :3, :3], full_matrices=False)
-    return torch.cat([u @ vh, pose[..., :3, 3:4]], dim=-1)
+    R -> U Vᵀ (the reference's ``svd_reg``). Differentiable wherever R is
+    non-singular (_PolarFactor)."""
+    return torch.cat([_PolarFactor.apply(pose[..., :3, :3]),
+                      pose[..., :3, 3:4]], dim=-1)
 
 
 # Newton steps of the polar iteration: f64 rounding at condition number
@@ -145,3 +166,52 @@ def orthogonalize_rotation_polar(pose: torch.Tensor) -> torch.Tensor:
         zeta = det.abs() ** (-1.0 / 3.0)
         X = 0.5 * (zeta * X + cof / (zeta * det))
     return torch.cat([X, pose[..., :3, 3:4]], dim=-1)
+
+
+_QUAT_EPS = 1e-8
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4), (w, x, y, z), normalised first -> rotation
+    matrix (..., 3, 3) (the reference's qvec2rotmat,
+    script/utils/lie_group_helper.py:84-97)."""
+    q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
+                        min=_QUAT_EPS)
+    w, x, y, z = q.unbind(-1)
+    rows = [
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> quaternion (..., 4), (w, x, y, z),
+    w >= 0: of Shepperd's four constructions the one whose pivot
+    1 ± m00 ± m11 ± m22 is largest, selected elementwise."""
+    m = R
+    d0, d1, d2 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+    ts = torch.stack([1.0 + d0 + d1 + d2, 1.0 + d0 - d1 - d2,
+                      1.0 - d0 + d1 - d2, 1.0 - d0 - d1 + d2], -1)
+    s = torch.sqrt(torch.clamp(ts, min=_QUAT_EPS)) * 2.0
+    s0, s1, s2, s3 = s.unbind(-1)
+    a21, a12 = m[..., 2, 1], m[..., 1, 2]
+    a02, a20 = m[..., 0, 2], m[..., 2, 0]
+    a10, a01 = m[..., 1, 0], m[..., 0, 1]
+    qs = torch.stack([
+        torch.stack([s0 * 0.25, (a21 - a12) / s0, (a02 - a20) / s0,
+                     (a10 - a01) / s0], -1),
+        torch.stack([(a21 - a12) / s1, s1 * 0.25, (a01 + a10) / s1,
+                     (a02 + a20) / s1], -1),
+        torch.stack([(a02 - a20) / s2, (a01 + a10) / s2, s2 * 0.25,
+                     (a12 + a21) / s2], -1),
+        torch.stack([(a10 - a01) / s3, (a02 + a20) / s3, (a12 + a21) / s3,
+                     s3 * 0.25], -1),
+    ], dim=-2)                                   # (..., 4 candidates, 4)
+    idx = ts.argmax(-1)[..., None, None].expand(*ts.shape[:-1], 1, 4)
+    q = torch.gather(qs, -2, idx)[..., 0, :]
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)

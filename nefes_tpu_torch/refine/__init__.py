@@ -7,7 +7,8 @@ from nefes_tpu_torch.refine.pose_opt import (  # noqa: F401
     render_feature_image,
 )
 from nefes_tpu_torch.refine.apr_opt import (  # noqa: F401
-    apply_verification, apr_pose, apr_poses_batched, refine_apr_batch,
+    apply_verification, apr_pose, apr_pose_any, apr_poses_batched,
+    refine_apr_batch,
     refine_apr_captured, refine_apr_single, refine_apr_verified,
     refine_apr_verified_scanned,
 )

@@ -1,6 +1,7 @@
 """Mode-2 refinement: APR-weight optimisation, the paper's headline
-DFNet + NeFeS50 configuration; port of nefes_tpu/refine/apr_opt.py
-(reference script/dm/DFM_APR_refine.py).
+DFNet + NeFeS50 configuration, and the same for every APR of the zoo;
+port of nefes_tpu/refine/apr_opt.py (reference
+script/dm/DFM_APR_refine.py).
 
 Per iteration:
   pose = APR(query image), SVD-orthogonalised (svd_reg)
@@ -19,6 +20,12 @@ CPU path, and the baseline on the card); the serving functions
 (refine_apr_verified, refine_apr_verified_scanned) run it on a CPU tensor
 and, on the card, replay one captured iteration (AprLoop,
 refine/graph.py).
+
+apr_kind names the APR's family (features/apr_loader.py APR_KINDS):
+DFNet and the zoo's PoseNet (PoseNetRes34), PoseNetV2, EfficientNetB3,
+MapNet and MsTransformer. MsTransformer converts its output by
+dataset_type, on Cambridge with the scene's pose_avg (the stats (3, 4);
+None: those the model was built with, its pose_avg_inv).
 """
 
 from __future__ import annotations
@@ -27,7 +34,10 @@ import copy
 
 import torch
 
-from nefes_tpu_torch.features.dfnet import DFNet
+from nefes_tpu_torch.features.apr_loader import APR_KINDS
+from nefes_tpu_torch.features.mstransformer import (
+    ems_pose_to_matrix, pose_avg_inverse,
+)
 from nefes_tpu_torch.geometry.se3 import (
     orthogonalize_rotation, orthogonalize_rotation_polar,
 )
@@ -52,41 +62,75 @@ def _crop(img: torch.Tensor) -> torch.Tensor:
     return img[CROP:-CROP, CROP:-CROP]
 
 
-def apr_pose(dfnet: DFNet, image: torch.Tensor, svd_reg: bool = True,
-             freeze_bn: bool = True,
-             ortho=orthogonalize_rotation) -> torch.Tensor:
-    """APR forward: (H, W, 3) image -> (3, 4) pose. freeze_bn=False runs
-    BN on batch statistics (the reference's un-frozen train() mode)
-    without updating the running ones; the pose branch of DFNet has no BN,
-    so for DFNet both give the same pose. ortho: the svd_reg
-    orthogonalisation (the captured loop passes the polar iteration)."""
-    _, pose12 = dfnet(image[None], return_feature=False, return_pose=True,
-                      train_bn=not freeze_bn)
-    pose = pose12.reshape(3, 4)
+def _poses(kind: str, module, images: torch.Tensor, train_bn: bool,
+           dataset_type: str, pose_avg) -> torch.Tensor:
+    """(B, H, W, 3) images -> the APR's (B, 3, 4) poses before svd_reg.
+    train_bn: BN on the batch's statistics (MsTransformer always runs on
+    its running ones, as the JAX package calls it)."""
+    if kind == "DFNet":
+        _, pose12 = module(images, return_feature=False, return_pose=True,
+                           train_bn=train_bn)
+        return pose12.reshape(-1, 3, 4)
+    if kind == "MsTransformer":
+        inv = (module.pose_avg_inv if pose_avg is None
+               else pose_avg_inverse(pose_avg).to(images.device))
+        return ems_pose_to_matrix(module(images)["pose"], dataset_type, inv)
+    return module(images, train=train_bn).reshape(-1, 3, 4)
+
+
+def apr_pose_any(kind: str, module, image: torch.Tensor,
+                 svd_reg: bool = True, freeze_bn: bool = True,
+                 dataset_type: str = "7Scenes", pose_avg=None,
+                 ortho=orthogonalize_rotation) -> torch.Tensor:
+    """APR forward of any family: (H, W, 3) image -> (3, 4) pose (the
+    per-type dispatch of inference_pose_regression,
+    DFM_pose_refine.py:131-161). freeze_bn=False runs BN on the image's
+    own statistics (the reference's un-frozen train() mode) without
+    updating the running ones. ortho: the svd_reg orthogonalisation (the
+    captured loop passes the polar iteration)."""
+    pose = _poses(kind, module, image[None], not freeze_bn, dataset_type,
+                  pose_avg)[0]
     return ortho(pose) if svd_reg else pose
 
 
-def apr_poses_batched(kind: str, dfnet: DFNet, images: torch.Tensor,
-                      svd_reg: bool = True, freeze_bn: bool = True
+def apr_pose(dfnet, image: torch.Tensor, svd_reg: bool = True,
+             freeze_bn: bool = True,
+             ortho=orthogonalize_rotation) -> torch.Tensor:
+    """apr_pose_any for DFNet, whose pose branch has no BN: freeze_bn
+    gives the same pose either way."""
+    return apr_pose_any("DFNet", dfnet, image, svd_reg, freeze_bn,
+                        ortho=ortho)
+
+
+def apr_poses_batched(kind: str, module, images: torch.Tensor,
+                      svd_reg: bool = True, freeze_bn: bool = True,
+                      dataset_type: str = "7Scenes", pose_avg=None
                       ) -> torch.Tensor:
     """(B, H, W, 3) images -> (B, 3, 4) APR poses (the JAX package's
     vmapped apr_pose_any, nefes_tpu/refine/apr_opt.py:94): one batched
     forward on running BN statistics, one forward an image on batch
     statistics (each image its own, as the vmap gives)."""
     _check_kind(kind)
-    if not freeze_bn:
-        return torch.stack([apr_pose(dfnet, im, svd_reg, False)
+    if not freeze_bn and kind != "MsTransformer":
+        return torch.stack([apr_pose_any(kind, module, im, svd_reg, False,
+                                         dataset_type, pose_avg)
                             for im in images])
-    _, pose12 = dfnet(images, return_feature=False, return_pose=True)
-    pose = pose12.reshape(-1, 3, 4)
+    pose = _poses(kind, module, images, False, dataset_type, pose_avg)
     return orthogonalize_rotation(pose) if svd_reg else pose
 
 
 def _check_kind(apr_kind: str) -> None:
-    if apr_kind != "DFNet":
+    if apr_kind not in APR_KINDS:
         raise NotImplementedError(
-            f"APR kind {apr_kind!r}: only DFNet is ported; the rest of the "
-            "APR zoo is ROADMAP Queue A item 10")
+            f"APR kind {apr_kind!r}: not one of {APR_KINDS} (NetVlad has no "
+            "model to refine, direct_pose_model.py:166-168)")
+
+
+def _own_pose_avg(kind: str, apr, pose_avg) -> None:
+    """Give the APR's copy the scene's pose_avg (MsTransformer only), so
+    that its iterations convert with the inverse computed here once."""
+    if kind == "MsTransformer" and pose_avg is not None:
+        apr.pose_avg_inv.copy_(pose_avg_inverse(pose_avg))
 
 
 def _upsampled_loss(fused, rgb_img, tgt_crop, mask, H: int, W: int,
@@ -103,16 +147,17 @@ def _upsampled_loss(fused, rgb_img, tgt_crop, mask, H: int, W: int,
     return loss, _crop(rgb_up)
 
 
-def refine_apr_single(model, dfnet: DFNet, image: torch.Tensor,
+def refine_apr_single(model, dfnet, image: torch.Tensor,
                       target_feat: torch.Tensor, hist: torch.Tensor,
                       ws_vec: torch.Tensor, hwf_render: tuple,
                       hwf_full: tuple, near: float, far: float,
                       cfg: RenderConfig, rcfg: RefineConfig,
                       svd_reg: bool = True, mask: torch.Tensor | None = None,
-                      freeze_bn: bool = True,
-                      apr_kind: str = "DFNet") -> dict:
-    """Refine a copy of the APR on ONE query image for rcfg.opt_iter Adam
-    steps (learning rate rcfg.learning_rate, optax's defaults otherwise).
+                      freeze_bn: bool = True, apr_kind: str = "DFNet",
+                      dataset_type: str = "7Scenes", pose_avg=None) -> dict:
+    """Refine a copy of the APR `dfnet` (of family apr_kind) on ONE query
+    image for rcfg.opt_iter Adam steps (learning rate rcfg.learning_rate,
+    optax's defaults otherwise).
 
     image (H, W, 3); target_feat (H, W, C): full-size DFNet features of
     the query (extracted once outside); mask: optional (H, W) validity
@@ -122,6 +167,8 @@ def refine_apr_single(model, dfnet: DFNet, image: torch.Tensor,
     _check_kind(apr_kind)
     H, W, _ = hwf_full
     apr = copy.deepcopy(dfnet).requires_grad_(True)
+    with torch.no_grad():
+        _own_pose_avg(apr_kind, apr, pose_avg)
     params = list(apr.parameters())
     # optax.adam defaults: b1 0.9, b2 0.999, eps 1e-8, no eps_root
     opt = torch.optim.Adam(params, lr=rcfg.learning_rate,
@@ -132,7 +179,8 @@ def refine_apr_single(model, dfnet: DFNet, image: torch.Tensor,
     img_crop = _crop(image)
     losses, psnrs, ssims = [], [], []
     for _ in range(rcfg.opt_iter):
-        pose = apr_pose(apr, image, svd_reg, freeze_bn)
+        pose = apr_pose_any(apr_kind, apr, image, svd_reg, freeze_bn,
+                            dataset_type)
         rgb_img, fused = render_feature_image(
             model, fix_coord_supp(pose, ws_vec), hist, hwf_render, near, far,
             cfg, fusion_bn=rcfg.fusion, packed=packed)
@@ -145,14 +193,16 @@ def refine_apr_single(model, dfnet: DFNet, image: torch.Tensor,
             psnrs.append(psnr_fn(rgb_crop, img_crop))
             ssims.append(ssim(rgb_crop[None], img_crop[None]).mean())
         for p, g in zip(params, grads):
-            # None outside the pose branch: Adam skips those weights, as
-            # optax leaves a weight with zero gradients where it is
+            # None where a weight does not reach the pose: Adam skips it,
+            # as optax leaves a weight with zero gradients where it is
             p.grad = g
         opt.step()
         losses.append(loss.detach())
     with torch.no_grad():
-        refined_pose = apr_pose(apr, image, svd_reg, True)
-        initial_pose = apr_pose(dfnet, image, svd_reg, True)
+        refined_pose = apr_pose_any(apr_kind, apr, image, svd_reg, True,
+                                    dataset_type)
+        initial_pose = apr_pose_any(apr_kind, dfnet, image, svd_reg, True,
+                                    dataset_type, pose_avg)
     return {"refined_pose": refined_pose, "initial_pose": initial_pose,
             "losses": torch.stack(losses),
             "init_psnr": psnrs[0], "end_psnr": psnrs[-1],
@@ -189,12 +239,13 @@ def apply_verification(result: dict, metric: str = "psnr_ssim"
     return torch.where(retreat.to(refined.device), initial, refined)
 
 
-def refine_apr_verified(model, dfnet: DFNet, images, targets, hists, idx: int,
+def refine_apr_verified(model, dfnet, images, targets, hists, idx: int,
                         hist_idx: int, ws_vec, hwf_render: tuple,
                         hwf_full: tuple, near: float, far: float,
                         cfg: RenderConfig, rcfg: RefineConfig,
                         svd_reg: bool = True, masks=None,
                         freeze_bn: bool = True, apr_kind: str = "DFNet",
+                        dataset_type: str = "7Scenes", pose_avg=None,
                         use_verification: bool = True,
                         verification_metric: str = "psnr_ssim"
                         ) -> torch.Tensor:
@@ -207,18 +258,20 @@ def refine_apr_verified(model, dfnet: DFNet, images, targets, hists, idx: int,
     out = run(model, dfnet, images[idx], targets[idx], hists[hist_idx],
               ws_vec, hwf_render, hwf_full, near, far, cfg, rcfg,
               svd_reg=svd_reg, mask=None if masks is None else masks[idx],
-              freeze_bn=freeze_bn, apr_kind=apr_kind)
+              freeze_bn=freeze_bn, apr_kind=apr_kind,
+              dataset_type=dataset_type, pose_avg=pose_avg)
     return (apply_verification(out, verification_metric)
             if use_verification else out["refined_pose"])
 
 
-def refine_apr_verified_scanned(model, dfnet: DFNet, images, targets, hists,
+def refine_apr_verified_scanned(model, dfnet, images, targets, hists,
                                 idxs, hist_idxs, ws_vec, hwf_render: tuple,
                                 hwf_full: tuple, near: float, far: float,
                                 cfg: RenderConfig, rcfg: RefineConfig,
                                 svd_reg: bool = True, masks=None,
                                 freeze_bn: bool = True,
                                 apr_kind: str = "DFNet",
+                                dataset_type: str = "7Scenes", pose_avg=None,
                                 use_verification: bool = True,
                                 verification_metric: str = "psnr_ssim"
                                 ) -> torch.Tensor:
@@ -229,6 +282,7 @@ def refine_apr_verified_scanned(model, dfnet: DFNet, images, targets, hists,
         model, dfnet, images, targets, hists, int(i), int(hi), ws_vec,
         hwf_render, hwf_full, near, far, cfg, rcfg, svd_reg=svd_reg,
         masks=masks, freeze_bn=freeze_bn, apr_kind=apr_kind,
+        dataset_type=dataset_type, pose_avg=pose_avg,
         use_verification=use_verification,
         verification_metric=verification_metric)
         for i, hi in zip(idxs, hist_idxs)])
@@ -237,24 +291,27 @@ def refine_apr_verified_scanned(model, dfnet: DFNet, images, targets, hists,
 # --- serving on the card: the captured iteration ---
 
 class AprLoop:
-    """Mode 2 on the card for one (model, APR, render config, refine
-    config, shapes): one static copy of the APR whose weights are reloaded
-    from the APR in place each frame (the eager loop's deep copy), and one
-    captured iteration of refine_apr_single. svd_reg orthogonalises by the
-    polar iteration (se3.orthogonalize_rotation_polar): the SVD reads
-    back to the host on the card."""
+    """Mode 2 on the card for one (model, APR and its family, render
+    config, refine config, dataset type, shapes): one static copy of the
+    APR whose state (weights and BN statistics) is reloaded from the APR
+    in place each frame (the eager loop's deep copy), and one captured
+    iteration of refine_apr_single. svd_reg orthogonalises by the polar
+    iteration (se3.orthogonalize_rotation_polar): the SVD reads back to
+    the host on the card."""
 
     name = "mode2"
 
-    def __init__(self, model, dfnet: DFNet, hwf_render: tuple,
+    def __init__(self, model, dfnet, hwf_render: tuple,
                  hwf_full: tuple, near: float, far: float,
                  cfg: RenderConfig, rcfg: RefineConfig, svd_reg: bool,
                  freeze_bn: bool, target_channels: int, hist_shape,
-                 has_mask: bool, device):
+                 has_mask: bool, device, apr_kind: str = "DFNet",
+                 dataset_type: str = "7Scenes"):
         self.model, self.hwf_render, self.hwf_full = model, hwf_render, \
             hwf_full
         self.near, self.far, self.cfg, self.rcfg = near, far, cfg, rcfg
         self.svd_reg, self.freeze_bn = svd_reg, freeze_bn
+        self.apr_kind, self.dataset_type = apr_kind, dataset_type
         H, W, _ = hwf_full
         z = dict(device=device)
         self.image = torch.zeros((H, W, 3), **z)
@@ -276,9 +333,10 @@ class AprLoop:
         self.dfnet = None           # the APR the state is reset from
         self.graph = None
 
-    def _pose(self, apr, freeze_bn):
-        return apr_pose(apr, self.image, self.svd_reg, freeze_bn,
-                        ortho=orthogonalize_rotation_polar)
+    def _pose(self, apr, freeze_bn, pose_avg=None):
+        return apr_pose_any(self.apr_kind, apr, self.image, self.svd_reg,
+                            freeze_bn, self.dataset_type, pose_avg,
+                            ortho=orthogonalize_rotation_polar)
 
     def _step(self) -> None:
         H, W, _ = self.hwf_full
@@ -315,11 +373,14 @@ class AprLoop:
         for p in self.params:
             p.grad = None
 
-    def run(self, dfnet: DFNet, image, target, hist, ws_vec,
-            mask=None) -> dict:
+    def run(self, dfnet, image, target, hist, ws_vec, mask=None,
+            pose_avg=None) -> dict:
         """One frame from dfnet's weights: refine_apr_single's dict."""
         self.dfnet = dfnet
         with torch.no_grad():
+            if self.apr_kind == "MsTransformer":
+                self.apr.pose_avg_inv.copy_(dfnet.pose_avg_inv)
+                _own_pose_avg(self.apr_kind, self.apr, pose_avg)
             for buf, x in ((self.image, image), (self.target, target),
                            (self.hist, hist), (self.ws_vec, ws_vec),
                            (self.mask, mask)):
@@ -334,7 +395,7 @@ class AprLoop:
         self.graph.replay(self.rcfg.opt_iter)
         with torch.no_grad():
             refined = self._pose(self.apr, True)
-            initial = self._pose(dfnet, True)
+            initial = self._pose(dfnet, True, pose_avg)
         losses, psnrs, ssims = (b.clone() for b in (self.losses, self.psnrs,
                                                     self.ssims))
         return {"refined_pose": refined, "initial_pose": initial,
@@ -343,33 +404,35 @@ class AprLoop:
                 "end_ssim": ssims[-1]}
 
 
-def refine_apr_captured(model, dfnet: DFNet, image: torch.Tensor,
+def refine_apr_captured(model, dfnet, image: torch.Tensor,
                         target_feat: torch.Tensor, hist: torch.Tensor,
                         ws_vec: torch.Tensor, hwf_render: tuple,
                         hwf_full: tuple, near: float, far: float,
                         cfg: RenderConfig, rcfg: RefineConfig,
                         svd_reg: bool = True,
                         mask: torch.Tensor | None = None,
-                        freeze_bn: bool = True,
-                        apr_kind: str = "DFNet") -> dict:
+                        freeze_bn: bool = True, apr_kind: str = "DFNet",
+                        dataset_type: str = "7Scenes", pose_avg=None
+                        ) -> dict:
     """refine_apr_single through the cached AprLoop (CUDA tensors)."""
     _check_kind(apr_kind)
-    key = ("mode2", id(model), id(dfnet), hwf_render, hwf_full, float(near),
-           float(far), cfg, rcfg, svd_reg, freeze_bn,
-           target_feat.shape[-1], tuple(hist.shape), mask is not None,
-           str(image.device))
+    key = ("mode2", id(model), id(dfnet), apr_kind, dataset_type,
+           hwf_render, hwf_full, float(near), float(far), cfg, rcfg,
+           svd_reg, freeze_bn, target_feat.shape[-1], tuple(hist.shape),
+           mask is not None, str(image.device))
     loop = graph.cached(key, (model, dfnet), lambda: AprLoop(
         model, dfnet, hwf_render, hwf_full, near, far, cfg, rcfg, svd_reg,
         freeze_bn, target_feat.shape[-1], tuple(hist.shape),
-        mask is not None, image.device))
-    return loop.run(dfnet, image, target_feat, hist, ws_vec, mask)
+        mask is not None, image.device, apr_kind, dataset_type))
+    return loop.run(dfnet, image, target_feat, hist, ws_vec, mask, pose_avg)
 
 
-def refine_apr_batch(model, dfnet: DFNet, images, targets, hists, ws_vec,
+def refine_apr_batch(model, dfnet, images, targets, hists, ws_vec,
                      hwf_render: tuple, hwf_full: tuple, near: float,
                      far: float, cfg: RenderConfig, rcfg: RefineConfig,
                      svd_reg: bool = True, masks=None,
-                     freeze_bn: bool = True, apr_kind: str = "DFNet") -> dict:
+                     freeze_bn: bool = True, apr_kind: str = "DFNet",
+                     dataset_type: str = "7Scenes", pose_avg=None) -> dict:
     """Refine B query frames one after another, each from a fresh copy of
     the APR. Returns refine_apr_single's dict with a leading B on every
     entry."""
@@ -377,5 +440,6 @@ def refine_apr_batch(model, dfnet: DFNet, images, targets, hists, ws_vec,
         model, dfnet, images[i], targets[i], hists[i], ws_vec, hwf_render,
         hwf_full, near, far, cfg, rcfg, svd_reg=svd_reg,
         mask=None if masks is None else masks[i], freeze_bn=freeze_bn,
-        apr_kind=apr_kind) for i in range(images.shape[0])]
+        apr_kind=apr_kind, dataset_type=dataset_type, pose_avg=pose_avg)
+        for i in range(images.shape[0])]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

@@ -1,5 +1,6 @@
 """The JAX package's ``variables`` pytrees (as nested dicts of numpy
-arrays) -> the state dicts of the port's NeFeSModel and DFNet.
+arrays) -> the state dicts of the port's NeFeSModel, DFNet and the APR
+zoo (apr_from_jax_variables).
 
   Dense kernel (in, out)            -> Linear weight (out, in)
   SplitDense kernel (da + db, out)  -> one Linear over the concat input
@@ -80,4 +81,50 @@ def dfnet_from_jax_variables(variables_np: dict) -> dict:
             out[f"{name}.bn.num_batches_tracked"] = torch.tensor(0)
         else:
             _conv(leaf, name, out)
+    return out
+
+
+def apr_from_jax_variables(variables_np: dict) -> dict:
+    """The variables {params[, batch_stats]} of an APR of the zoo
+    (features/posenet.py, mstransformer.py) -> the port's state dict. The
+    port's modules carry the flax names, so a leaf's path is its key:
+
+      Conv kernel HWIO                    -> weight OIHW
+      Dense kernel (in, out)              -> weight (out, in)
+      attention query / key / value kernel (d, heads, hd), bias (heads,
+        hd); out kernel (heads, hd, d)    -> Linear weight (d, d), bias
+      LayerNorm / BatchNorm scale         -> weight
+      BatchNorm mean / var                -> running_mean / running_var
+      anything else (the stacked heads, embeddings, queries) as it is.
+    """
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(tree: dict, prefix: str, stats: bool) -> None:
+        for name, leaf in tree.items():
+            key = f"{prefix}{name}"
+            if isinstance(leaf, dict):
+                walk(leaf, key + ".", stats)
+                continue
+            x = _t(leaf)
+            parent = prefix.rstrip(".").rsplit(".", 1)[-1]
+            if stats:
+                out[f"{prefix}running_{name}"] = x
+                out[f"{prefix}num_batches_tracked"] = torch.tensor(0)
+            elif name == "kernel" and x.ndim == 4:
+                out[f"{prefix}weight"] = x.permute(3, 2, 0, 1).contiguous()
+            elif name == "kernel" and x.ndim == 3:        # attention
+                x = x.reshape(-1, x.shape[-1]) if parent == "out" \
+                    else x.reshape(x.shape[0], -1)
+                out[f"{prefix}weight"] = x.t().contiguous()
+            elif name == "kernel":
+                out[f"{prefix}weight"] = x.t().contiguous()
+            elif name == "scale":
+                out[f"{prefix}weight"] = x
+            elif name == "bias":
+                out[key] = x.reshape(-1)
+            else:
+                out[key] = x
+
+    walk(variables_np["params"], "", False)
+    walk(variables_np.get("batch_stats", {}), "", True)
     return out

@@ -110,7 +110,7 @@ def test_refine_cli_refuses_what_is_not_ported(fx):
     base = _argv(fx, 3, osp.join(fx[1], "refused")) + ["--device", "cpu"]
     for extra, err in ((["--apr_compute_dtype", "bfloat16"],
                         NotImplementedError),
-                       (["--PoseEstimatorType", "PoseNet"],
+                       (["--PoseEstimatorType", "NetVlad"],
                         NotImplementedError),
                        (["--tcnn", "true"], NotImplementedError),
                        (["--pose_only", "1"], ValueError)):

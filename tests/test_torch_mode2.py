@@ -274,4 +274,4 @@ def test_refine_apr_batch_and_verified(dfnets, setup, jax_mode2):
     close(pose, apply_verification(single), 0, 0)
     with pytest.raises(NotImplementedError):
         refine_apr_single(tmodel, td, images[0], target, torch.zeros(10),
-                          *args, apr_kind="PoseNet")
+                          *args, apr_kind="NetVlad")

@@ -223,7 +223,9 @@ _SERVING_MODULES = (
     "data/images.py", "data/seven_scenes.py", "data/cambridge.py",
     "evaluation/metrics.py", "evaluation/ate.py", "evaluation/golden.py",
     "features/convert.py", "refine/graph.py", "geometry/transforms.py",
-    "refine/pose_opt.py")
+    "refine/pose_opt.py", "features/backbones.py", "features/posenet.py",
+    "features/mstransformer.py", "features/apr_loader.py",
+    "features/convert_backbones.py", "weights.py")
 
 
 def test_port_imports_no_jax():
