@@ -1,7 +1,7 @@
 """On-card smoke run of nefes_tpu_torch on one NVIDIA GPU (written for the
 H100: the kernels build for sm_90a).
 
-    python3 chip_smoke.py [--phases build,check,mode3,mode2,apr,paths,serve,train,time,micro,probe,profile]
+    python3 chip_smoke.py [--phases build,check,mode3,mode2,apr,paths,serve,train,traincli,time,micro,probe,profile]
         [--parent DIR]
 
 Phases:
@@ -90,6 +90,24 @@ Phases:
          train_pre through K1/K2, unfused) from one initial state, in bf16
          and f32, whose losses and parameters must agree; 3 stage-2 patch
          steps through the kernels (finite loss, BN running stats move)
+  traincli the training CLI (nefes_tpu_torch.cli.train) end to end at
+         full width (NeFeS D8/W128/F128 in f32, the defaults: 4 images x
+         1536 rays of 60x80 renders, 64+64 samples, seeded random weights
+         and DFNet) on 8 training frames added to the serve phase's
+         fixture, seven runs: stage 1 for 3 epochs (its first epoch traced
+         with --profile_dir), resumed for 2 more, stage 2 from its
+         checkpoint (--ft_path: epoch and optimizer reset; 200 epochs of
+         stage 1, then patch steps through FusionNet, the validation
+         render at epoch 200), --reduce_embedding 2 for 2 epochs, the aux
+         terms for 1, --render_test and --render_pose_only (8 views). Each:
+         s/step and rays/s (the epochs' wall time less renders and
+         checkpoints, the first epoch excluded), each validation render's
+         time, main()'s wall time with set-up, peak memory, the launches
+         of each step (K5, K6 +dW and the dW kernel; K1, K2 +dW and dW
+         windowed) and render (K5 or K1 alone) against the expected;
+         args.txt, metrics.jsonl (the JAX CLI's keys), the checkpoints,
+         the evaluate_* PNGs and the spiral mp4 (8 frames) read back;
+         finite losses, stage 0's falling
   time   each kernel's time (CUDA events, median) beside its bound, its
          plain version's time and a bf16 torch.matmul chain over the same
          tower as a yardstick; the training variants at the fine training
@@ -185,6 +203,15 @@ TRAIN_B, N_RAND, TRAIN_STEPS, PATH_STEPS, TRAIN_LR = 4, 1536, 20, 3, 5e-4
 PARAM_TOL = {"float32": 5e-6, "bfloat16": 1e-3}
 # The serve phase: test frames of its 7-Scenes fixture (480x640 PNGs)
 SERVE_FRAMES = 8
+# The traincli phase: training frames added to that fixture (2 steps an
+# epoch at the CLI's batch of 4), and the metrics.jsonl keys the JAX CLI
+# writes at each stage (nefes_tpu/cli/train.py:327-333: epoch, stage,
+# loss, wall_s and the step's metrics)
+TRAINCLI_FRAMES = 8
+CLI_METRIC_KEYS = {0: {"epoch", "stage", "loss", "wall_s", "loss_rgb",
+                       "psnr"}}
+CLI_METRIC_KEYS[1] = CLI_METRIC_KEYS[0] | {"loss_feat"}
+CLI_METRIC_KEYS[2] = CLI_METRIC_KEYS[1] | {"loss_fusion"}
 # Mode 2: the query at 7-Scenes H/2, rendered at a quarter of that
 IMG_H, IMG_W, FOCAL_FULL = 4 * H, 4 * W, 4 * FOCAL
 # The probe phase: K5's bf16 max-abs error from the plain f32 field within
@@ -256,7 +283,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="build,check,mode3,mode2,apr,paths,serve,"
-                    "train,time,micro,probe,profile")
+                    "train,traincli,time,micro,probe,profile")
     ap.add_argument("--parent", default=None,
                     help="an earlier tree whose K1, K5 and render kernels "
                     "the time phase times beside this tree's")
@@ -1493,6 +1520,203 @@ def main() -> int:
 
     phase("train", do_train)
 
+    def launch_counts() -> dict:
+        """Every kernel's and variant's launch count now."""
+        counts = {n: k.launches for n, k in wrappers.items()}
+        counts.update({n: getattr(k, a) for n, (k, a) in variants.items()})
+        return counts
+
+    def cli_step_launches(pre: bool, rays: int) -> dict:
+        """The launches of one f32 training step of the CLI over `rays`
+        rays: the coarse (full mode) and fine (transient) forward, and
+        the backward with dW once a chunk of rows (kf.dw_plan), each chunk
+        followed by the dW kernel."""
+        fwd, bwd = (("K1 field_fwd_pre", "K2 field_bwd_pre") if pre
+                    else ("K5 field_fwd", "K6 field_bwd"))
+        with torch.no_grad():
+            pc, pf = NeFeSModel(ModelConfig(dtype=torch.float32), device=dev,
+                                generator=torch.Generator().manual_seed(0)
+                                ).pack_fused()
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        lib = build.library("fused_field")
+        chunks = 0
+        for p, mode, n in ((pc, kf.FULL, rays * N_C),
+                           (pf, kf.TRANSIENT, rays * (N_C + N_F))):
+            chunks += -(-n // kf.dw_plan(lib, p, mode, n, sms)[0])
+        return {fwd: 2, f"{fwd} transient": 1, bwd: chunks,
+                f"{bwd} +dW": chunks, "K2/K6 field_dw": chunks}
+
+    def do_traincli():
+        """The training CLI (nefes_tpu_torch.cli.train) end to end at full
+        width and its defaults (NeFeS D8/W128/F128 in f32, 4 images x 1536
+        rays of 60x80 renders, 64+64 samples, seeded random weights and
+        DFNet) on TRAINCLI_FRAMES training frames added to the serve
+        phase's fixture: seven runs, each timed (its steps, validation
+        renders and wall time), its launches counted per step and its
+        artefacts read back."""
+        import shutil
+        from dataclasses import fields
+        from PIL import Image
+        from nefes_tpu_torch.cli import train as tcli
+        from nefes_tpu_torch.cli.options import Options
+        from nefes_tpu_torch.render import validation as tval
+        from nefes_tpu_torch.train.trainer import CROP_SIZE, NUM_CROPS
+        from nefes_tpu_torch.utils.video import read_mp4
+        root = Path("tmp") / "serve_fixture"
+        paths = write_7scenes_fixture(root, SERVE_FRAMES,
+                                      n_train=TRAINCLI_FRAMES)
+        logs = root / "traincli"
+        shutil.rmtree(logs, ignore_errors=True)
+        per_epoch = TRAINCLI_FRAMES // TRAIN_B
+        ray_rays, patch_rays = TRAIN_B * N_RAND, \
+            TRAIN_B * NUM_CROPS * CROP_SIZE ** 2
+        want_step = {(pre, kind): cli_step_launches(pre, rays)
+                     for pre in (False, True)
+                     for kind, rays in (("rays", ray_rays),
+                                        ("patch", patch_rays))}
+        records: list = []
+
+        def instrumented(name, fn):
+            """fn, recording its launches and, at each epoch's first step
+            and around the other calls, the device-synchronised time."""
+            step = name.startswith("train_step")
+
+            def run(*a, **k):
+                c0 = launch_counts()
+                n_steps = sum(r["step"] for r in records)
+                sync = not step or n_steps % per_epoch == 0
+                if sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                if not step:
+                    torch.cuda.synchronize()
+                c1 = launch_counts()
+                records.append(dict(
+                    name=name, step=step, t0=t0, t1=time.perf_counter(),
+                    loss=out[1] if step else None,
+                    counts={n: c1[n] - c0[n] for n in c1 if c1[n] != c0[n]}))
+                return out
+            return run
+
+        names = ("train_step_rays", "train_step_patch", "render_test",
+                 "render_spiral_video", "save_checkpoint")
+        originals = {n: getattr(tcli, n) for n in names}
+        # the renders' pieces, each timed between synchronisations
+        pieces: dict = {}
+        piece_names = ("extract_target_features", "_render_one",
+                       "_render_one_full", "save_png",
+                       "save_feature_saliency")
+        piece_fns = {n: getattr(tval, n) for n in piece_names}
+
+        def piece(name, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                secs, calls = pieces.get(name, (0.0, 0))
+                pieces[name] = (secs + time.perf_counter() - t0, calls + 1)
+                return out
+            return run
+        base = ["--datadir", paths["datadir"], "--data_root",
+                paths["data_root"], "--basedir", str(logs), "--i_print", "1"]
+
+        def ckpt_of(exp, epoch):
+            return str((logs / exp / "ckpts" / f"epoch_{epoch:06d}.pt")
+                       .absolute())
+
+        runs = (
+            ("stage 1, 3 epochs", "s1", ["--new_schedule", "1", "--epochs",
+                                         "2", "--i_weights", "1",
+                                         "--profile_dir",
+                                         str(logs / "profile")]),
+            ("stage 1 resumed", "s1", ["--new_schedule", "1", "--epochs",
+                                       "4", "--i_weights", "1"]),
+            ("stage 2 from --ft_path", "s2", [
+                "--new_schedule", "2", "--ft_path", ckpt_of("s1", 4),
+                "--epochs", "201", "--i_testset", "200", "--i_weights",
+                "200"]),
+            ("windowed (reduce_embedding 2)", "win", [
+                "--new_schedule", "1", "--reduce_embedding", "2",
+                "--epochs", "1"]),
+            ("aux (TV, both sparsities)", "aux", [
+                "--new_schedule", "1", "--tvloss", "true",
+                "--sigma_sparsity_loss", "true", "--sigma_sparsity_loss2",
+                "true", "--epochs", "0"]),
+            ("render_test", "rt", ["--new_schedule", "2", "--render_test",
+                                   "true", "--ft_path", ckpt_of("s2", 200)]),
+            ("render_pose_only", "spiral", [
+                "--render_pose_only", "true", "--spiral_views", "8",
+                "--ft_path", ckpt_of("s2", 200)]),
+        )
+        stage0_first = None
+        try:
+            for n in names:
+                setattr(tcli, n, instrumented(n, originals[n]))
+            for n in piece_names:
+                setattr(tval, n, piece(n, piece_fns[n]))
+            for what, exp, flags in runs:
+                records.clear()
+                pieces.clear()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st = tcli.main(base + ["--expname", exp] + flags)
+                torch.cuda.synchronize()
+                t_end = time.perf_counter()
+                log(f"traincli {what}: {t_end - t0:.3f} s of main() with "
+                    f"set-up, peak memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+                    f"epoch {st.epoch} after")
+                losses = traincli_report(what, records, t_end, per_epoch,
+                                         ray_rays, patch_rays, want_step,
+                                         "--reduce_embedding" in flags)
+                if pieces:
+                    views = sum(pieces.get(n, (0, 0))[1] for n in
+                                ("_render_one", "_render_one_full"))
+                    total = sum(r["t1"] - r["t0"] for r in records
+                                if r["name"].startswith("render_"))
+                    log(f"  the renders: {views} views, {total / views:.3f} "
+                        f"s a view; their pieces (s, calls; synchronised): "
+                        + ", ".join(f"{n} {v[0]:.3f} x{v[1]}"
+                                    for n, v in pieces.items()))
+                exp_dir = logs / exp
+                check_cli_args(exp_dir, {f.name for f in fields(Options)})
+                if what.startswith("stage 1, 3"):
+                    stage0_first = losses[:per_epoch].mean().item()
+                    if not (logs / "profile" / "trace.json").is_file():
+                        raise AssertionError("--profile_dir wrote no trace")
+                if what == "stage 1 resumed":
+                    last = losses[-per_epoch:].mean().item()
+                    log(f"  stage 0: the first epoch's mean loss "
+                        f"{stage0_first:.6f}, the last's {last:.6f}")
+                    if not last < stage0_first:
+                        raise AssertionError("stage 0's loss did not fall")
+                    check_cli_run(exp_dir, range(0, 5), [1, 2, 3, 4])
+                if exp == "s2":
+                    check_cli_run(exp_dir, range(0, 202), [200])
+                    check_evaluate(exp_dir, 200, Image)
+                if exp in ("win", "aux"):
+                    check_cli_run(exp_dir, range(2 if exp == "win" else 1),
+                                  [])
+                if exp == "rt":
+                    check_evaluate(exp_dir, 201, Image)
+                if exp == "spiral":
+                    frames = read_mp4(str(exp_dir / "spiral_spiral.mp4"))
+                    log(f"  spiral video: {frames.shape} frames read back")
+                    if frames.shape != (8, 4 * H, 4 * W, 3):
+                        raise AssertionError(f"spiral {frames.shape}")
+        finally:
+            for n in names:
+                setattr(tcli, n, originals[n])
+            for n in piece_names:
+                setattr(tval, n, piece_fns[n])
+        torch.cuda.empty_cache()
+
+    phase("traincli", do_traincli)
+
     @torch.no_grad()
     def do_time():
         if "inputs" not in state:
@@ -2144,6 +2368,134 @@ def field_call(lib, name, ins, dev, blocks=None):
                            *[kf._ptr(o) for o in outs], *tail, kf._stream())
     kf.raise_on(err, fn)
     return [o for o in outs if o is not None]
+
+
+def traincli_report(what, records, t_end, per_epoch, ray_rays, patch_rays,
+                    want_step, pre) -> torch.Tensor:
+    """Check and print one CLI run's records (instrumented calls, in
+    order): each step's launches against want_step, the validation
+    renders' (the forward alone, K1 or K5: sigma and transient mode
+    alike); s/step and rays/s of each kind of step from its epochs' wall
+    time less the validation renders and checkpoints in them, the first
+    epoch excluded; the time of each render call. Returns the steps'
+    losses."""
+    steps = [r for r in records if r["step"]]
+    fwd = "K1 field_fwd_pre" if pre else "K5 field_fwd"
+    for r in steps:
+        kind = "patch" if r["name"] == "train_step_patch" else "rays"
+        if r["counts"] != want_step[(pre, kind)]:
+            raise AssertionError(f"{what}: a {kind} step launched "
+                                 f"{r['counts']}, expected "
+                                 f"{want_step[(pre, kind)]}")
+    walls, kinds = [], []
+    epochs = [steps[i:i + per_epoch] for i in range(0, len(steps), per_epoch)]
+    for k, ep in enumerate(epochs):
+        start = ep[0]["t0"]
+        end = epochs[k + 1][0]["t0"] if k + 1 < len(epochs) else t_end
+        inside = sum(r["t1"] - r["t0"] for r in records
+                     if not r["step"] and start <= r["t0"] < end)
+        walls.append(end - start - inside)
+        kinds.append(ep[0]["name"])
+    for name, rays in (("train_step_rays", ray_rays),
+                       ("train_step_patch", patch_rays)):
+        idx = [k for k, kd in enumerate(kinds) if kd == name]
+        if not idx:
+            continue
+        first_run_epoch = idx[0] == 0
+        timed = [k for k in idx if k != 0] or idx
+        n_steps = sum(len(epochs[k]) for k in timed)
+        sps = sum(walls[k] for k in timed) / n_steps
+        note = (f"epochs {idx[0]}-{idx[-1]} of the run" if not
+                first_run_epoch else "the first epoch excluded"
+                if timed != idx else "the run's only epoch, first-call "
+                "costs included")
+        log(f"  {name}: {sum(len(epochs[k]) for k in idx)} steps, "
+            f"{sps:.4f} s/step, {rays / sps:.1f} rays/s ({n_steps} steps, "
+            f"{note}; {rays} rays a step); "
+            + (f"first epoch {walls[0]:.3f} s; " if first_run_epoch else "")
+            + f"launches a step {steps[[r['name'] for r in steps].index(name)]['counts']}")
+    for r in records:
+        if r["step"]:
+            continue
+        c = r["counts"]
+        if r["name"] == "save_checkpoint":
+            if c:
+                raise AssertionError(f"a checkpoint launched {c}")
+            continue
+        trans = c.get(f"{fwd} transient", 0)
+        if set(c) - {fwd, f"{fwd} transient"} or not (
+                trans > 0 and c.get(fwd) == 2 * trans):
+            raise AssertionError(f"{what}: {r['name']} launched {c}")
+        log(f"  {r['name']}: {r['t1'] - r['t0']:.3f} s, launches {c}")
+    losses = torch.stack([r["loss"] for r in steps]).float().cpu() \
+        if steps else torch.zeros(0)
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"{what}: non-finite loss")
+    if len(losses):
+        log(f"  losses: first {[round(float(x), 5) for x in losses[:4]]}, "
+            f"last {[round(float(x), 5) for x in losses[-4:]]}")
+    return losses
+
+
+def check_cli_args(exp_dir: Path, keys: set) -> None:
+    """args.txt holds one `key = value` line for each option: the JAX
+    CLI's and the port's `device` (tests/test_torch_train_cli.py holds the
+    set to the JAX CLI's on the CPU)."""
+    got = {line.split(" = ")[0]
+           for line in (exp_dir / "args.txt").read_text().splitlines()}
+    if got != keys:
+        raise AssertionError(f"args.txt keys {sorted(got ^ keys)} differ")
+
+
+def check_cli_run(exp_dir: Path, epochs, ckpt_epochs) -> None:
+    """metrics.jsonl holds a line for each epoch with the JAX CLI's keys at
+    its stage and a finite loss; ckpts/ the checkpoints of ckpt_epochs,
+    the last loadable with its train state."""
+    lines = [json.loads(x) for x in
+             (exp_dir / "metrics.jsonl").read_text().splitlines()]
+    if [r["epoch"] for r in lines] != list(epochs):
+        raise AssertionError(f"metrics.jsonl epochs "
+                             f"{[r['epoch'] for r in lines]}")
+    for r in lines:
+        if set(r) != CLI_METRIC_KEYS[r["stage"]] or not np.isfinite(
+                r["loss"]):
+            raise AssertionError(f"metrics.jsonl line {r}")
+    names = sorted(p.name for p in (exp_dir / "ckpts").glob("*")) \
+        if (exp_dir / "ckpts").is_dir() else []
+    if names != [f"epoch_{e:06d}.pt" for e in ckpt_epochs]:
+        raise AssertionError(f"checkpoints {names}")
+    if names:
+        ck = torch.load(exp_dir / "ckpts" / names[-1], map_location="cpu",
+                        weights_only=True)
+        if set(ck) != {"model", "optimizer", "epoch"} or \
+                ck["epoch"] != ckpt_epochs[-1] + 1:
+            raise AssertionError(f"checkpoint {names[-1]}: {sorted(ck)}")
+    log(f"  {exp_dir.name}: args.txt, metrics.jsonl ({len(lines)} lines, "
+        f"stages {sorted({r['stage'] for r in lines})}), checkpoints "
+        f"{names} well formed")
+
+
+def check_evaluate(exp_dir: Path, step: int, Image) -> None:
+    """The validation renders' PNGs of each split: render and ground truth
+    at the full image size, disparity at the render size, the feature
+    saliency grids; every file readable."""
+    for split, views in (("train", 1), ("val", SERVE_FRAMES)):
+        d = exp_dir / f"evaluate_{split}_{step:06d}"
+        want = {f"{i:03d}{suf}.png" for i in range(views)
+                for suf in ("", "_GT", "_disp", "_feature", "_feature_gt")}
+        got = {p.name for p in d.iterdir()} if d.is_dir() else set()
+        if got != want:
+            raise AssertionError(f"{d}: {sorted(got ^ want)}")
+        for name in want:
+            with Image.open(d / name) as im:
+                im.load()
+                size = im.size
+            full = len(name) == 7 or name.endswith("_GT.png")
+            if (full and size != (4 * W, 4 * H)
+                    or name.endswith("_disp.png") and size != (W, H)):
+                raise AssertionError(f"{d / name}: {size}")
+    log(f"  {exp_dir.name}: evaluate_{{train,val}}_{step:06d}: 1 + "
+        f"{SERVE_FRAMES} views of PNGs well formed")
 
 
 def write_7scenes_fixture(root: Path, n_test: int, n_train: int = 2,

@@ -34,14 +34,10 @@ import numpy as np
 import torch
 
 from nefes_tpu_torch.cli.options import options_from_cli
-from nefes_tpu_torch.cli.train import build_model, build_scene
+from nefes_tpu_torch.cli.train import build_model, build_scene, load_dfnet
 from nefes_tpu_torch.evaluation import pose_errors, save_pose_txt, summarize
-from nefes_tpu_torch.features import (
-    DFNet, extract_target_features, load_apr,
-)
-from nefes_tpu_torch.features.convert import (
-    convert_dfnet, convert_nefes_checkpoint, load_torch_state_dict,
-)
+from nefes_tpu_torch.features import extract_target_features, load_apr
+from nefes_tpu_torch.features.convert import convert_nefes_checkpoint
 from nefes_tpu_torch.refine import (
     RefineConfig, apply_verification, apr_poses_batched, refine_apr_batch,
     refine_apr_verified, refine_apr_verified_scanned, refine_pose_indexed,
@@ -72,16 +68,6 @@ def load_field_weights(opts, model) -> None:
         restore_checkpoint(opts.ft_path, create_train_state(model))
     else:
         print("WARNING: no ft_path — random field (smoke mode)")
-
-
-def load_dfnet(path: str, opts, dev, seed: int) -> DFNet:
-    """DFNet in f32 from a reference checkpoint, or seeded random weights
-    when path is empty."""
-    dfnet = DFNet(output_dim=opts.feature_dim, device=dev,
-                  generator=torch.Generator().manual_seed(seed))
-    if path:
-        dfnet.load_state_dict(convert_dfnet(load_torch_state_dict(path)))
-    return dfnet.requires_grad_(False)
 
 
 def nearest_upsample(masks: torch.Tensor, H: int, W: int) -> torch.Tensor:

@@ -12,6 +12,12 @@ dict). With ``cfg.fused`` and not ``cfg.fused_pre`` nothing is embedded
 here: the raw-input kernel fns take the points and directions
 (NeFeSModel.coarse_raw_fn / fine_raw_fn: ``fn(pts, dirs, sigma_only,
 output_transient)``; fine_render_raw_fn: ``fn(pts, viewdirs, z)``).
+
+``window`` is the Nerfies coarse-to-fine pair (xyz_window, dir_window) of
+reduce_embedding=2 (fields/embedder.py:train_windows), applied where the
+points and directions are embedded here. The raw-input kernels embed
+inside the kernel and cannot apply it: a window on that path raises (the
+JAX package's raw path drops it, ROADMAP Queue C).
 """
 
 from __future__ import annotations
@@ -75,30 +81,37 @@ FieldFn = Callable[..., dict]
 
 
 def _query(field_fn: FieldFn, pts: torch.Tensor, viewdirs: torch.Tensor,
-           cfg: RenderConfig, sigma_only: bool,
-           output_transient: bool) -> dict:
-    """Embed sample points (and directions) over the (R, S) grid and apply
-    the field; the raw-input kernel fns (fused, not fused_pre) embed
-    themselves and take the points and directions."""
+           cfg: RenderConfig, sigma_only: bool, output_transient: bool,
+           window=None) -> dict:
+    """Embed sample points (and directions) over the (R, S) grid, under
+    the window when given, and apply the field; the raw-input kernel fns
+    (fused, not fused_pre) embed themselves and take the points and
+    directions."""
     if cfg.fused and not cfg.fused_pre:
         dirs = None if sigma_only else viewdirs[..., None, :].expand(
             pts.shape)
         return field_fn(pts, dirs, sigma_only, output_transient)
+    w_xyz, w_dir = window if window is not None else (None, None)
     ed = _DTYPES[cfg.embed_dtype]
-    xyz_emb = embed(pts, cfg.xyz_embed).to(ed)
+    xyz_emb = embed(pts, cfg.xyz_embed, w_xyz).to(ed)
     if sigma_only:
         return field_fn(xyz_emb, None, True, False)
     dirs = viewdirs[..., None, :].expand(pts.shape)
-    dir_emb = embed(dirs, cfg.dir_embed).to(ed)
+    dir_emb = embed(dirs, cfg.dir_embed, w_dir).to(ed)
     return field_fn(xyz_emb, dir_emb, False, output_transient)
 
 
 def render_rays(coarse_fn: FieldFn, fine_fn: FieldFn | None,
                 rays_o: torch.Tensor, rays_d: torch.Tensor, near, far,
                 rng: torch.Generator | None, cfg: RenderConfig,
-                remat: bool = True) -> dict:
+                remat: bool = True, window=None) -> dict:
     """Render a batch of rays (R, 3). Returns rgb/feat/disp/acc/depth, plus
-    the coarse outputs and the transient terms at train time."""
+    the coarse outputs and the transient terms at train time. window:
+    the Nerfies pair (xyz_window, dir_window) or None."""
+    if window is not None and cfg.fused and not cfg.fused_pre:
+        raise ValueError("the raw-input kernels embed inside the kernel "
+                         "and cannot apply the Nerfies window: render a "
+                         "window through fused_pre (K1/K2) or unfused")
     n_rays = rays_o.shape[0]
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     z_vals = stratified_samples(rng, n_rays, cfg.n_samples, near, far,
@@ -117,7 +130,7 @@ def render_rays(coarse_fn: FieldFn, fine_fn: FieldFn | None,
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and not coarse_sigma_only):
         raw_c = query(coarse_fn, pts, viewdirs, cfg, coarse_sigma_only,
-                      False)
+                      False, window)
         out_c = composite(raw_c, z_vals, raw_noise_std=cfg.raw_noise_std,
                           noise_rng=rng, output_transient=False,
                           white_bkgd=cfg.white_bkgd, test_time=cfg.test_time,
@@ -135,16 +148,18 @@ def render_rays(coarse_fn: FieldFn, fine_fn: FieldFn | None,
             raise ValueError("fused_render covers the refinement render "
                              "only (test_time, no transient heads)")
         if cfg.fused_pre:
+            w_xyz, w_dir = window if window is not None else (None, None)
             ed = _DTYPES[cfg.embed_dtype]
-            xyz_emb = embed(pts_f, cfg.xyz_embed).to(ed)
+            xyz_emb = embed(pts_f, cfg.xyz_embed, w_xyz).to(ed)
             dirs_f = viewdirs[..., None, :].expand(pts_f.shape)
-            dir_emb = embed(dirs_f, cfg.dir_embed).to(ed)
+            dir_emb = embed(dirs_f, cfg.dir_embed, w_dir).to(ed)
             out_f = fine_fn(xyz_emb, dir_emb, z_vals_f)
         else:
             out_f = fine_fn(pts_f, viewdirs, z_vals_f)
         return {k: out_f[k] for k in ("rgb", "feat", "disp", "acc", "depth")}
 
-    raw_f = query(fine_fn, pts_f, viewdirs, cfg, False, cfg.output_transient)
+    raw_f = query(fine_fn, pts_f, viewdirs, cfg, False, cfg.output_transient,
+                  window)
     out_f = composite(raw_f, z_vals_f, raw_noise_std=cfg.raw_noise_std,
                       noise_rng=rng, output_transient=cfg.output_transient,
                       beta_min=cfg.beta_min, white_bkgd=cfg.white_bkgd,
@@ -170,22 +185,23 @@ def render_image(coarse_fn: FieldFn, fine_fn: FieldFn | None, H: int,
                  W: int, focal: float, c2w: torch.Tensor, near: float,
                  far: float, cfg: RenderConfig,
                  rng: torch.Generator | None = None,
-                 block_rays: int = 0) -> dict:
+                 block_rays: int = 0, window=None) -> dict:
     """Render an H×W image from a (3, 4) pose. block_rays > 0 renders in
     blocks of that many rays to bound peak memory; 0 renders all rays at
-    once."""
+    once. window as render_rays'."""
     rays_o, rays_d = get_rays(H, W, focal, c2w)
     rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
     n = rays_o.shape[0]
     if block_rays and n > block_rays:
         parts = [render_rays(coarse_fn, fine_fn, rays_o[i:i + block_rays],
-                             rays_d[i:i + block_rays], near, far, rng, cfg)
+                             rays_d[i:i + block_rays], near, far, rng, cfg,
+                             window=window)
                  for i in range(0, n, block_rays)]
         out = {k: (torch.cat([p[k] for p in parts])
                    if parts[0][k] is not None else None) for k in parts[0]}
     else:
         out = render_rays(coarse_fn, fine_fn, rays_o, rays_d, near, far, rng,
-                          cfg)
+                          cfg, window=window)
     return {k: (v.reshape(H, W, *v.shape[1:])
                 if k in _IMAGE_KEYS and v is not None else v)
             for k, v in out.items()}

@@ -21,6 +21,11 @@ pre-embedded K1/K2, the fine pass in transient mode when the transient
 heads are on. Training needs cfg.fused_need_dw and cannot take
 cfg.fused_render (the frozen-field refinement render).
 
+Both steps take the Nerfies window of reduce_embedding=2 (embedded here,
+so through the plain fields or K1/K2; the raw-input kernels refuse it),
+and the random-ray step the auxiliary terms of AuxConfig: TV on density,
+Cauchy and mean sigma sparsity, the DPT depth term.
+
 Stage semantics (run_nefes.py:34-40): schedule 1 runs stage 0 (colour
 only) for every epoch; schedule 2 runs stage 1 (colour + features) until
 EPOCH_TO_FUSION, then stage 2 (+ fusion, patch sampling).
@@ -32,8 +37,13 @@ from dataclasses import dataclass
 
 import torch
 
+from nefes_tpu_torch.fields.embedder import embed
 from nefes_tpu_torch.geometry.rays import get_ray_at
 from nefes_tpu_torch.render.renderer import RenderConfig, render_rays
+from nefes_tpu_torch.train.aux_losses import (
+    compute_depth_loss, sigma_sparsity_loss, sigma_sparsity_loss2,
+    total_variation_loss,
+)
 from nefes_tpu_torch.train.losses import nefes_training_loss, psnr
 from nefes_tpu_torch.train.model import NeFeSModel
 
@@ -44,19 +54,30 @@ CROP_SIZE = 16          # run_nefes.py:88
 
 @dataclass(frozen=True)
 class AuxConfig:
-    """Auxiliary regularizer switches (reference options.py:52-55, 78-79),
-    the JAX package's AuxConfig. None of these terms is ported yet: a
-    step given one raises (ROADMAP, Queue A item 9)."""
+    """Auxiliary regularizer switches (reference options.py:52-55, 78-79;
+    the math in train/aux_losses.py)."""
 
     tvloss: bool = False
     tvloss_w: float = 1e-6
-    l1normloss: bool = False
+    l1normloss: bool = False        # hash-grid tables only
     l1normloss_w: float = 1e-6
     sigma_sparsity: bool = False
     sigma_sparsity2: bool = False
-    bound: float = 4.0
+    bound: float = 4.0              # world box half-side of the TV cube
+    # DPT mono-depth supervision (reference --depth, options.py:61; the
+    # loss is losses.py:175-191, whose call site is dead code in the
+    # reference scripts, so the 0.1 weight is the JAX package's choice)
     depth: bool = False
     depth_w: float = 0.1
+
+    @classmethod
+    def from_options(cls, opts, far: float) -> "AuxConfig":
+        return cls(tvloss=opts.tvloss, tvloss_w=opts.tvloss_w,
+                   l1normloss=opts.l1normloss,
+                   l1normloss_w=opts.l1normloss_w,
+                   sigma_sparsity=opts.sigma_sparsity_loss,
+                   sigma_sparsity2=opts.sigma_sparsity_loss2,
+                   depth=opts.depth_loss, bound=float(far))
 
     @property
     def any_on(self) -> bool:
@@ -64,15 +85,40 @@ class AuxConfig:
                 or self.sigma_sparsity2)
 
 
-def _check_ported(aux: AuxConfig, window) -> None:
-    if aux.any_on or aux.depth:
-        raise NotImplementedError(
-            "the auxiliary losses (TV, sigma sparsity, hash-grid L1, depth) "
-            "are not ported (ROADMAP, Queue A item 9)")
-    if window is not None:
-        raise NotImplementedError(
-            "the Nerfies coarse-to-fine window is not ported (ROADMAP, "
-            "Queue A item 9)")
+# the TV cube of the training step: 6³ points at a 64³ grid of the box
+TV_RESOLUTION = (64, 64, 64)
+
+
+def aux_regularizers(aux: AuxConfig, model: NeFeSModel, out: dict,
+                     cfg: RenderConfig, gen: torch.Generator | None = None,
+                     tv_corners=None) -> torch.Tensor:
+    """Sum of the enabled aux terms. TV samples the plain coarse and fine
+    densities over a sub-cube of [-bound, bound]³ (the reference's
+    normalised hash domain, losses.py:226-265) with corners tv_corners,
+    drawn from gen when None; sparsity acts on the batch's raw fine
+    sigmas (out["static_sigmas"], the kernels' too)."""
+    if aux.l1normloss:
+        raise ValueError("l1normloss regularises hash-grid tables; the "
+                         "NeRFH-NFF field has none (the CLI drops the flag "
+                         "for it)")
+    loss = torch.zeros((), device=out["rgb"].device)
+    if aux.tvloss:
+        dev = next(model.parameters()).device
+
+        def density(fn):
+            def sigma(x01):
+                xyz = ((x01 * 2.0 - 1.0) * aux.bound).to(dev)
+                return fn(embed(xyz, cfg.xyz_embed), None, True,
+                          False)["static_sigma"]
+            return sigma
+        loss = loss + aux.tvloss_w * total_variation_loss(
+            density(model.coarse_fn), density(model.fine_fn), tv_corners,
+            gen, sample_resolution=TV_RESOLUTION)
+    if aux.sigma_sparsity:
+        loss = loss + torch.mean(sigma_sparsity_loss(out["static_sigmas"]))
+    if aux.sigma_sparsity2:
+        loss = loss + sigma_sparsity_loss2(out["static_sigmas"])
+    return loss
 
 
 def stage_for_epoch(new_schedule: int, epoch: int) -> int:
@@ -203,7 +249,7 @@ def _field_fns(model: NeFeSModel, cfg: RenderConfig):
 
 
 def _render_selected(model: NeFeSModel, cfg: RenderConfig, poses, px, py,
-                     H, W, focal, near, far, gen) -> dict:
+                     H, W, focal, near, far, gen, window=None) -> dict:
     """Render the rays at per-image pixel coordinates px, py (B, N) under
     poses (B, 3, 4), all B·N rays in one render_rays (so one launch per
     field pass). Returns the train render dict with (B, N, ...) leaves."""
@@ -211,7 +257,7 @@ def _render_selected(model: NeFeSModel, cfg: RenderConfig, poses, px, py,
     ro, rd = get_ray_at(px, py, focal, H, W, poses)
     B, N = px.shape
     out = render_rays(coarse_fn, fine_fn, ro.reshape(-1, 3),
-                      rd.reshape(-1, 3), near, far, gen, cfg)
+                      rd.reshape(-1, 3), near, far, gen, cfg, window=window)
     return {k: (None if v is None else v.reshape(B, N, *v.shape[1:]))
             for k, v in out.items()}
 
@@ -225,29 +271,43 @@ def _finalize_rgb(model: NeFeSModel, out: dict, hists) -> dict:
 
 def rays_loss(model: NeFeSModel, cfg: RenderConfig, batch: dict,
               idx: torch.Tensor, gen, hwf: tuple, near: float, far: float,
-              stage: int = 0):
+              stage: int = 0, aux: AuxConfig = AuxConfig(), window=None,
+              tv_corners=None):
     """The random-ray step's loss at the selected pixels idx (B, N) (flat
-    indices into H·W): (loss, metrics)."""
+    indices into H·W): (loss, metrics). aux's terms are added (the TV
+    cube at tv_corners, drawn from gen when None; the depth term against
+    batch["depth"] (B, H, W) where aux.depth and the batch has it);
+    window is the Nerfies pair or None."""
     H, W, focal = hwf
     px, py = (idx % W).float(), torch.div(idx, W,
                                           rounding_mode="floor").float()
     target_rgb = _gather(batch["rgb"], idx)
     target_feat = _gather(batch["feat"], idx) if stage >= 1 else None
+    target_depth = (_gather(batch["depth"], idx)[..., 0]
+                    if aux.depth and "depth" in batch else None)
     out = _render_selected(model, cfg, batch["poses"], px, py, H, W, focal,
-                           near, far, gen)
+                           near, far, gen, window)
     out = _finalize_rgb(model, out, batch["hists"])
     loss, metrics = nefes_training_loss(out, target_rgb, target_feat,
                                         fusion_out=None, stage=min(stage, 1))
+    if aux.any_on:
+        loss = loss + aux_regularizers(aux, model, out, cfg, gen,
+                                       tv_corners)
+    if target_depth is not None:
+        loss_d = compute_depth_loss(out["depth"], target_depth)
+        loss = loss + aux.depth_w * loss_d
+        metrics["loss_depth"] = loss_d
     metrics["psnr"] = psnr(out["rgb"], target_rgb)
     return loss, metrics
 
 
 def patch_loss(model: NeFeSModel, cfg: RenderConfig, batch: dict,
                h0: torch.Tensor, w0: torch.Tensor, gen, hwf: tuple,
-               near: float, far: float):
+               near: float, far: float, window=None):
     """The stage-2 step's loss on the NUM_CROPS patches with top-left
     corners (h0, w0) (NUM_CROPS,), the same in every image: (loss,
-    metrics, FusionNet's new running statistics | None)."""
+    metrics, FusionNet's new running statistics | None). window is the
+    Nerfies pair or None."""
     H, W, focal = hwf
     B = batch["poses"].shape[0]
     ar = torch.arange(CROP_SIZE, device=h0.device)
@@ -263,7 +323,7 @@ def patch_loss(model: NeFeSModel, cfg: RenderConfig, batch: dict,
     patch_mask = _gather(mask, idx)[..., 0] if mask is not None else None
     out = _render_selected(model, cfg, batch["poses"],
                            px.float().expand(B, -1), py.float().expand(B, -1),
-                           H, W, focal, near, far, gen)
+                           H, W, focal, near, far, gen, window)
     out = _finalize_rgb(model, out, batch["hists"])
 
     def as_img(x):
@@ -299,10 +359,10 @@ def train_step_rays(state: TrainState, cfg: RenderConfig, batch: dict,
                     window=None):
     """One random-ray step. batch: rgb (B, H, W, 3) at render scale,
     poses (B, 3, 4), hists (B, bins), feat (B, H, W, F) from stage 1,
-    mask (B, H, W) optional. `gen` draws the pixels and the renderer's
-    noise. Returns (state, loss, metrics); the state is updated in
-    place."""
-    _check_ported(aux, window)
+    mask (B, H, W) optional, depth (B, H, W) for aux.depth. `gen` draws
+    the pixels, the renderer's noise and the TV cube. window: the
+    Nerfies pair (xyz_window, dir_window) of reduce_embedding=2 or None.
+    Returns (state, loss, metrics); the state is updated in place."""
     H, W, _ = hwf
     poses = batch["poses"]
     mask = batch.get("mask")
@@ -310,7 +370,7 @@ def train_step_rays(state: TrainState, cfg: RenderConfig, batch: dict,
         mask = torch.ones((poses.shape[0], H, W), device=poses.device)
     idx = _select_ray_pixels(gen, n_rand, H, W, mask)
     loss, metrics = rays_loss(state.model, cfg, batch, idx, gen, hwf, near,
-                              far, stage)
+                              far, stage, aux, window)
     apply_gradients(state, loss, lr)
     return (state, *_detached(loss, metrics))
 
@@ -322,13 +382,12 @@ def train_step_patch(state: TrainState, cfg: RenderConfig, batch: dict,
     corners for every image, run_nefes.py:85-94), rendered and fused.
     FusionNet's running statistics take the batch's (flax momentum 0.9).
     Returns (state, loss, metrics); the state is updated in place."""
-    _check_ported(AuxConfig(), window)
     H, W, _ = hwf
     dev = batch["poses"].device
     corners = [torch.randint(0, n - CROP_SIZE, (NUM_CROPS,), generator=gen,
                              device=gen.device).to(dev) for n in (H, W)]
     loss, metrics, new_stats = patch_loss(state.model, cfg, batch, *corners,
-                                          gen, hwf, near, far)
+                                          gen, hwf, near, far, window)
     apply_gradients(state, loss, lr)
     if new_stats is not None:
         bn = state.model.fusion.bn

@@ -20,7 +20,9 @@ wrappers run their plain versions.
    momentum 0.9, biased variance) to 1e-5 relative.
 3. The small pieces: pixel selection under a mask, the schedule, the
    optax-style global-norm clip, a checkpoint round trip, the refused
-   options, the synthetic scene and histograms against the JAX package.
+   options (a window on the raw-input kernels, kernels without weight
+   gradients, the refinement's fused render), the synthetic scene and
+   histograms against the JAX package.
 4. End to end: the stage-0 loss falls over 30 steps on the port's
    synthetic scene, and stage-1 steps take its rendered features, as
    tests/test_training_e2e.py shows for the JAX one.
@@ -44,8 +46,9 @@ from nefes_tpu_torch.data.histograms import luminance_histogram
 from nefes_tpu_torch.data.synthetic import (
     blob_field, look_at_pose, make_synthetic_scene, render_gt_features,
 )
+from nefes_tpu_torch.fields.embedder import train_windows
 from nefes_tpu_torch.train import (
-    AuxConfig, create_train_state, latest_checkpoint, lr_for_epoch,
+    create_train_state, latest_checkpoint, lr_for_epoch,
     patch_loss, rays_loss, restore_checkpoint, save_checkpoint,
     stage_for_epoch, train_step_patch, train_step_rays,
 )
@@ -276,9 +279,10 @@ def test_patch_step_matches_jax(setup, ref):
 
 
 def test_train_steps_apply_bn_stats_and_refuse_unported(setup):
-    """train_step_patch applies the new running statistics; the options
-    not ported (aux terms, the Nerfies window) and those that would drop
-    the fields' weight gradients raise."""
+    """train_step_patch applies the new running statistics; a Nerfies
+    window on the raw-input kernels (which embed inside and cannot apply
+    it) and the options that would drop the fields' weight gradients
+    raise."""
     _, tcfg, _, trc, batch = setup
     tmodel = NeFeSModel(tcfg, device="cpu",
                         generator=torch.Generator().manual_seed(0))
@@ -290,10 +294,10 @@ def test_train_steps_apply_bn_stats_and_refuse_unported(setup):
     assert torch.isfinite(loss)
     assert not torch.equal(tmodel.fusion.bn.running_mean, mean0)
     args = (st, trc, tb, gen, LR, (H, W, FOCAL), NEAR, FAR)
-    with pytest.raises(NotImplementedError):
-        train_step_rays(*args, n_rand=8, aux=AuxConfig(tvloss=True))
-    with pytest.raises(NotImplementedError):
-        train_step_rays(*args, n_rand=8, window=(1.0, 1.0))
+    window = train_windows(1.0, tcfg.xyz_embed, tcfg.dir_embed, 2.0)
+    raw = replace(trc, fused=True, fused_pre=False, fused_need_dw=True)
+    with pytest.raises(ValueError, match="window"):
+        train_step_rays(st, raw, *args[2:], n_rand=8, window=window)
     for bad in (dict(fused=True, fused_need_dw=False),
                 dict(fused=True, fused_render=True)):
         with pytest.raises(ValueError):
