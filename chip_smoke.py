@@ -1,7 +1,7 @@
 """On-card smoke run of nefes_tpu_torch on one NVIDIA GPU (written for the
 H100: the kernels build for sm_90a).
 
-    python3 chip_smoke.py [--phases build,check,mode3,mode2,apr,paths,serve,train,traincli,time,micro,probe,profile]
+    python3 chip_smoke.py [--phases build,check,mode3,mode2,apr,paths,serve,train,traincli,zoo,time,micro,probe,profile]
         [--parent DIR]
 
 Phases:
@@ -50,7 +50,10 @@ Phases:
          verification's decision, launch counts and peak memory; then
          one timed frame through the pre-embedded kernels (K1, K3, K4);
          the captured loop on the raw kernels in turns with the eager one,
-         as mode 3's, and the verification's choice the same
+         as mode 3's, and the verification's choice the same; then the
+         same turns with DFNet in bf16 (the CLI's --apr_compute_dtype
+         bfloat16; without svd_reg, cuDNN's deterministic algorithms),
+         bit for bit the same, s/frame beside the f32 DFNet's
   apr    mode 2 with each APR of the zoo (PoseNet, PoseNetV2,
          EfficientNetB3, MapNet, MsTransformer; f32, seeded random weights
          aimed as DFNet is, no svd_reg, PoseNetV2 on batch BN
@@ -75,9 +78,9 @@ Phases:
          PNGs, splits, pose txts, COLMAP tables, world setup) in mode 3
          and mode 2 at the defaults (df 2, tinyscale 4: 60x80 rays, 64+64
          samples, NeFeS D8/W128/F128 bf16, DFNet f32, 50 iterations, seeded
-         random weights), then with --PoseEstimatorType MsTransformer in
-         mode 2 and PoseNet in mode 3, every frame through the captured
-         loop: s/frame,
+         random weights), mode 2 with --apr_compute_dtype bfloat16, then
+         with --PoseEstimatorType MsTransformer in mode 2 and PoseNet in
+         mode 3, every frame through the captured loop: s/frame,
          summary, peak memory, the kernels it ran and how often; the pose
          txt 8 x 12 finite and the evaluate CLI's medians the CLI's own
   train  field training at full width (NeFeS D8/W128/F128 in bf16, stage
@@ -108,6 +111,17 @@ Phases:
          args.txt, metrics.jsonl (the JAX CLI's keys), the checkpoints,
          the evaluate_* PNGs and the spiral mp4 (8 frames) read back;
          finite losses, stage 0's falling
+  zoo    the field zoo through the training CLI at its full defaults
+         (D8/W128, 16 hash levels of 2^19 rows, bound 25, N_vocab 1000,
+         f32, 4 images x 1536 rays of 60x80 renders, 64+64 samples, stage
+         1, seeded random weights) on the traincli fixture: --tcnn with
+         --l1normloss, --sh_nff, --ffmlp, --nerfh_nff False and --NeRFW
+         False for ZOO_EPOCHS epochs each, the hash run resumed from its
+         checkpoint, --render_test on the NeRF-W run; s/step, rays/s, peak
+         memory, the loss falling, no kernel launched (the zoo runs plain
+         PyTorch, as the JAX package runs it outside Pallas); then each
+         kind's first step on the card against the CPU's from the same
+         weights (the loss, every gradient, the parameters after Adam)
   time   each kernel's time (CUDA events, median) beside its bound, its
          plain version's time and a bf16 torch.matmul chain over the same
          tower as a yardstick; the training variants at the fine training
@@ -136,9 +150,10 @@ Phases:
          every tile and width (relative L2; K11 bit for bit; K10 equal to
          K9)
   probe  the probe's kernel (K5/K6 against the plain field in f32 and
-         bf16, K7/K8 against the plain fine pass and compositor) and perf
+         bf16, K7/K8 against the plain fine pass and compositor), perf
          (the pieces of a mode-3 iteration through K1, K3, K4; one timed
-         50-iteration refine) commands once
+         50-iteration refine) and mode2 (DFNet in f32 against bf16 in
+         turns through K5, K7, K8: s/frame, final loss) commands once
   profile torch.profiler over 3 train_raw steps and 5 iterations of mode 3
          and mode 2, eager and captured: the device's busy share of the
          wall time, device time per kernel
@@ -190,6 +205,9 @@ CAPTURED_POSE_TOL = 1e-4
 # carry such differences to the weights.
 ZOO = ("PoseNet", "PoseNetV2", "EfficientNetB3", "MapNet", "MsTransformer")
 APR_POSE_TOL = 1e-3
+# the mode-2 DFNet computing in bf16 (--apr_compute_dtype bfloat16), an
+# APR "kind" of the mode2 phase's bf16 turns
+BF16_DFNET = "DFNet-bf16"
 # The train phase: B images x N_rand rays per step (bench.py's
 # train_throughput leg), timed steps, and the parameters of the three
 # paths after PATH_STEPS steps from one state, relative L2 ||p_path -
@@ -212,6 +230,17 @@ CLI_METRIC_KEYS = {0: {"epoch", "stage", "loss", "wall_s", "loss_rgb",
                        "psnr"}}
 CLI_METRIC_KEYS[1] = CLI_METRIC_KEYS[0] | {"loss_feat"}
 CLI_METRIC_KEYS[2] = CLI_METRIC_KEYS[1] | {"loss_fusion"}
+# The zoo phase: epochs of each run (the training CLI's 8-frame fixture:
+# 2 steps an epoch), rays an image of the card-against-CPU first step (a
+# third of the CLI's 1536: the CPU's step takes seconds a kind), and its
+# tolerance (zoo_step_compare): within ZOO_JITTER_X times how far the
+# CPU's own step moves when the poses move by one rounding, or the floor:
+# ZOO_STEP_TOL for the loss and the parameters after the step,
+# ZOO_GRAD_TOL for each gradient (the hash tables' rows each sum up to
+# ~1e5 contributions in the card's unordered scatter: 2.3e-4 to 2.2e-3
+# relative L2 on an H100 80GB HBM3 at 700 W; PERF.md)
+ZOO_EPOCHS, ZOO_CHECK_RAYS, ZOO_JITTER_X = 3, 512, 10.0
+ZOO_STEP_TOL, ZOO_GRAD_TOL = 1e-5, 1e-2
 # Mode 2: the query at 7-Scenes H/2, rendered at a quarter of that
 IMG_H, IMG_W, FOCAL_FULL = 4 * H, 4 * W, 4 * FOCAL
 # The probe phase: K5's bf16 max-abs error from the plain f32 field within
@@ -275,6 +304,12 @@ KERNELS = {
 }
 
 
+def dfnet_dtype(kind: str) -> str:
+    """The compute dtype of the mode-2 DFNet of an APR kind of the smoke
+    run: BF16_DFNET is the bf16 one."""
+    return "bfloat16" if kind == BF16_DFNET else "float32"
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -283,7 +318,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="build,check,mode3,mode2,apr,paths,serve,"
-                    "train,traincli,time,micro,probe,profile")
+                    "train,traincli,zoo,time,micro,probe,profile")
     ap.add_argument("--parent", default=None,
                     help="an earlier tree whose K1, K5 and render kernels "
                     "the time phase times beside this tree's")
@@ -890,13 +925,16 @@ def main() -> int:
                                replace_cfg(rcfg, opt_iter=iters))))
         return refined, losses.cpu(), dt, counts
 
-    def mode2_inputs():
-        """The f32 DFNet (seed 1), aimed at the scene: fc_pose's weight
-        scaled down and its bias the perturbed start pose of mode 3, so
-        the first render sees what mode 3's does; the query, 240x320
+    def mode2_inputs(dtype="float32"):
+        """The DFNet (seed 1) computing in dtype (f32, or bf16: the CLI's
+        --apr_compute_dtype bfloat16), aimed at the scene: fc_pose's
+        weight scaled down and its bias the perturbed start pose of mode
+        3, so the first render sees what mode 3's does; the query, 240x320
         noise (seed 3); its level-0 target features at full size."""
-        if "mode2_inputs" not in state:
-            dfnet = DFNet(output_dim=model.cfg.feature_dim, device=dev,
+        key = f"mode2_inputs_{dtype}"
+        if key not in state:
+            dfnet = DFNet(output_dim=model.cfg.feature_dim,
+                          dtype=kf._DTYPES[dtype], device=dev,
                           generator=torch.Generator().manual_seed(1))
             dfnet.requires_grad_(False)
             with torch.no_grad():
@@ -907,8 +945,8 @@ def main() -> int:
                                    ).to(dev)
                 target2 = extract_target_features(dfnet, image[None], IMG_H,
                                                   IMG_W)[0]
-            state["mode2_inputs"] = (dfnet, image, target2)
-        return state["mode2_inputs"]
+            state[key] = (dfnet, image, target2)
+        return state[key]
 
     def apr_of(kind):
         """The APR of a kind and its refinement options: DFNet (the
@@ -923,6 +961,11 @@ def main() -> int:
         dfnet = mode2_inputs()[0]
         if kind == "DFNet":
             return dfnet, {}
+        if kind == BF16_DFNET:
+            # without svd_reg the eager and the captured loop do the same
+            # arithmetic (with it the captured loop runs the polar
+            # iteration, the eager one the SVD)
+            return mode2_inputs("bfloat16")[0], dict(svd_reg=False)
         if kind not in state.setdefault("aprs", {}):
             from nefes_tpu_torch.features import load_apr
             apr, _ = load_apr(kind, None, (IMG_H, IMG_W),
@@ -933,7 +976,7 @@ def main() -> int:
                                          freeze_bn=kind != "PoseNetV2")
 
     def refine2(cfg_name, iters, kind="DFNet"):
-        _, image, target2 = mode2_inputs()
+        _, image, target2 = mode2_inputs(dfnet_dtype(kind))
         apr, kw = apr_of(kind)
         out, dt, counts = counted(cfg_name, lambda: refine_apr_single(
             model, apr, image, target2, hist, ws_vec, (H, W, FOCAL),
@@ -952,7 +995,7 @@ def main() -> int:
 
     def captured2(cfg_name, iters, kind="DFNet"):
         """refine2 through the captured loop: (out, losses, s)."""
-        _, image, target2 = mode2_inputs()
+        _, image, target2 = mode2_inputs(dfnet_dtype(kind))
         apr, kw = apr_of(kind)
         t0 = time.perf_counter()
         out = refine_apr_captured(
@@ -967,9 +1010,12 @@ def main() -> int:
         (mode 2) APR kind."""
         want = replace_cfg(rcfg if name == "mode3" else rcfg2,
                            opt_iter=iters)
+        apr = apr_of(kind)[0] if name == "mode2" else None
         hits = [lp for lp in graph.loops() if lp.name == name
                 and lp.cfg == cfgs[cfg_name] and lp.rcfg == want
-                and getattr(lp, "apr_kind", "DFNet") == kind]
+                and getattr(lp, "apr_kind", "DFNet") == (
+                    "DFNet" if kind == BF16_DFNET else kind)
+                and (apr is None or lp.dfnet is apr)]
         return hits[0]
 
     def captured_turns(name, cfg_name, eager, captured, pose_key=None,
@@ -1106,8 +1152,43 @@ def main() -> int:
         _, losses_p, dt_p, counts_p = refine2("render_pre", ITERS)
         log(f"mode2 render_pre: {dt_p:.3f} s/frame, launches {counts_p}; "
             f"render_raw / render_pre = {dt / dt_p:.3f}")
-        same_verification(*captured_turns("mode2", "render_raw", refine2,
-                                          captured2, "refined_pose"))
+        runs32 = captured_turns("mode2", "render_raw", refine2, captured2,
+                                "refined_pose")
+        same_verification(*runs32)
+        bf16_dfnet_turns(runs32)
+
+    def bf16_dfnet_turns(runs32):
+        """Mode 2 with the bf16 DFNet (APR and feature extractor, the
+        CLI's --apr_compute_dtype bfloat16), without svd_reg, on cuDNN's
+        deterministic algorithms: the eager and the captured loop in
+        turns, bit for bit the same; s/frame beside the f32 DFNet's."""
+        torch.backends.cudnn.deterministic = True
+        try:
+            refine2("render_raw", 2, BF16_DFNET)     # warm: cuDNN's set-up
+            eager, captured = captured_turns(
+                "mode2", "render_raw", lambda c, i: refine2(c, i, BF16_DFNET),
+                lambda c, i: captured2(c, i, BF16_DFNET), "refined_pose",
+                BF16_DFNET)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        for (oe, le, _), (oc, lc, _) in zip(eager, captured):
+            if not (torch.isfinite(le).all() and torch.equal(le, lc)
+                    and torch.equal(oe["refined_pose"], oc["refined_pose"])):
+                raise AssertionError("bf16 DFNet: the captured loop is not "
+                                     "the eager one bit for bit")
+        same_verification(eager, captured)
+        mean = statistics.mean
+        t = {f"{dt} {kind}": mean(r[2] for r in runs[kind])
+             for dt, runs in (("f32", dict(zip(("eager", "captured"),
+                                               runs32))),
+                              ("bf16", dict(eager=eager, captured=captured)))
+             for kind in ("eager", "captured")}
+        log(f"mode2 DFNet bf16 against f32 (svd_reg off in bf16, on in "
+            f"f32): " + ", ".join(f"{k} {v:.4f} s/frame" for k, v in
+                                  t.items())
+            + f"; bf16 / f32 captured = "
+            f"{t['bf16 captured'] / t['f32 captured']:.4f}; final loss "
+            f"bf16 {eager[0][1][-1]:.6f}, f32 {runs32[0][0][1][-1]:.6f}")
 
     def same_verification(eager, captured):
         """The verification (psnr_ssim) makes the same choice in every
@@ -1280,15 +1361,19 @@ def main() -> int:
                 log(f"  DFNet's {what} of 8 frames: peak {peak}")
             del dfnet, imgs
         torch.cuda.empty_cache()
-        for mode, path_name, kind in ((3, "render_pre", "DFNet"),
-                                      (2, "render_raw", "DFNet"),
-                                      (2, "render_raw", "MsTransformer"),
-                                      (3, "render_pre", "PoseNet")):
-            out_dir = root / f"out_mode{mode}_{kind}"
+        bf16 = ["--apr_compute_dtype", "bfloat16"]
+        for mode, path_name, kind, extra in (
+                (3, "render_pre", "DFNet", []),
+                (2, "render_raw", "DFNet", []),
+                (2, "render_raw", "DFNet", bf16),
+                (2, "render_raw", "MsTransformer", []),
+                (3, "render_pre", "PoseNet", [])):
+            tag = f"{kind}{'_bf16' if extra else ''}"
+            out_dir = root / f"out_mode{mode}_{tag}"
             argv = ["--datadir", paths["datadir"],
                     "--data_root", paths["data_root"],
                     "--pose_only", str(mode), "--save_dir", str(out_dir),
-                    "--PoseEstimatorType", kind]
+                    "--PoseEstimatorType", kind] + extra
             graph.clear()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -1305,7 +1390,7 @@ def main() -> int:
                         for k, c in loop.graph.launches.items()}
             replayed = {k: c * loop.graph.replays
                         for k, c in per_iter.items()}
-            log(f"serve mode {mode} {kind}: {wall:.3f} s for {SERVE_FRAMES} "
+            log(f"serve mode {mode} {tag}: {wall:.3f} s for {SERVE_FRAMES} "
                 f"frames "
                 f"of main() ({wall / SERVE_FRAMES:.4f} s/frame, set-up and "
                 f"the first frame's capture included; the CLI's own "
@@ -1717,6 +1802,134 @@ def main() -> int:
 
     phase("traincli", do_traincli)
 
+    def do_zoo():
+        """The field zoo through the training CLI at its full defaults
+        (D8/W128, 16 hash levels of 2^19 rows, bound 25, N_vocab 1000, f32,
+        4 images x 1536 rays of 60x80 renders, 64+64 samples, stage 1) on
+        the traincli phase's fixture: a run of each flag for ZOO_EPOCHS
+        epochs, the hash run resumed from its checkpoint, --render_test on
+        the NeRF-W run. Each: s/step and rays/s (synchronised steps, the
+        first epoch excluded), peak memory, the loss falling (the first
+        epoch's mean against the last's), no kernel launched (no kernel
+        serves the zoo, as no Pallas kernel does in the JAX package). Then
+        each kind's first step on the card against the CPU's."""
+        import shutil
+        from nefes_tpu_torch.cli import train as tcli
+        root = Path("tmp") / "serve_fixture"
+        paths = write_7scenes_fixture(root, SERVE_FRAMES,
+                                      n_train=TRAINCLI_FRAMES)
+        logs = root / "zoo"
+        shutil.rmtree(logs, ignore_errors=True)
+        per_epoch = TRAINCLI_FRAMES // TRAIN_B
+        steps: list = []
+        orig = tcli.train_step_rays
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0, float(out[1])))
+            return out
+        base = ["--datadir", paths["datadir"], "--data_root",
+                paths["data_root"], "--basedir", str(logs), "--i_print", "1",
+                "--new_schedule", "1"]
+        # epochs 0 .. ZOO_EPOCHS - 1; the hash and the NeRF-W run keep
+        # their last epoch's checkpoint
+        last = ["--epochs", str(ZOO_EPOCHS - 1)]
+        ckpt = ["--i_weights", str(ZOO_EPOCHS - 1)]
+        tcnn = ["--tcnn", "true", "--l1normloss", "true"]
+        runs = (("--tcnn --l1normloss", "tcnn", tcnn + last + ckpt),
+                ("--sh_nff", "sh_nff", ["--sh_nff", "true"] + last),
+                ("--ffmlp", "ffmlp", ["--ffmlp", "true"] + last),
+                ("--nerfh_nff False", "nerfw", ["--nerfh_nff", "false"]
+                 + last + ckpt),
+                ("--NeRFW False", "nerf", ["--NeRFW", "false"] + last),
+                ("--tcnn resumed", "tcnn", tcnn + [
+                    "--epochs", str(ZOO_EPOCHS), "--i_weights", "1"]),
+                ("--render_test on the NeRF-W run", "nerfw", [
+                    "--nerfh_nff", "false", "--render_test", "true"]))
+        try:
+            tcli.train_step_rays = timed
+            for what, exp, flags in runs:
+                steps.clear()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st = tcli.main(base + ["--expname", exp] + flags)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                called = {n: k.launches for n, k in wrappers.items()
+                          if k.launches}
+                if called:
+                    raise AssertionError(f"zoo {what} launched {called}")
+                kind = st.model.cfg.kind
+                line = (f"zoo {what} ({kind}): {wall:.3f} s of main() with "
+                        f"set-up, peak memory "
+                        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} "
+                        f"MiB, epoch {st.epoch} after")
+                if steps:
+                    secs = [t for t, _ in steps[per_epoch:]] or \
+                        [t for t, _ in steps]
+                    s_step = statistics.median(secs)
+                    losses = [v for _, v in steps]
+                    first = statistics.mean(losses[:per_epoch])
+                    end = statistics.mean(losses[-per_epoch:])
+                    line += (f"; {len(steps)} steps, {s_step:.4f} s/step "
+                             f"(median of {len(secs)}), "
+                             f"{TRAIN_B * N_RAND / s_step:.1f} rays/s; "
+                             f"loss: first epoch {first:.5f}, last "
+                             f"{end:.5f}")
+                    if not np.isfinite(losses).all():
+                        raise AssertionError(f"zoo {what}: non-finite loss")
+                    if "resumed" not in what and not end < first:
+                        raise AssertionError(f"zoo {what}: the loss did not "
+                                             f"fall")
+                log(line)
+                if "resumed" in what:
+                    want = logs / exp / "ckpts" / f"epoch_{ZOO_EPOCHS:06d}.pt"
+                    if not (st.epoch == ZOO_EPOCHS + 1 and want.is_file()
+                            and len(steps) == per_epoch):
+                        raise AssertionError(f"zoo resume: epoch {st.epoch}, "
+                                             f"{len(steps)} steps")
+                if "render_test" in what:
+                    pngs = sorted((logs / exp).glob(
+                        f"evaluate_*_{ZOO_EPOCHS:06d}/*.png"))
+                    log(f"  render_test from the epoch-{ZOO_EPOCHS - 1} "
+                        f"checkpoint wrote {len(pngs)} PNGs")
+                    if not (pngs and st.epoch == ZOO_EPOCHS):
+                        raise AssertionError("zoo render_test")
+        finally:
+            tcli.train_step_rays = orig
+        torch.cuda.empty_cache()
+        zoo_first_steps()
+
+    def zoo_first_steps():
+        """Each zoo kind's first random-ray step at the CLI's widths on
+        the card and on the CPU from the same weights (the CLI's seed;
+        the hash field's with a visible density), pixels and targets,
+        perturb off (zoo_step_compare)."""
+        from nefes_tpu_torch.train.field_zoo import ZooConfig, ZooFieldModel
+        for kind in ("hash", "nerfw", "nerf"):
+            cfg = ZooConfig(kind=kind)
+            cpu_model = ZooFieldModel(
+                cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+            if kind == "hash":
+                visible_density(cpu_model)
+            card_model = copy.deepcopy(cpu_model).to(dev)
+            rcfg = cfg.render_config(n_samples=N_C, n_importance=N_F,
+                                     perturb=False, remat=False)
+            t0 = time.perf_counter()
+            res = zoo_step_compare(card_model, cpu_model, rcfg, dev)
+            log(f"zoo first step {kind}, card against CPU "
+                f"({TRAIN_B} x {ZOO_CHECK_RAYS} rays, "
+                f"{time.perf_counter() - t0:.1f} s): {json.dumps(res)}")
+            del cpu_model, card_model
+
+    phase("zoo", do_zoo)
+
     @torch.no_grad()
     def do_time():
         if "inputs" not in state:
@@ -2057,11 +2270,15 @@ def main() -> int:
 
     def do_probe():
         from types import SimpleNamespace
-        (res_k, res_p), secs, counts = counted("probe", lambda: (
+        (res_k, res_p, res_m), secs, counts = counted("probe", lambda: (
             probe.cmd_kernel(SimpleNamespace(device="cuda", sweep=True)),
-            probe.cmd_perf(SimpleNamespace(device="cuda", refine_n=1))))
-        log(f"probe: kernel and perf in {secs:.1f} s, launches {counts}")
-        bad = [k for k, v in {**res_k, **res_p}.items()
+            probe.cmd_perf(SimpleNamespace(device="cuda", refine_n=1)),
+            probe.cmd_mode2(SimpleNamespace(device="cuda", iters=ITERS))))
+        log(f"probe: kernel, perf and mode2 in {secs:.1f} s, launches "
+            f"{counts}")
+        log(f"probe mode2 (f32 against bf16 DFNet in turns, {ITERS} "
+            f"iterations): {json.dumps(res_m)}")
+        bad = [k for k, v in {**res_k, **res_p, **res_m}.items()
                if not (np.isfinite(v) and v >= 0)]
         if bad:
             raise AssertionError(f"probe: non-finite or negative {bad}")
@@ -2139,6 +2356,109 @@ def main() -> int:
 
     phase("profile", do_profile)
     return finish(failed, kernels, smi)
+
+
+@torch.no_grad()
+def visible_density(model) -> None:
+    """Set a hash field's sigma_out bias to 5 in both towers, a visible
+    density as a few hundred steps would give (tests/test_field_zoo.py
+    does the same). Its tables start near 0, and so does its ReLU
+    density; 1 - exp(-delta sigma) at sigma ~ 1e-5 then keeps few of its
+    bits, and the card's exp and the CPU's round them differently."""
+    for tower in (model.coarse, model.fine):
+        tower.sigma_out.bias[0] = 5.0
+
+
+def zoo_step(model, rcfg, batch, idx, lr):
+    """One random-ray step of a zoo model at flat pixel indices idx (B,
+    N) of 60x80 renders: (loss, {name: gradient}, {name: parameter after
+    the step})."""
+    from nefes_tpu_torch.train import create_train_state, rays_loss
+    from nefes_tpu_torch.train.trainer import apply_gradients
+    state = create_train_state(model)
+    gen = torch.Generator(device=batch["poses"].device).manual_seed(0)
+    loss, _ = rays_loss(model, rcfg, batch, idx, gen, (H, W, FOCAL), NEAR,
+                        FAR)
+    apply_gradients(state, loss, lr)
+    return (loss.detach(),
+            {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for k, p in model.named_parameters()},
+            {k: p.detach() for k, p in model.named_parameters()})
+
+
+def zoo_step_compare(card_model, cpu_model, rcfg, dev) -> dict:
+    """The first step of card_model on the card and of cpu_model (the same
+    weights) on the CPU, on TRAIN_B random 60x80 targets (seed 8) at
+    ZOO_CHECK_RAYS distinct pixels each, held against how far the CPU's
+    own step moves when the poses move by one rounding (times 1 + 2^-23
+    x a normal draw, seed 9): the card reaches the CPU's last bits in
+    another order (other sums, other roundings in the ray points), and
+    the frequency embedding multiplies a point's last bit by up to 2^9
+    before its sin / cos, which parts the first layers' gradients by up
+    to ~1e-2 (the hash field's grid by its resolution). The loss and all
+    parameters after one Adam step (relative L2) must sit within
+    ZOO_JITTER_X times the CPU's own move or ZOO_STEP_TOL; each gradient
+    (relative L2) within ZOO_JITTER_X times or ZOO_GRAD_TOL, the card's
+    scatter-add into the hash tables being unordered. Returns the
+    numbers; raises past a tolerance."""
+    from nefes_tpu_torch.data.synthetic import look_at_pose
+    rng = np.random.default_rng(8)
+    eyes = [(2.4 * np.sin(a), 0.3, 2.4 * np.cos(a))
+            for a in np.linspace(0.0, 1.2, TRAIN_B)]
+    batch = {"rgb": rng.uniform(0, 1, (TRAIN_B, H, W, 3)),
+             "poses": np.stack([look_at_pose(np.array(e, np.float32))
+                                for e in eyes]),
+             "hists": rng.integers(0, 100, (TRAIN_B, 10))}
+    batch = {k: torch.from_numpy(np.asarray(v, np.float32))
+             for k, v in batch.items()}
+    jittered = dict(batch, poses=batch["poses"] * (1.0 + 2.0 ** -23 * (
+        torch.randn(batch["poses"].shape,
+                    generator=torch.Generator().manual_seed(9)))))
+    idx = torch.from_numpy(np.stack([
+        rng.choice(H * W, ZOO_CHECK_RAYS, replace=False)
+        for _ in range(TRAIN_B)]))
+    jitter_model = copy.deepcopy(cpu_model)
+    steps = [zoo_step(model, rcfg, {k: v.to(d) for k, v in b.items()},
+                      idx.to(d), TRAIN_LR)
+             for model, b, d in ((card_model, batch, dev),
+                                 (cpu_model, batch, "cpu"),
+                                 (jitter_model, jittered, "cpu"))]
+    _, (lh, gh, ph), _ = steps
+
+    def rl2(a, b):
+        a, b = a.cpu().double(), b.cpu().double()
+        return float((a - b).norm() / b.norm()) if b.norm() > 0 else 0.0
+
+    def apart(step) -> dict:
+        l, g, p = step
+        num = sum(float((p[k].cpu().double() - ph[k].double()).pow(2).sum())
+                  for k in ph)
+        den = sum(float(ph[k].double().pow(2).sum()) for k in ph)
+        return {"loss": abs(float(l) - float(lh)) / abs(float(lh)),
+                "grads": {k: rl2(g[k], gh[k]) for k in gh},
+                "params": (num / den) ** 0.5,
+                "parted": sum(int(((p[k].cpu() - ph[k]).abs()
+                                   > 1e-3 * TRAIN_LR).sum()) for k in ph)}
+    card, jit = apart(steps[0]), apart(steps[2])
+
+    def tol(x, floor=ZOO_STEP_TOL):
+        return max(floor, ZOO_JITTER_X * x)
+    worst = max(card["grads"], key=lambda k: card["grads"][k]
+                / tol(jit["grads"][k], ZOO_GRAD_TOL))
+    res = {"loss": float(lh), "loss_rel": card["loss"],
+           "loss_rel_jitter": jit["loss"], "grad_worst": worst,
+           "grad_rl2_max": max(card["grads"].values()),
+           "grad_rl2": card["grads"][worst],
+           "grad_rl2_jitter": jit["grads"][worst],
+           "param_rl2": card["params"], "param_rl2_jitter": jit["params"],
+           "parted": card["parted"], "parted_jitter": jit["parted"],
+           "entries": sum(p.numel() for p in ph.values())}
+    if not (card["loss"] <= tol(jit["loss"])
+            and card["grads"][worst] <= tol(jit["grads"][worst],
+                                            ZOO_GRAD_TOL)
+            and card["params"] <= tol(jit["params"])):
+        raise AssertionError(f"zoo first step, card against CPU: {res}")
+    return res
 
 
 def finish(failed, kernels, smi) -> int:

@@ -8,10 +8,13 @@ This package imports torch, numpy and the standard library only.
   geometry/   SE(3) exp-map pose deltas, SVD (and, capturable, polar)
               re-orthogonalisation, pinhole rays, world setup and the
               dataset-frame alignments (dSLAM, COLMAP, Cambridge)
-  fields/     frequency embedding, NeRFH-NFF field, exposure MLP, FusionNet
-  features/   DFNet (VGG16 hypercolumn features + pose regressor); the
-              reference's torch checkpoints (NeFeS .tar, DFNet) converted
-              to the port's state dicts
+  fields/     frequency embedding, NeRFH-NFF field, exposure MLP,
+              FusionNet; the zoo's fields: the instant-ngp hash grid
+              (NeRFHTcnn), NeRF-W and plain NeRF, the GIRAFFE decoder
+  features/   DFNet (VGG16 hypercolumn features + pose regressor, f32 or
+              bf16); the reference's torch checkpoints (NeFeS .tar, DFNet,
+              the tcnn hash-grid buffers) converted to the port's state
+              dicts
   render/     stratified + inverse-CDF sampling, compositor, renderer
   kernels/    hand-written Hopper kernels (csrc/) with their plain PyTorch
               versions: the fused field (modes sigma / full / transient,
@@ -22,7 +25,7 @@ This package imports torch, numpy and the standard library only.
   train/      ModelConfig, the NeFeSModel bundle; field training: the
               random-ray (stages 0/1) and patch (stage 2) steps, schedule,
               optax-style Adam, the NeRF-W / feature / fusion losses,
-              torch.save checkpoints
+              torch.save checkpoints; the field zoo (field_zoo.py)
   refine/     mode-3 pose refinement (explicit SE(3) delta + Adam) and
               mode-2 APR refinement (Adam on DFNet's weights, with the
               PSNR/SSIM verification fail-safe): the eager loops, and the

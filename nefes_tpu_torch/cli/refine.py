@@ -34,7 +34,9 @@ import numpy as np
 import torch
 
 from nefes_tpu_torch.cli.options import options_from_cli
-from nefes_tpu_torch.cli.train import build_model, build_scene, load_dfnet
+from nefes_tpu_torch.cli.train import (
+    build_model, build_scene, is_zoo_field, load_dfnet,
+)
 from nefes_tpu_torch.evaluation import pose_errors, save_pose_txt, summarize
 from nefes_tpu_torch.features import extract_target_features, load_apr
 from nefes_tpu_torch.features.convert import convert_nefes_checkpoint
@@ -90,11 +92,14 @@ def main(argv=None) -> dict:
     opts = options_from_cli(argv)
     if opts.pose_only not in (2, 3):
         raise ValueError("refinement needs --pose_only 2|3")
-    if opts.apr_compute_dtype != "float32":
-        raise NotImplementedError(
-            f"apr_compute_dtype {opts.apr_compute_dtype!r}: DFNet runs in "
-            "float32 only; the bf16 DFNet is ROADMAP Queue A item 6 (the "
-            "rest of item 14)")
+    if is_zoo_field(opts):
+        # the JAX CLI gets as far as pose_opt.py:106 and fails there: its
+        # zoo model has no apply_fusion (ROADMAP Queue C)
+        raise ValueError(
+            "refinement needs the NeRFH-NFF field: the selected zoo field "
+            "(--tcnn, --sh_nff, --ffmlp, --nerfh_nff False or --NeRFW "
+            "False) is colour-only and has no feature head for the DFM "
+            "loss")
     dev = torch.device(opts.device)
 
     t_start = time.time()
@@ -120,14 +125,16 @@ def main(argv=None) -> dict:
     model.requires_grad_(False)
 
     # the feature extractor is always DFNet (load_FeatureNet,
-    # direct_pose_model.py:109-118)
+    # direct_pose_model.py:109-118), computing in --apr_compute_dtype as
+    # the JAX CLI's (its parameters stay f32)
+    adt = _DTYPES[opts.apr_compute_dtype]
     if opts.pretrain_featurenet_path:
-        dfnet = load_dfnet(opts.pretrain_featurenet_path, opts, dev, 1)
+        dfnet = load_dfnet(opts.pretrain_featurenet_path, opts, dev, 1, adt)
     elif opts.pretrain_model_path and opts.PoseEstimatorType == "DFNet":
-        dfnet = load_dfnet(opts.pretrain_model_path, opts, dev, 1)
+        dfnet = load_dfnet(opts.pretrain_model_path, opts, dev, 1, adt)
     else:
         print("WARNING: random DFNet feature extractor (smoke mode)")
-        dfnet = load_dfnet("", opts, dev, 1)
+        dfnet = load_dfnet("", opts, dev, 1, adt)
     # the pose estimator (load_APR_and_FeatureNet,
     # direct_pose_model.py:148-173)
     pose_avg = getattr(test, "pose_avg_stats", None)
@@ -140,7 +147,7 @@ def main(argv=None) -> dict:
         apr.requires_grad_(False)
     elif opts.pretrain_model_path and opts.pretrain_featurenet_path:
         # distinct APR and FeatureNet checkpoints (config_stairs_DFM.txt)
-        apr = load_dfnet(opts.pretrain_model_path, opts, dev, 1)
+        apr = load_dfnet(opts.pretrain_model_path, opts, dev, 1, adt)
     else:
         apr = dfnet
 

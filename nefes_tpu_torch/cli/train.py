@@ -16,9 +16,13 @@ args.txt, metrics.jsonl (every i_print epochs), checkpoints
 restored checkpoint and exits, --render_pose_only writes a spiral video
 and exits, --profile_dir traces the first epoch (torch.profiler).
 
-On the card every field pass runs through the kernels (KERNEL_PATHS);
-with --device cpu the same code runs their plain versions. The field
-trains in f32, as the JAX CLI's.
+On the card every pass of the NeRFH-NFF field runs through the kernels
+(KERNEL_PATHS); with --device cpu the same code runs their plain
+versions. A zoo field (--tcnn, --sh_nff, --ffmlp, --nerfh_nff False,
+--NeRFW False; train/field_zoo.py) trains and renders in plain PyTorch
+on the same device, as the JAX package renders it outside Pallas; it
+takes no feature or fusion loss. The field trains in f32, as the JAX
+CLI's.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from nefes_tpu_torch.fields.embedder import EmbedConfig, train_windows
 from nefes_tpu_torch.render.validation import (
     holdout_views, render_spiral_video, render_test,
 )
+from nefes_tpu_torch.train.field_zoo import build_zoo_model
 from nefes_tpu_torch.train.checkpoint import (
     latest_checkpoint, restore_checkpoint, save_checkpoint,
 )
@@ -109,12 +114,12 @@ def is_zoo_field(opts) -> bool:
 
 def build_model(opts, dtype: torch.dtype = torch.float32, device="cuda",
                 generator: torch.Generator | None = None):
-    """(ModelConfig, NeFeSModel on device) of the flags; the model's
-    weights are random (from `generator` where given) until loaded."""
+    """(ModelConfig, NeFeSModel on device) of the flags, or (ZooConfig,
+    ZooFieldModel) for a zoo field (f32 whatever dtype, as the JAX
+    package's); the model's weights are random (from `generator` where
+    given) until loaded."""
     if is_zoo_field(opts):
-        raise NotImplementedError(
-            "the field zoo (tcnn, sh_nff, ffmlp, NeRF-W off, plain NeRF) is "
-            "not ported: ROADMAP Queue A item 11")
+        return build_zoo_model(opts, device=device, generator=generator)
     xyz, dirs = embed_configs(opts)
     cfg = ModelConfig(depth=opts.netdepth, width=opts.netwidth,
                       feature_dim=opts.feature_dim,
@@ -125,13 +130,14 @@ def build_model(opts, dtype: torch.dtype = torch.float32, device="cuda",
     return cfg, NeFeSModel(cfg, device=device, generator=generator)
 
 
-def load_dfnet(path: str, opts, dev, seed: int) -> DFNet:
-    """DFNet in f32 from a reference checkpoint, or seeded random weights
-    when path is empty; frozen."""
+def load_dfnet(path: str, opts, dev, seed: int,
+               dtype: torch.dtype = torch.float32) -> DFNet:
+    """DFNet computing in dtype (parameters f32) from a reference
+    checkpoint, or seeded random weights when path is empty; frozen."""
     from nefes_tpu_torch.features.convert import (
         convert_dfnet, load_torch_state_dict,
     )
-    dfnet = DFNet(output_dim=opts.feature_dim, device=dev,
+    dfnet = DFNet(output_dim=opts.feature_dim, dtype=dtype, device=dev,
                   generator=torch.Generator().manual_seed(seed))
     if path:
         dfnet.load_state_dict(convert_dfnet(load_torch_state_dict(path)))
@@ -241,10 +247,15 @@ def main(argv=None):
         use_fine_only=opts.use_fine_only, remat=remat,
         output_transient=opts.NeRFW,
         transient_at_test=opts.transient_at_test)
-    rcfg_test = replace(rcfg.test(), **KERNEL_PATHS[
-        "test_windowed" if windowed else "test"])
-    rcfg = replace(rcfg, **KERNEL_PATHS[
-        "train_windowed" if windowed else "train"])
+    rcfg_test = rcfg.test()
+    if not zoo:
+        # the kernels serve the NeRFH-NFF field; a zoo field renders
+        # plain PyTorch on the same device (the JAX package renders it
+        # outside Pallas too)
+        rcfg_test = replace(rcfg_test, **KERNEL_PATHS[
+            "test_windowed" if windowed else "test"])
+        rcfg = replace(rcfg, **KERNEL_PATHS[
+            "train_windowed" if windowed else "train"])
     full_hwf = (scene.H, scene.W, float(scene.focal))
 
     val_cache: list = []
@@ -285,8 +296,7 @@ def main(argv=None):
         return state
 
     aux_cfg = AuxConfig.from_options(opts, far)
-    if opts.l1normloss:
-        # the hash-grid field (--tcnn) is the field zoo, not ported
+    if opts.l1normloss and not (zoo and cfg.kind == "hash"):
         print("WARNING: l1normloss regularises hash-grid tables; ignored "
               "for this field (select the hash field with --tcnn)")
         aux_cfg = replace(aux_cfg, l1normloss=False)

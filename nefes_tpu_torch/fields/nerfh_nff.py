@@ -22,8 +22,10 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^x) as jax.nn.softplus computes it (no threshold)."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+    """log(1 + e^x) as jax.nn.softplus computes it (no threshold). Its
+    gradient is sigmoid(x) at x = 0 too: max(x, 0) passes half there."""
+    return (torch.maximum(x, x.new_zeros(()))
+            + torch.log1p(torch.exp(-x.abs())))
 
 
 def _dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:

@@ -13,7 +13,9 @@ maps cropped by 10 px at the border, PSNR on the full rgb
 
 The field is frozen here: each call packs it once, under no_grad, and
 renders every pose with the field fns that cfg asks for (on the card the
-kernels without weight gradients: K5, or K1 under a Nerfies window).
+kernels without weight gradients: K5, or K1 under a Nerfies window). A
+zoo field (train/field_zoo.py) renders plain, each view with its own
+latents, RGB only (no DFNet, no feature maps).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from nefes_tpu_torch.features.dfnet import extract_target_features
 from nefes_tpu_torch.refine.losses import feature_cosine_loss
 from nefes_tpu_torch.render.renderer import RenderConfig, render_image
+from nefes_tpu_torch.train.field_zoo import ZooFieldModel
 from nefes_tpu_torch.train.model import NeFeSModel
 from nefes_tpu_torch.utils.image import resize_bicubic
 from nefes_tpu_torch.utils.viz import (
@@ -65,6 +68,14 @@ def _render_one(model: NeFeSModel, fns, pose34, hist, hwf: tuple,
             "disp": out["disp"].reshape(h, w)}
 
 
+def _view_fns(model, fns, hist):
+    """One view's field fns: a zoo field's fine field takes the view's
+    latents (ray_field_fns, as the JAX package binds them in each view's
+    render); NeRFH-NFF's takes none, so `fns`, packed once a call."""
+    return model.ray_field_fns(hist) if isinstance(model, ZooFieldModel) \
+        else fns
+
+
 def _crop(x):
     return x[BORDER_CROP:-BORDER_CROP, BORDER_CROP:-BORDER_CROP]
 
@@ -96,8 +107,9 @@ def render_path_with_feature(model: NeFeSModel, poses, hists, hwf: tuple,
     if savedir:
         ensure_dir(savedir)
     for i in range(len(poses)):
-        out = _render_one(model, fns, _tensor(poses[i], dev),
-                          _tensor(hists[i], dev), hwf, near, far, cfg,
+        hist = _tensor(hists[i], dev)
+        out = _render_one(model, _view_fns(model, fns, hist),
+                          _tensor(poses[i], dev), hist, hwf, near, far, cfg,
                           tinyscale, use_fusion, window)
         rgb = out["rgb"].float().cpu().numpy()
         gt = np.asarray(gt_images[i])
@@ -153,9 +165,10 @@ def render_path(model: NeFeSModel, poses, hists, hwf: tuple, near: float,
     if savedir:
         ensure_dir(savedir)
     for i in range(len(poses)):
-        out = _render_one_full(model, fns, _tensor(poses[i], dev),
-                               _tensor(hists[i], dev), hwf, near, far, cfg,
-                               window)
+        hist = _tensor(hists[i], dev)
+        out = _render_one_full(model, _view_fns(model, fns, hist),
+                               _tensor(poses[i], dev), hist, hwf, near, far,
+                               cfg, window)
         rgb = out["rgb"].float().cpu().numpy()
         disp = out["disp"].float().cpu().numpy()
         frames_rgb.append(np.clip(rgb, 0.0, 1.0))
@@ -235,8 +248,9 @@ def render_path_upsample(model: NeFeSModel, poses, hists, hwf: tuple,
         ensure_dir(savedir)
     out = []
     for i in range(len(poses)):
-        rgb = _render_one_full(model, fns, _tensor(poses[i], dev),
-                               _tensor(hists[i], dev), hwf, near, far,
+        hist = _tensor(hists[i], dev)
+        rgb = _render_one_full(model, _view_fns(model, fns, hist),
+                               _tensor(poses[i], dev), hist, hwf, near, far,
                                cfg)["rgb"].float()
         if (tw, th) != (W, H):
             rgb = resize_bicubic(rgb, th, tw)
@@ -275,7 +289,7 @@ def render_spiral_video(model: NeFeSModel, scene, hwf: tuple, near: float,
                                   (max(near, 0.1), far), n_views=n_views)
     dev = _device(model)
     hist = _tensor(np.asarray(scene.hists).mean(axis=0), dev)
-    fns = model.field_fns(cfg)
+    fns = _view_fns(model, model.field_fns(cfg), hist)
     frames = []
     for pose in spiral:
         out = _render_one_full(model, fns, _tensor(pose[:3, :4], dev), hist,

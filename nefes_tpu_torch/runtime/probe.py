@@ -1,9 +1,11 @@
 """Measurement CLI of the port on one NVIDIA GPU: the counterpart of the
-JAX package's runtime/probe.py commands kernelmicro, kernel and perf.
+JAX package's runtime/probe.py commands kernelmicro, kernel, perf and
+mode2.
 
     python -m nefes_tpu_torch.runtime.probe kernelmicro [--tiles 512 2048 8192] [--out F]
     python -m nefes_tpu_torch.runtime.probe kernel [--sweep]
     python -m nefes_tpu_torch.runtime.probe perf [--refine_n 3]
+    python -m nefes_tpu_torch.runtime.probe mode2 [--iters 50]
     (each also takes --device cuda|cpu)
 
 kernelmicro  ablations of the fused field at the fine-pass shape (N =
@@ -21,6 +23,9 @@ kernel       the field kernel K5 against the plain field in f32 and bf16,
              plus the compositor
 perf         the pieces of a refinement iteration through the kernels of
              mode 3's main path (K1, K3, K4)
+mode2        mode-2 refinement with DFNet in f32 against bf16, in turns,
+             through mode 2's kernels (K5, K7, K8): s/frame and the final
+             loss of each
 
 Inputs are random, from seeds. --device cuda (the default) times with CUDA
 events; --device cpu runs the plain versions and times with the host
@@ -106,12 +111,13 @@ def embed_ops(nx: int, nd: int = 0) -> dict:
             "bwd": 3 * 7 * (nx + nd)}
 
 
-def timeit(name: str, fn, n: int = 10, device="cuda") -> float:
-    """Seconds per call of fn: two warm calls, then the median of n calls,
-    each timed with CUDA events on a CUDA device and with the host clock
-    on the CPU."""
+def timeit(name: str, fn, n: int = 10, device="cuda", warm: int = 2
+           ) -> float:
+    """Seconds per call of fn: `warm` warm calls, then the median of n
+    calls, each timed with CUDA events on a CUDA device and with the host
+    clock on the CPU."""
     cuda = torch.device(device).type == "cuda"
-    for _ in range(2):
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(n):
@@ -536,6 +542,78 @@ def cmd_perf(args) -> dict:
     return results
 
 
+def cmd_mode2(args) -> dict:
+    """Mode-2 refinement with DFNet (the APR and the feature extractor)
+    in f32 against bf16 (the JAX probe's mode2 command; the parameters
+    stay f32): refine_apr_single of args.iters iterations on a 4H x 4W
+    query (random, seed 3) through the raw-input kernels (K5, K7, K8) of
+    the frozen bf16 NeFeS field (D8/W128/F128), each dtype's DFNet (seed
+    1) aimed at the scene as chip_smoke.py's mode-2 DFNet is and
+    extracting its own target features. One warm-up each, then one timed
+    call each in turns (f32, bf16, bf16, f32). Returns {"<dt>_s_per_frame"
+    (the mean of the dtype's two), "<dt>_final_loss" (its last call's)}
+    for dt f32 and bf16."""
+    from nefes_tpu_torch.data.synthetic import look_at_pose
+    from nefes_tpu_torch.features.dfnet import DFNet, extract_target_features
+    from nefes_tpu_torch.geometry import learn_pose
+    from nefes_tpu_torch.refine import RefineConfig, refine_apr_single
+    from nefes_tpu_torch.train.model import ModelConfig, NeFeSModel
+
+    dev = torch.device(args.device)
+    print(_device_line(dev), flush=True)
+    cfg = ModelConfig(dtype=torch.bfloat16)
+    model = NeFeSModel(cfg, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    rcfg = cfg.render_config(n_samples=64, n_importance=64,
+                             output_transient=False, test_time=True,
+                             perturb=False, remat=False, fused=True,
+                             fused_pre=False, fused_render=True,
+                             fused_need_dw=False)
+    full = (4 * H, 4 * W, 4 * FOCAL)
+    image = torch.rand((full[0], full[1], 3),
+                       generator=torch.Generator().manual_seed(3)).to(dev)
+    hist = torch.zeros(10, device=dev)
+    ws_vec = torch.tensor([1.0, 1.0, 0.0, 0.0, 0.0], device=dev)
+    gt = torch.from_numpy(look_at_pose(np.array([0.0, 0.3, 2.4],
+                                                np.float32)))
+    start = learn_pose(torch.tensor([0.02, -0.03, 0.01]),
+                       torch.tensor([0.05, -0.04, 0.03]), gt)[:3, :4]
+    runs = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        dfnet = DFNet(output_dim=cfg.feature_dim, dtype=dt, device=dev,
+                      generator=torch.Generator().manual_seed(1))
+        dfnet.requires_grad_(False)
+        with torch.no_grad():
+            dfnet.fc_pose.weight.mul_(1e-2)
+            dfnet.fc_pose.bias.copy_(start.reshape(12))
+            target = extract_target_features(dfnet, image[None], full[0],
+                                             full[1])[0]
+
+        def run(dfnet=dfnet, target=target):
+            return refine_apr_single(
+                model, dfnet, image, target, hist, ws_vec, (H, W, FOCAL),
+                full, NEAR, FAR, rcfg, RefineConfig(opt_iter=args.iters))
+        runs[name] = run
+        run()                                           # warm-up
+    times = {name: [] for name in runs}
+    last = {}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        out = {}
+        times[name].append(timeit(
+            f"mode-2 {args.iters}-iteration refine ({name} DFNet)",
+            lambda: out.update(runs[name]()), n=1, device=dev, warm=0))
+        last[name] = out["losses"][-1]
+    res = {}
+    for name in runs:
+        res[f"{name}_s_per_frame"] = statistics.mean(times[name])
+        res[f"{name}_final_loss"] = float(last[name])
+        print(f"  {name}: {res[f'{name}_s_per_frame']:.4f} s/frame, final "
+              f"loss {res[f'{name}_final_loss']:.6f}", flush=True)
+    print(json.dumps(res), flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     common = argparse.ArgumentParser(add_help=False)
     common.add_argument("--device", default="cuda",
@@ -551,12 +629,15 @@ def main(argv=None) -> int:
     pp = sub.add_parser("perf", parents=[common])
     pp.add_argument("--refine_n", type=int, default=3,
                     help="timed calls of the 50-iteration refine")
+    p2 = sub.add_parser("mode2", parents=[common])
+    p2.add_argument("--iters", type=int, default=50,
+                    help="refinement iterations a frame")
     args = p.parse_args(argv)
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         p.error("no CUDA device; --device cpu runs the plain versions")
     {"kernelmicro": cmd_kernelmicro, "kernel": cmd_kernel,
-     "perf": cmd_perf}[args.cmd](args)
+     "perf": cmd_perf, "mode2": cmd_mode2}[args.cmd](args)
     return 0
 
 

@@ -165,10 +165,11 @@ class NeFeSModel(nn.Module):
         the raw-input composite-fused render kernels."""
         return self._render_fn(fused_render_apply, packed)
 
-    def ray_field_fns(self, hist=None):
-        """(coarse_fn, fine_fn) for one image. The NFF field has no
-        per-image latent, so the bound methods, whatever the histogram
-        (the JAX package's field zoo binds per-image latents here)."""
+    def ray_field_fns(self, hist=None, rays_per_image=None):
+        """(coarse_fn, fine_fn) for one image or a batch of them. The NFF
+        field has no per-image latent, so the bound methods, whatever the
+        histogram (the field zoo binds per-image latents here,
+        train/field_zoo.py)."""
         return self.coarse_fn, self.fine_fn
 
     def field_fns(self, cfg: RenderConfig, packed=None):

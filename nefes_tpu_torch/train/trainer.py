@@ -21,6 +21,12 @@ pre-embedded K1/K2, the fine pass in transient mode when the transient
 heads are on. Training needs cfg.fused_need_dw and cannot take
 cfg.fused_render (the frozen-field refinement render).
 
+A zoo field (train/field_zoo.py) trains through the same steps on the
+plain fields, each ray of the batch's one field pass conditioned on its
+image's latents; it has no feature head and no FusionNet, so its patch
+step is the colour loss on the patches' pixels, and the l1normloss term
+regularises its hash tables.
+
 Both steps take the Nerfies window of reduce_embedding=2 (embedded here,
 so through the plain fields or K1/K2; the raw-input kernels refuse it),
 and the random-ray step the auxiliary terms of AuxConfig: TV on density,
@@ -40,9 +46,10 @@ import torch
 from nefes_tpu_torch.fields.embedder import embed
 from nefes_tpu_torch.geometry.rays import get_ray_at
 from nefes_tpu_torch.render.renderer import RenderConfig, render_rays
+from nefes_tpu_torch.train.field_zoo import ZooFieldModel
 from nefes_tpu_torch.train.aux_losses import (
-    compute_depth_loss, sigma_sparsity_loss, sigma_sparsity_loss2,
-    total_variation_loss,
+    compute_depth_loss, embeddings_l1_loss, sigma_sparsity_loss,
+    sigma_sparsity_loss2, total_variation_loss,
 )
 from nefes_tpu_torch.train.losses import nefes_training_loss, psnr
 from nefes_tpu_torch.train.model import NeFeSModel
@@ -97,11 +104,17 @@ def aux_regularizers(aux: AuxConfig, model: NeFeSModel, out: dict,
     normalised hash domain, losses.py:226-265) with corners tv_corners,
     drawn from gen when None; sparsity acts on the batch's raw fine
     sigmas (out["static_sigmas"], the kernels' too)."""
-    if aux.l1normloss:
-        raise ValueError("l1normloss regularises hash-grid tables; the "
-                         "NeRFH-NFF field has none (the CLI drops the flag "
-                         "for it)")
     loss = torch.zeros((), device=out["rgb"].device)
+    if aux.l1normloss:
+        # the hash-grid tables' L1 (reference embeddings_L1_loss,
+        # losses.py:284-314); encoder_fns raises for any other field (the
+        # CLI drops the flag for them)
+        if not isinstance(model, ZooFieldModel):
+            raise ValueError("l1normloss regularises hash-grid tables; the "
+                             "NeRFH-NFF field has none (the CLI drops the "
+                             "flag for it)")
+        loss = loss + aux.l1normloss_w * embeddings_l1_loss(
+            *model.encoder_fns())
     if aux.tvloss:
         dev = next(model.parameters()).device
 
@@ -234,28 +247,36 @@ def _gather(imgs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                                        flat.shape[2]))
 
 
-def _field_fns(model: NeFeSModel, cfg: RenderConfig):
-    """The step's field fns: the plain fields or, with cfg.fused, the
-    field kernels on weights packed now, with their weight gradients."""
-    if cfg.fused and cfg.fused_render:
+def _field_fns(model: NeFeSModel, cfg: RenderConfig, hists, n_rays: int):
+    """The step's field fns: the plain fields, each of the batch's n_rays
+    rays an image conditioned on its image's histogram hists (B, bins)
+    (the zoo's latents; NeRFH-NFF's fields take none), or, with
+    cfg.fused, the field kernels on weights packed now, with their weight
+    gradients."""
+    if not cfg.fused:
+        return model.ray_field_fns(hists, n_rays)
+    if cfg.fused_render:
         raise ValueError("fused_render is the frozen-field refinement "
                          "render; training runs the field kernels "
                          "(fused_render=False)")
-    if cfg.fused and not cfg.fused_need_dw:
+    if not cfg.fused_need_dw:
         raise ValueError("training through the kernels needs "
                          "fused_need_dw=True: without it the fields get no "
                          "weight gradients")
     return model.field_fns(cfg)
 
 
-def _render_selected(model: NeFeSModel, cfg: RenderConfig, poses, px, py,
-                     H, W, focal, near, far, gen, window=None) -> dict:
+def _render_selected(model: NeFeSModel, cfg: RenderConfig, poses, hists,
+                     px, py, H, W, focal, near, far, gen,
+                     window=None) -> dict:
     """Render the rays at per-image pixel coordinates px, py (B, N) under
     poses (B, 3, 4), all B·N rays in one render_rays (so one launch per
-    field pass). Returns the train render dict with (B, N, ...) leaves."""
-    coarse_fn, fine_fn = _field_fns(model, cfg)
-    ro, rd = get_ray_at(px, py, focal, H, W, poses)
+    field pass; a zoo field's rays each with its image's latents, from
+    hists (B, bins)). Returns the train render dict with (B, N, ...)
+    leaves."""
     B, N = px.shape
+    coarse_fn, fine_fn = _field_fns(model, cfg, hists, N)
+    ro, rd = get_ray_at(px, py, focal, H, W, poses)
     out = render_rays(coarse_fn, fine_fn, ro.reshape(-1, 3),
                       rd.reshape(-1, 3), near, far, gen, cfg, window=window)
     return {k: (None if v is None else v.reshape(B, N, *v.shape[1:]))
@@ -285,8 +306,8 @@ def rays_loss(model: NeFeSModel, cfg: RenderConfig, batch: dict,
     target_feat = _gather(batch["feat"], idx) if stage >= 1 else None
     target_depth = (_gather(batch["depth"], idx)[..., 0]
                     if aux.depth and "depth" in batch else None)
-    out = _render_selected(model, cfg, batch["poses"], px, py, H, W, focal,
-                           near, far, gen, window)
+    out = _render_selected(model, cfg, batch["poses"], batch["hists"], px,
+                           py, H, W, focal, near, far, gen, window)
     out = _finalize_rgb(model, out, batch["hists"])
     loss, metrics = nefes_training_loss(out, target_rgb, target_feat,
                                         fusion_out=None, stage=min(stage, 1))
@@ -316,15 +337,23 @@ def patch_loss(model: NeFeSModel, cfg: RenderConfig, batch: dict,
     px = (w0[:, None, None] + dx).reshape(-1)
     idx = py * W + px
     target_rgb = _gather(batch["rgb"], idx)
-    target_feat = _gather(batch["feat"], idx)
+    target_feat = (None if isinstance(model, ZooFieldModel)
+                   else _gather(batch["feat"], idx))
     # contiguous patches cannot avoid masked-out pixels at selection:
     # they leave the feature and fusion terms instead
     mask = batch.get("mask")
     patch_mask = _gather(mask, idx)[..., 0] if mask is not None else None
-    out = _render_selected(model, cfg, batch["poses"],
+    out = _render_selected(model, cfg, batch["poses"], batch["hists"],
                            px.float().expand(B, -1), py.float().expand(B, -1),
                            H, W, focal, near, far, gen, window)
     out = _finalize_rgb(model, out, batch["hists"])
+    if isinstance(model, ZooFieldModel):
+        # a zoo field has no feature head and no FusionNet: the colour
+        # loss on the patches' pixels
+        loss, metrics = nefes_training_loss(out, target_rgb, None,
+                                            fusion_out=None, stage=0)
+        metrics["psnr"] = psnr(out["rgb"], target_rgb)
+        return loss, metrics, None
 
     def as_img(x):
         return x.reshape(B * NUM_CROPS, CROP_SIZE, CROP_SIZE, x.shape[-1])

@@ -73,8 +73,11 @@ def _matrix(kind: str, in_size: int, out_size: int, device: str,
 
 
 def _resize_axis(img: torch.Tensor, axis: int, m: torch.Tensor):
-    moved = torch.movedim(img, axis, -1)
-    return torch.movedim(moved @ m.to(img.dtype).t(), -1, axis)
+    """img's axis through the f32 matrix m, in img's dtype promoted with
+    f32 (the JAX einsum's promotion: a bf16 image comes out f32)."""
+    dt = torch.promote_types(img.dtype, torch.float32)
+    moved = torch.movedim(img, axis, -1).to(dt)
+    return torch.movedim(moved @ m.to(dt).t(), -1, axis)
 
 
 def resize_bilinear(img: torch.Tensor, H: int, W: int,

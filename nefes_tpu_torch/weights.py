@@ -1,6 +1,6 @@
 """The JAX package's ``variables`` pytrees (as nested dicts of numpy
-arrays) -> the state dicts of the port's NeFeSModel, DFNet and the APR
-zoo (apr_from_jax_variables).
+arrays) -> the state dicts of the port's NeFeSModel, DFNet, the APR zoo
+(apr_from_jax_variables) and the field zoo (zoo_from_jax_variables).
 
   Dense kernel (in, out)            -> Linear weight (out, in)
   SplitDense kernel (da + db, out)  -> one Linear over the concat input
@@ -128,3 +128,13 @@ def apr_from_jax_variables(variables_np: dict) -> dict:
     walk(variables_np["params"], "", False)
     walk(variables_np.get("batch_stats", {}), "", True)
     return out
+
+
+def zoo_from_jax_variables(variables_np: dict) -> dict:
+    """The variables {params} of a field of the zoo (train/field_zoo.py
+    ZooFieldModel, or one of its fields or fields/decoder.py
+    GiraffeDecoder alone) -> the port's state dict. The modules carry the
+    flax names, so apr_from_jax_variables' mapping applies: Dense kernel
+    (in, out) -> Linear weight (out, in), Conv kernel HWIO -> OIHW, each
+    hash level_<l> table and Embed table as it is."""
+    return apr_from_jax_variables(variables_np)

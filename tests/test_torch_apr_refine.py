@@ -29,8 +29,9 @@ unfused.
   statistics.
 * The serving functions (refine_apr_verified, refine_apr_batch) repeat
   refine_apr_single with a zoo APR; an unknown kind raises.
-* On the card (marked cuda): the captured loop against the eager one with
-  PoseNetV2 and MS-Transformer.
+* The captured loop against the eager one on the card is in
+  tests/test_torch_card.py, which imports no JAX (the card's machine has
+  none).
 
 Each APR starts where the render sees the scene: its last layer scaled
 down, its biases the perturbed look-at pose of the mode-3 tests; the
@@ -216,36 +217,3 @@ def test_serving_functions_with_zoo(field):
     with pytest.raises(NotImplementedError):
         refine_apr_single(tmodel, tmod, images[0], targets[0],
                           torch.zeros(10), *args, apr_kind="NetVlad")
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["PoseNetV2", "MsTransformer"])
-def test_captured_zoo_matches_eager_on_card(cuda, field, kind):
-    """The captured mode-2 loop against the eager one on the card with a
-    zoo APR, through the raw kernels: losses within 1e-5 relative, poses
-    within 5e-6 (cuDNN's convolution backward may sum in another order
-    between the eager and the captured run)."""
-    from nefes_tpu_torch.refine import refine_apr_captured
-    _, _, _, tmodel, trc, image, target = field
-    _, _, tmod = aimed(kind)
-    model, apr = copy.deepcopy(tmodel).to(cuda), tmod.to(cuda)
-    args = (model, apr, t(image).to(cuda), t(target).to(cuda),
-            torch.zeros(10, device=cuda), t(WS).to(cuda), HWF_RENDER,
-            HWF_FULL, NEAR, FAR, trc,
-            RefineConfig(opt_iter=3, learning_rate=LR))
-    kw = dict(apr_kind=kind, freeze_bn=kind != "PoseNetV2")
-    want = refine_apr_single(*args, **kw)
-    for _ in range(2):                       # capture, then replay only
-        got = refine_apr_captured(*args, **kw)
-        for k in ("losses", "init_psnr", "end_psnr", "init_ssim",
-                  "end_ssim"):
-            close(got[k].cpu(), want[k].cpu(), 1e-5, 1e-6, k)
-        for k in ("refined_pose", "initial_pose"):
-            close(n(got[k].cpu()), n(want[k].cpu()), 0, 5e-6, k)

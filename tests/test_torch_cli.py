@@ -106,16 +106,24 @@ def test_refine_cli_matches_jax(fx, mode):
 
 
 def test_refine_cli_refuses_what_is_not_ported(fx):
+    """An APR outside the zoo, a zoo field (no feature head for the DFM
+    loss; refused before the scene loads) and a mode other than 2 and 3
+    are refused; the bf16 DFNet (--apr_compute_dtype bfloat16) runs."""
     from nefes_tpu_torch.cli.refine import main
     base = _argv(fx, 3, osp.join(fx[1], "refused")) + ["--device", "cpu"]
-    for extra, err in ((["--apr_compute_dtype", "bfloat16"],
+    for extra, err in ((["--PoseEstimatorType", "NetVlad"],
                         NotImplementedError),
-                       (["--PoseEstimatorType", "NetVlad"],
-                        NotImplementedError),
-                       (["--tcnn", "true"], NotImplementedError),
+                       (["--tcnn", "true"], ValueError),
+                       (["--tcnn", "true", "--datadir", "/nonexistent"],
+                        ValueError),
                        (["--pose_only", "1"], ValueError)):
         with pytest.raises(err):
             main(base + extra)
+    out = osp.join(fx[1], "bf16")
+    s = main(_argv(fx, 2, out) + ["--device", "cpu", "--apr_compute_dtype",
+                                  "bfloat16"])
+    assert s["n_frames"] == 4 and np.isfinite(s["median_t_m"])
+    assert np.isfinite(np.loadtxt(_txt(out))).all()
 
 
 @pytest.mark.parametrize("df", [2, 4])
@@ -183,8 +191,9 @@ def test_build_model_and_scene(fx):
     assert scene.images.shape == (4, 60, 80, 3)
     opts.ffmlp = True
     assert is_zoo_field(opts)
-    with pytest.raises(NotImplementedError):
-        build_model(opts, device="cpu")
+    cfg, model = build_model(opts, device="cpu")   # the zoo's NeRF-W
+    assert cfg.kind == "nerfw" and hasattr(model, "embed_a")
+    assert next(model.parameters()).device.type == "cpu"
     opts.ffmlp, opts.dataset_type = False, "LLFF"
     with pytest.raises(ValueError):
         build_scene(opts, train=False)
