@@ -1,7 +1,7 @@
 """On-card smoke run of nefes_tpu_torch on one NVIDIA GPU (written for the
 H100: the kernels build for sm_90a).
 
-    python3 chip_smoke.py [--phases build,check,mode3,mode2,apr,paths,serve,train,traincli,zoo,time,micro,probe,profile]
+    python3 chip_smoke.py [--phases build,check,mode3,mode2,apr,paths,serve,train,traincli,zoo,accuracy,time,micro,probe,profile]
         [--parent DIR]
 
 Phases:
@@ -122,6 +122,17 @@ Phases:
          PyTorch, as the JAX package runs it outside Pallas); then each
          kind's first step on the card against the CPU's from the same
          weights (the loss, every gradient, the parameters after Adam)
+  accuracy the probe's accuracy command (nefes_tpu_torch/runtime/probe.py)
+         at full width (192x256 images, NeFeS D8/W128/F128 trained in bf16,
+         64+64 samples, 50 refinement iterations in f32) and reduced depth
+         (ACCURACY_ARGS: 8 training views, 4 test frames, 2 epochs a stage,
+         20 DFNet finetuning steps, 50 APR steps, one mode-2 lr per BN mode
+         and the raw ablation, one mode-3 lr): each stage's launches and
+         seconds (training K5 / K6 +dW / dW, the frozen renders K5, mode 2
+         K5 / K7 / K8, mode 3 K1 / K3 / K4, no launch outside them), the
+         result's keys against ACCURACY_r05.json's (the JAX command's
+         record), every number finite, the stage-0 loss falling; the
+         medians before and after and the wall time
   time   each kernel's time (CUDA events, median) beside its bound, its
          plain version's time and a bf16 torch.matmul chain over the same
          tower as a yardstick; the training variants at the fine training
@@ -241,6 +252,24 @@ CLI_METRIC_KEYS[2] = CLI_METRIC_KEYS[1] | {"loss_fusion"}
 # relative L2 on an H100 80GB HBM3 at 700 W; PERF.md)
 ZOO_EPOCHS, ZOO_CHECK_RAYS, ZOO_JITTER_X = 3, 512, 10.0
 ZOO_STEP_TOL, ZOO_GRAD_TOL = 1e-5, 1e-2
+# The accuracy phase: the probe's accuracy command at full width (192x256
+# images, NeFeS D8/W128/F128, 64+64 samples, 50 iterations) and reduced
+# depth, and the kernels each of its stages must launch: training through
+# K5 / K6 +dW / dW (bf16, the fine pass in transient mode), the frozen
+# renders through K5, mode 2 through K5 / K7 / K8 and mode 3 through K1 /
+# K3 / K4 (f32)
+ACCURACY_ARGS = ["accuracy", "--device", "cuda", "--n_train", "8",
+                 "--n_test", "4", "--epochs_color", "2", "--epochs_feat", "2",
+                 "--epochs_fusion", "2", "--feat_steps", "20",
+                 "--apr_steps", "50", "--refine_lrs", "4e-6",
+                 "--mode3_lr_r", "0.002", "--out", "tmp/accuracy_smoke.json"]
+ACCURACY_KERNELS = {
+    "train": ("K5 field_fwd", "K6 field_bwd", "K5 field_fwd transient",
+              "K6 field_bwd +dW", "K2/K6 field_dw"),
+    "render": ("K5 field_fwd",),
+    "mode2": ("K5 field_fwd", "K7 render_fwd", "K8 render_bwd"),
+    "mode3": ("K1 field_fwd_pre", "K3 render_fwd_pre", "K4 render_bwd_pre"),
+}
 # Mode 2: the query at 7-Scenes H/2, rendered at a quarter of that
 IMG_H, IMG_W, FOCAL_FULL = 4 * H, 4 * W, 4 * FOCAL
 # The probe phase: K5's bf16 max-abs error from the plain f32 field within
@@ -318,7 +347,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="build,check,mode3,mode2,apr,paths,serve,"
-                    "train,traincli,zoo,time,micro,probe,profile")
+                    "train,traincli,zoo,accuracy,time,micro,probe,profile")
     ap.add_argument("--parent", default=None,
                     help="an earlier tree whose K1, K5 and render kernels "
                     "the time phase times beside this tree's")
@@ -1930,6 +1959,100 @@ def main() -> int:
 
     phase("zoo", do_zoo)
 
+    def do_accuracy():
+        """The probe's accuracy command at full width and reduced depth
+        (ACCURACY_ARGS): each stage's launches and seconds (the wrapped
+        steps, renders and refinements of runtime/accuracy.py), the result's
+        keys against the JAX command's record, every number finite, the
+        stage-0 loss falling; the medians and wall time logged."""
+        from nefes_tpu_torch.runtime import accuracy as acc
+        stages: dict = {}
+        losses: dict = {}
+
+        def counted_stage(stage, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                c0, t0 = launch_counts(), time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                c1, secs = launch_counts(), time.perf_counter() - t0
+                rec = stages.setdefault(stage, {"calls": 0, "s": 0.0,
+                                                "counts": {}})
+                rec["calls"] += 1
+                rec["s"] += secs
+                for n in c1:
+                    if c1[n] != c0[n]:
+                        rec["counts"][n] = (rec["counts"].get(n, 0)
+                                            + c1[n] - c0[n])
+                if stage == "train":
+                    st = 2 if fn is originals["train_step_patch"] \
+                        else k.get("stage", 0)
+                    losses.setdefault(st, []).append(float(out[1]))
+                return out
+            return run
+        wrapped = {"train_step_rays": "train", "train_step_patch": "train",
+                   "render_feature_image": "render",
+                   "refine_apr_batch": "mode2", "refine_poses_batch": "mode3"}
+        originals = {n: getattr(acc, n) for n in wrapped}
+        for n, stage in wrapped.items():
+            setattr(acc, n, counted_stage(stage, originals[n]))
+        args = probe.parser().parse_args(ACCURACY_ARGS)
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = probe.cmd_accuracy(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            total = {n: c for n, c in launch_counts().items() if c}
+        finally:
+            for n, fn in originals.items():
+                setattr(acc, n, fn)
+        for stage, rec in stages.items():
+            log(f"accuracy {stage}: {rec['calls']} calls, {rec['s']:.1f} s, "
+                f"launches {rec['counts']}")
+        log(f"accuracy: {wall:.1f} s of command (wall_s {res['wall_s']}), "
+            f"launches {total}")
+        summed: dict = {}
+        for rec in stages.values():
+            for n, c in rec["counts"].items():
+                summed[n] = summed.get(n, 0) + c
+        if summed != total:
+            raise AssertionError(f"accuracy: launches outside the stages: "
+                                 f"{total} against {summed}")
+        for stage, want in ACCURACY_KERNELS.items():
+            got = set(stages.get(stage, {}).get("counts", {}))
+            if got != set(want):
+                raise AssertionError(f"accuracy {stage} launched "
+                                     f"{sorted(got)}, expected {want}")
+        with open(Path(__file__).resolve().parent / "ACCURACY_r05.json") as f:
+            record = json.load(f)
+        if key_tree(res) != key_tree(record):
+            raise AssertionError(f"accuracy keys {key_tree(res)} differ "
+                                 f"from the JAX command's {key_tree(record)}")
+        bad = nonfinite(res)
+        if bad:
+            raise AssertionError(f"accuracy: non-finite {bad}")
+        per_ep = len(acc.split_views(args.n_train, args.n_test)[0]) \
+            // acc.BATCH
+        s0 = losses[0]
+        first, last = np.mean(s0[:per_ep]), np.mean(s0[-per_ep:])
+        log(f"accuracy stage-0 losses {s0}: first epoch {first:.5f}, last "
+            f"{last:.5f}")
+        if not last < first:
+            raise AssertionError("accuracy: the stage-0 loss did not fall")
+        log("accuracy result: " + json.dumps({k: res[k] for k in (
+            "median_t_before_m", "median_t_after_m", "median_r_before_deg",
+            "median_r_after_deg", "improved_frames_frac", "retreat_frames",
+            "t_improvement_x", "r_improvement_x", "mode3_median_t_before_m",
+            "mode3_median_t_after_m", "mode3_median_r_before_deg",
+            "mode3_median_r_after_deg", "headline_fusion_bn", "refine_lr",
+            "train_psnr_db", "fusion_liveness", "wall_s")}))
+        torch.cuda.empty_cache()
+
+    phase("accuracy", do_accuracy)
+
     @torch.no_grad()
     def do_time():
         if "inputs" not in state:
@@ -2475,6 +2598,28 @@ def finish(failed, kernels, smi) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def key_tree(x):
+    """The keys of a JSON value, nested: a dict's as {key: subtree}, a
+    list's as its first element's."""
+    if isinstance(x, dict):
+        return {k: key_tree(v) for k, v in x.items()}
+    if isinstance(x, list) and x:
+        return [key_tree(x[0])]
+    return None
+
+
+def nonfinite(x, path="") -> list:
+    """The paths of a JSON value's numbers that are not finite."""
+    if isinstance(x, dict):
+        return [p for k, v in x.items() for p in nonfinite(v, f"{path}.{k}")]
+    if isinstance(x, list):
+        return [p for i, v in enumerate(x) for p in nonfinite(v,
+                                                              f"{path}[{i}]")]
+    if isinstance(x, (int, float)) and not isinstance(x, bool):
+        return [] if np.isfinite(x) else [path]
+    return []
 
 
 def kernel_label(line: str) -> str:

@@ -56,8 +56,11 @@ class AdaptBlock(nn.Module):
         """x (B, C, H, W) -> (B, output_dim, H, W)."""
         h = _conv(self.conv2, torch.relu(_conv(self.conv1, x, dtype)), dtype)
         bn = self.bn
+        # in f32, or in f64 for an f64 DFNet (flax's BN computes in the
+        # module's dtype there)
         return F.batch_norm(
-            h.float(), None if train_bn else bn.running_mean,
+            h.to(torch.promote_types(h.dtype, torch.float32)),
+            None if train_bn else bn.running_mean,
             None if train_bn else bn.running_var, bn.weight, bn.bias,
             training=train_bn, eps=bn.eps).to(dtype)
 

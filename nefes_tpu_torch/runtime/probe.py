@@ -1,11 +1,12 @@
 """Measurement CLI of the port on one NVIDIA GPU: the counterpart of the
-JAX package's runtime/probe.py commands kernelmicro, kernel, perf and
-mode2.
+JAX package's runtime/probe.py commands kernelmicro, kernel, perf, mode2
+and accuracy.
 
     python -m nefes_tpu_torch.runtime.probe kernelmicro [--tiles 512 2048 8192] [--out F]
     python -m nefes_tpu_torch.runtime.probe kernel [--sweep]
     python -m nefes_tpu_torch.runtime.probe perf [--refine_n 3]
     python -m nefes_tpu_torch.runtime.probe mode2 [--iters 50]
+    python -m nefes_tpu_torch.runtime.probe accuracy [--cache F] [--out F]
     (each also takes --device cuda|cpu)
 
 kernelmicro  ablations of the fused field at the fine-pass shape (N =
@@ -26,17 +27,24 @@ perf         the pieces of a refinement iteration through the kernels of
 mode2        mode-2 refinement with DFNet in f32 against bf16, in turns,
              through mode 2's kernels (K5, K7, K8): s/frame and the final
              loss of each
+accuracy     the whole pipeline on a synthetic scene: three-stage field
+             training (K5, K6 +dW, dW), a contrastively finetuned DFNet,
+             a DFNet APR, then mode 2 with the verification fail-safe
+             (K5, K7, K8) and mode 3 (K1, K3, K4) in f32, and the pose
+             accuracy they reach (the JAX command's JSON; the pieces are
+             runtime/accuracy.py)
 
-Inputs are random, from seeds. --device cuda (the default) times with CUDA
-events; --device cpu runs the plain versions and times with the host
-clock (no device number). Every time is the median of n calls after two
-warm calls.
+Inputs (and accuracy's scene and weights) are random, from seeds.
+--device cuda (the default) times with CUDA events; --device cpu runs the
+plain versions and times with the host clock (no device number). Every
+time is the median of n calls after two warm calls.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import time
 
@@ -614,7 +622,423 @@ def cmd_mode2(args) -> dict:
     return res
 
 
-def main(argv=None) -> int:
+# --------------------------------------------------------------------------
+# accuracy: the pipeline end to end, and the pose accuracy it reaches
+# --------------------------------------------------------------------------
+
+def _host_state(module) -> dict:
+    return {k: v.detach().cpu().clone()
+            for k, v in module.state_dict().items()}
+
+
+def cmd_accuracy(args) -> dict:
+    """The JAX probe's accuracy pipeline, with no data from outside: a
+    textured synthetic scene (args.n_train + args.n_test views at
+    args.image_h x args.image_w); the NeFeS field D8/W128/F128 in bf16
+    trained in three stages at H/4 (stage 0 colour, then a seeded random
+    DFNet finetuned contrastively on the stage-0 field's renders, then
+    stages 1 and 2 on its features); the FusionNet liveness probe and
+    collapse guard; the feature quality before and after the closed-form
+    BN calibration; a DFNet APR trained on the train split; then in f32
+    the DFM landscape at the APR's and the true poses, mode 2 over
+    args.refine_lrs x {batch, running} BN statistics with the verification
+    fail-safe (and the fusion bypassed), the retreat proxies, and mode 3
+    over args.mode3_lr_r x args.mode3_lr_t.
+
+    Training runs through K5 / K6 +dW / dW (cli/train.py's "train" path),
+    the frozen renders through K5, mode 2 through K5 / K7 / K8 and mode 3
+    through K1 / K3 / K4 (cli/refine.py's paths); --device cpu runs their
+    plain versions. The random weights are drawn as the JAX command's
+    modules draw theirs (flax's initialisers, utils/init.py), from seeds
+    as its keys: the field 0, the extractor 1, the steps' draws 2, the APR
+    3, the negatives 7 (numpy), a fresh FusionNet 17; batch order numpy
+    0. --cache keeps torch.save
+    state dicts of the stage-0 field, then the trained field and the
+    finetuned extractor, then the APR. Returns (and writes to args.out)
+    the JAX command's result keys."""
+    from dataclasses import replace
+
+    from nefes_tpu_torch.cli.refine import KERNEL_PATHS as REFINE_PATHS
+    from nefes_tpu_torch.cli.train import KERNEL_PATHS as TRAIN_PATHS
+    from nefes_tpu_torch.data.synthetic import make_synthetic_scene
+    from nefes_tpu_torch.evaluation import pose_errors
+    from nefes_tpu_torch.features.dfnet import DFNet, extract_target_features
+    from nefes_tpu_torch.refine import RefineConfig, apr_pose
+    from nefes_tpu_torch.runtime import accuracy as acc
+    from nefes_tpu_torch.train.calibration import calibrate_fusion_bn
+    from nefes_tpu_torch.train.diagnostics import fusion_conv_liveness
+    from nefes_tpu_torch.train.model import ModelConfig, NeFeSModel
+    from nefes_tpu_torch.train.trainer import (
+        create_train_state, make_optimizer,
+    )
+    from nefes_tpu_torch.utils.image import resize_bilinear
+    from nefes_tpu_torch.utils.init import lecun_normal_
+
+    t_start = time.time()
+    dev = torch.device(args.device)
+    print(_device_line(dev), flush=True)
+    HH, WW = args.image_h, args.image_w
+    h, w = HH // acc.TINY, WW // acc.TINY
+    N_TRAIN, N_TEST = args.n_train, args.n_test
+    cache = args.cache
+    cached = None
+    if cache and os.path.exists(cache):
+        cached = torch.load(cache, map_location="cpu")
+        print(f"loaded trained state from {cache}", flush=True)
+
+    scene = make_synthetic_scene(n_views=N_TRAIN + N_TEST, H=HH, W=WW,
+                                 focal=1.15 * WW, texture_amp=args.texture_amp,
+                                 texture_freq=args.texture_freq, device=dev)
+    near, far = scene.near, scene.far
+    train_idx, test_idx = acc.split_views(N_TRAIN, N_TEST)
+    tr_t = torch.as_tensor(train_idx, device=dev)
+    te_t = torch.as_tensor(test_idx, device=dev)
+    images = torch.from_numpy(np.asarray(scene.images, np.float32)).to(dev)
+    poses = torch.from_numpy(np.asarray(scene.poses, np.float32)).to(dev)
+    hists = torch.from_numpy(np.asarray(scene.hists, np.float32)).to(dev)
+
+    cfg = ModelConfig(depth=8, width=128, feature_dim=128,
+                      dtype=torch.bfloat16)      # the paper architecture
+    model = NeFeSModel(cfg, device=dev)
+    lecun_normal_(model, torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_optimizer(
+        model.parameters(), grad_clip=args.grad_clip))
+    base = cfg.render_config(n_samples=64, n_importance=64)
+    rcfg = replace(base, **TRAIN_PATHS["train"])
+    # the frozen renders: the transient heads, which a test render leaves
+    # out of its composite, are not computed (XLA drops them in the JAX
+    # command)
+    tcfg = replace(base.test(), output_transient=False,
+                   **TRAIN_PATHS["test"])
+    hwf = (h, w, float(scene.focal) / acc.TINY)
+    full_hwf = (HH, WW, float(scene.focal))
+    # the frozen feature extractor (random until finetuned)
+    dfnet = DFNet(output_dim=cfg.feature_dim, dtype=torch.bfloat16,
+                  device=dev)
+    lecun_normal_(dfnet, torch.Generator().manual_seed(1))
+    dfnet.requires_grad_(False)
+    data = {"rgb": resize_bilinear(images, h, w), "poses": poses,
+            "hists": hists, "train_idx": train_idx}
+    order = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    @torch.no_grad()
+    def extract_all(imgs, fh, fw):
+        return torch.cat([extract_target_features(dfnet, imgs[i:i + 8], fh,
+                                                  fw)
+                          for i in range(0, imgs.shape[0], 8)])
+
+    def save(d):
+        if cache:
+            torch.save(d, cache)
+
+    if cached is not None and "variables" in cached \
+            and not args.redo_stages:
+        model.load_state_dict(cached["variables"])
+        dfnet.load_state_dict(cached["dfvars_params"])
+        train_psnr = cached["train_psnr"]
+        data["feats"] = extract_all(images, h, w)
+    else:
+        if cached is not None and "s0_variables" in cached:
+            model.load_state_dict(cached["s0_variables"])
+            s0 = cached["s0_variables"]
+            ep_global = args.epochs_color
+            print("stage-0 field from cache", flush=True)
+        else:
+            _, ep_global = acc.run_stages(
+                state, rcfg, data, ((0, args.epochs_color),), 0, order, gen,
+                hwf, near, far)
+            s0 = _host_state(model)
+            save({"s0_variables": s0})
+        if cached is not None and "dfvars_params" in cached:
+            # --redo_stages: the finetuned extractor is kept
+            dfnet.load_state_dict(cached["dfvars_params"])
+            print("finetuned DFNet from cache", flush=True)
+        elif args.feat_steps > 0:
+            # triplets of a real image, the stage-0 field's full-size
+            # render at its pose and at perturbed poses, through the
+            # trainable extractor, compared at half size
+            pos, neg = acc.render_contrastive_set(
+                model, tcfg, poses[tr_t], hists[tr_t], full_hwf, near, far,
+                args.neg_scales, np.random.default_rng(7))
+            acc.finetune_dfnet(dfnet, images[tr_t], pos, neg,
+                               args.feat_steps, args.feat_lr,
+                               args.feat_margin, args.feat_train, gen,
+                               HH // 2, WW // 2)
+            del pos, neg
+        data["feats"] = extract_all(images, h, w)
+        metrics, _ = acc.run_stages(
+            state, rcfg, data, ((1, args.epochs_feat),
+                                (2, args.epochs_fusion)),
+            ep_global, order, gen, hwf, near, far)
+        train_psnr = float(metrics["psnr"])
+        save({"variables": _host_state(model),
+              "dfvars_params": _host_state(dfnet), "s0_variables": s0,
+              "train_psnr": train_psnr})
+    feats = data["feats"]
+
+    # FusionNet's liveness on a training view's render; a layer under 1 %
+    # live has collapsed: a fresh FusionNet and stage 2 once more
+    def liveness():
+        i0 = tr_t[:1]
+        rgb, raw = acc.render_views(model, tcfg, poses[i0], hists[i0], hwf,
+                                    near, far)
+        return fusion_conv_liveness(model.fusion, rgb[0], raw[0])
+
+    live = liveness()
+    fusion_retry = False
+    if any(v < 0.01 for v in live.values()):
+        fusion_retry = True
+        print(f"FUSION COLLAPSE detected (liveness {live}); reinit fusion "
+              "+ one stage-2 retrain", flush=True)
+        acc.reset_fusion(model, 17)
+        state.tx = make_optimizer(model.parameters(),
+                                  grad_clip=args.grad_clip)
+        retry_ep = args.epochs_color + args.epochs_feat + args.epochs_fusion
+        metrics, _ = acc.run_stages(state, rcfg, data,
+                                    ((2, args.epochs_fusion),), retry_ep,
+                                    order, gen, hwf, near, far)
+        train_psnr = float(metrics["psnr"])
+        live = liveness()
+        save({"variables": _host_state(model),
+              "dfvars_params": _host_state(dfnet), "train_psnr": train_psnr})
+    print(f"fusion liveness: {live}", flush=True)
+    model.requires_grad_(False)
+
+    def cos_eval():
+        return acc.feature_cos_eval(model, tcfg, poses[te_t], hists[te_t],
+                                    feats[te_t], hwf, near, far)
+
+    calibration = None
+    if args.calibrate_fusion:
+        cf_pre, cfr_pre, _ = cos_eval()
+        K = args.calib_views
+        rgbs, raws = acc.render_views(model, tcfg, poses[tr_t[:K]],
+                                      hists[tr_t[:K]], hwf, near, far)
+        calibration = calibrate_fusion_bn(model, rgbs, raws, feats[tr_t[:K]])
+        calibration["views"] = K
+        calibration["feat_cos_fused_precal"] = round(float(np.mean(cf_pre)),
+                                                     4)
+        calibration["feat_cos_fused_running_precal"] = round(
+            float(np.mean(cfr_pre)), 4)
+        print("fusion BN calibration:", json.dumps(calibration), flush=True)
+    cos_fused, cos_fused_run, cos_raw = cos_eval()
+
+    # the DFNet APR, trained on the train split
+    apr = DFNet(output_dim=cfg.feature_dim, dtype=torch.bfloat16, device=dev)
+    lecun_normal_(apr, torch.Generator().manual_seed(3))
+    if cached is not None and "apr_params" in cached and not args.redo_apr:
+        apr.load_state_dict(cached["apr_params"])
+        print("APR from cache", flush=True)
+    else:
+        acc.train_apr(apr, images, poses.reshape(-1, 12), train_idx,
+                      args.apr_steps, args.apr_lr, gen)
+        if cache and os.path.exists(cache):
+            cdict = torch.load(cache, map_location="cpu")
+            cdict["apr_params"] = _host_state(apr)
+            torch.save(cdict, cache)
+            print(f"saved APR to {cache}", flush=True)
+    apr.requires_grad_(False)
+
+    # refinement in f32: the trained parameters under f32 modules
+    test_imgs, test_hists = images[te_t], hists[te_t]
+    targets = extract_all(test_imgs, HH, WW)
+    cfg_r = replace(cfg, dtype=torch.float32)
+    model_r = NeFeSModel(cfg_r, device=dev)
+    model_r.load_state_dict(model.state_dict())
+    model_r.requires_grad_(False)
+    apr_r = DFNet(output_dim=cfg.feature_dim, dtype=torch.float32, device=dev)
+    apr_r.load_state_dict(apr.state_dict())
+    apr_r.requires_grad_(False)
+    base_r = cfg_r.render_config(n_samples=64, n_importance=64,
+                                 output_transient=False, perturb=False).test()
+    land_cfg = replace(base_r, **TRAIN_PATHS["test"])
+
+    # the DFM landscape: the loss the refiner descends, at the APR's pose
+    # and at the true one, fused (both BN modes) and raw
+    with torch.no_grad():
+        apr_poses0 = torch.stack([apr_pose(apr, test_imgs[i], svd_reg=True)
+                                  for i in range(N_TEST)])
+        packed = model_r.pack_fused()
+    at_init, at_gt = (np.array([
+        acc.dfm_losses_at(model_r, land_cfg, p[i], test_hists[i], targets[i],
+                          hwf, (HH, WW), near, far, packed)
+        for i in range(N_TEST)]) for p in (apr_poses0, poses[te_t]))
+    landscape = acc.landscape_summary(at_init, at_gt)
+    print("DFM landscape:", json.dumps(landscape), flush=True)
+    ws_vec = torch.tensor([1.0, 1.0, 0.0, 0.0, 0.0], device=dev)
+    gt = scene.poses[test_idx]
+    m2_cfg = replace(base_r, **REFINE_PATHS[2])
+
+    def run_refine(lr, iters, per_pixel=False, fusion="batch"):
+        return acc.run_refine(model_r, apr_r, test_imgs, targets, test_hists,
+                              ws_vec, hwf, full_hwf, near, far, m2_cfg, gt,
+                              lr, iters, per_pixel, fusion,
+                              args.refine_chunk)
+
+    configs = [(lr, args.opt_iter, bool(args.per_pixel))
+               for lr in args.refine_lrs]
+    if args.sweep_pp:
+        configs += [(lr, args.opt_iter, not bool(args.per_pixel))
+                    for lr in args.refine_lrs]
+    if args.sweep_refine:
+        configs += [(2e-6, 150, False), (1e-5, 50, True), (7e-6, 50, True),
+                    (5e-6, 50, True), (5e-6, 100, True), (3e-6, 100, True)]
+    if args.sweep_small:
+        configs = [(lr, args.opt_iter, True) for lr in args.refine_lrs] \
+            + [(2e-6, 150, False)]
+    # both BN operating points; the headline is the best over both
+    runs = [run_refine(*c) for c in configs] \
+        + [run_refine(*c, fusion="running") for c in configs]
+    for r in runs:
+        print(f"refine lr={r['lr']} iters={r['iters']} pp={r['per_pixel']} "
+              f"fusion={r['fusion']}: median {r['median_t']:.4f} m / "
+              f"{r['median_r']:.3f} deg (init "
+              f"{np.median(r['err_init'][:, 0]):.4f} m / "
+              f"{np.median(r['err_init'][:, 1]):.3f} deg)", flush=True)
+    best = min(runs, key=lambda r: r["median_t"])
+
+    # the same sweep with the FusionNet bypassed (raw rendered features)
+    raw_runs = [run_refine(*c, fusion="none") for c in configs]
+    fusion_ablation = {}
+    for name, sel in (("fused_batch", [r for r in runs
+                                       if r["fusion"] == "batch"]),
+                      ("raw", raw_runs),
+                      ("fused_running", [r for r in runs
+                                         if r["fusion"] == "running"])):
+        r = min(sel, key=lambda r: r["median_t"])
+        fusion_ablation[name] = {
+            "lr": r["lr"], "median_t_m": r["median_t"],
+            "median_r_deg": r["median_r"],
+            "improved_frames_frac": float(np.mean(
+                r["err_ver"][:, 0] < r["err_init"][:, 0]))}
+        print(f"fusion ablation {name}: {fusion_ablation[name]}", flush=True)
+    out, verified = best["out"], best["verified"]
+    refined, init_poses = best["refined"], best["init_poses"]
+    err_init, err_ver = best["err_init"], best["err_ver"]
+    err_ref = pose_errors(refined, gt)
+    # the landscape column of the headline's BN mode
+    win_col = 0 if best["fusion"] == "batch" else 2
+    retreated = np.any(verified != refined, axis=(1, 2))
+    ver_confusion, degraded = acc.verification_confusion(err_init, err_ref,
+                                                         retreated)
+    proxies = acc.proxy_comparison(np.asarray(out["losses"]), retreated,
+                                   degraded, init_poses, refined, gt,
+                                   err_init)
+    print("proxy comparison:", json.dumps(proxies), flush=True)
+
+    # mode 3 from the APR's poses, lr_r x lr_t swept
+    targets_rs = extract_all(test_imgs, h, w)
+    err_m3_init = pose_errors(apr_poses0.cpu().numpy(), gt)
+    m3_cfg = replace(base_r, **REFINE_PATHS[3])
+    ch3 = max(1, 2 * args.refine_chunk)
+    m3_runs = []
+    for lr_r in args.mode3_lr_r:
+        for lr_t in args.mode3_lr_t:
+            rfc3 = RefineConfig(opt_iter=args.opt_iter, lr_r=lr_r, lr_t=lr_t,
+                                per_pixel=best["per_pixel"],
+                                fusion=best["fusion"])
+            parts = [acc.refine_poses_batch(
+                model_r, apr_poses0[s:s + ch3], targets_rs[s:s + ch3],
+                test_hists[s:s + ch3], scene.world, hwf, m3_cfg,
+                rfc3)[0].cpu().numpy() for s in range(0, N_TEST, ch3)]
+            e = pose_errors(np.concatenate(parts), gt)
+            m3_runs.append({
+                "lr_r": lr_r, "lr_t": lr_t,
+                "median_t_m": float(np.median(e[:, 0])),
+                "median_r_deg": float(np.median(e[:, 1])),
+                "improved_t_frac": float(np.mean(e[:, 0]
+                                                 < err_m3_init[:, 0])),
+                "improved_r_frac": float(np.mean(e[:, 1]
+                                                 < err_m3_init[:, 1]))})
+            print(f"mode-3 lr_r={lr_r} lr_t={lr_t}: {m3_runs[-1]}",
+                  flush=True)
+    t0m, r0m = (float(np.median(err_m3_init[:, 0])),
+                float(np.median(err_m3_init[:, 1])))
+    best_m3 = acc.best_mode3(m3_runs, t0m, r0m)
+    verdict = "improves" if best_m3["median_r_deg"] <= r0m else "DEGRADES"
+    mode3 = {
+        "mode3_median_t_after_m": best_m3["median_t_m"],
+        "mode3_median_r_after_deg": best_m3["median_r_deg"],
+        "mode3_median_t_before_m": t0m,
+        "mode3_median_r_before_deg": r0m,
+        "mode3_improved_frames_frac": best_m3["improved_t_frac"],
+        "mode3_improved_rot_frames_frac": best_m3["improved_r_frac"],
+        "mode3_lr_r": best_m3["lr_r"],
+        "mode3_lr_t": best_m3["lr_t"],
+        "mode3_lr_r_sweep": m3_runs,
+        "mode3_note": (
+            "lr_r swept; best by summed relative (t, r) improvement. "
+            f"rotation median {verdict} vs the unrefined APR ({r0m:.3f} -> "
+            f"{best_m3['median_r_deg']:.3f} deg) — reported either way."),
+    }
+    print("mode-3:", json.dumps(mode3), flush=True)
+
+    result = {
+        "pipeline": "3-stage train -> DFNet APR -> mode-2 + verification",
+        "image_hw": [HH, WW], "n_train_views": int(N_TRAIN),
+        "field": "D8/W128/F128 bf16",
+        "opt_iter": best["iters"], "frames": int(N_TEST),
+        "per_pixel_dfm": best["per_pixel"],
+        "train_psnr_db": round(train_psnr, 2),
+        "refine_lr": best["lr"],
+        "feat_cos_loss_fused_renderscale": round(float(np.mean(cos_fused)),
+                                                 4),
+        "feat_cos_loss_fused_running_renderscale": round(
+            float(np.mean(cos_fused_run)), 4),
+        "feat_cos_loss_raw_renderscale": round(float(np.mean(cos_raw)), 4),
+        "headline_fusion_bn": best["fusion"],
+        "fusion_beats_raw_at_dfm_scale": bool(
+            float(np.median(at_init[:, win_col]))
+            < landscape["dfm_loss_at_init_raw"]),
+        "fusion_relief_beats_raw": bool(
+            acc.relief(at_init, at_gt, win_col)
+            >= landscape["dfm_relief_raw_pct"]),
+        "fusion_ablation": fusion_ablation,
+        "fusion_beats_raw_final_medians": bool(
+            best["median_t"] <= fusion_ablation["raw"]["median_t_m"]),
+        "median_t_before_m": float(np.median(err_init[:, 0])),
+        "median_t_after_m": float(np.median(err_ver[:, 0])),
+        "median_r_before_deg": float(np.median(err_init[:, 1])),
+        "median_r_after_deg": float(np.median(err_ver[:, 1])),
+        "median_t_after_no_verif_m": float(np.median(err_ref[:, 0])),
+        "median_r_after_no_verif_deg": float(np.median(err_ref[:, 1])),
+        "retreat_frames": int(np.sum(retreated)),
+        "frames_worse_after_verification": int(np.sum(
+            err_ver[:, 0] > err_init[:, 0] + 1e-9)),
+        "verification_confusion": ver_confusion,
+        "proxy_comparison": proxies,
+        "improved_frames_frac": float(np.mean(err_ver[:, 0]
+                                              < err_init[:, 0])),
+        "dfm_relief_fused_pct": acc.relief(at_init, at_gt, win_col),
+        **mode3,
+        **landscape,
+        "fusion_liveness": live,
+        "fusion_collapse_retry": fusion_retry,
+        "fusion_bn_calibration": calibration,
+        "grad_clip": args.grad_clip,
+        "texture_amp": args.texture_amp,
+        "texture_freq": args.texture_freq,
+        "wall_s": round(time.time() - t_start, 1),
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+    }
+    result["t_improvement_x"] = round(
+        result["median_t_before_m"] / max(result["median_t_after_m"], 1e-9),
+        2)
+    result["r_improvement_x"] = round(
+        result["median_r_before_deg"]
+        / max(result["median_r_after_deg"], 1e-9), 2)
+    print(json.dumps(result, indent=1), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    return result
+
+
+def parser() -> argparse.ArgumentParser:
+    """The commands and their flags; accuracy's are the JAX command's at
+    its defaults (runtime/probe.py:1719-1800) but --out."""
     common = argparse.ArgumentParser(add_help=False)
     common.add_argument("--device", default="cuda",
                         help="cuda (the card) or cpu (the plain versions)")
@@ -632,12 +1056,70 @@ def main(argv=None) -> int:
     p2 = sub.add_parser("mode2", parents=[common])
     p2.add_argument("--iters", type=int, default=50,
                     help="refinement iterations a frame")
+    pa = sub.add_parser("accuracy", parents=[common])
+    pa.add_argument("--image_h", type=int, default=192)
+    pa.add_argument("--image_w", type=int, default=256)
+    pa.add_argument("--n_train", type=int, default=60)
+    pa.add_argument("--epochs_color", type=int, default=120)
+    pa.add_argument("--epochs_feat", type=int, default=100)
+    pa.add_argument("--epochs_fusion", type=int, default=200)
+    pa.add_argument("--apr_steps", type=int, default=1500)
+    pa.add_argument("--apr_lr", type=float, default=2e-4)
+    pa.add_argument("--refine_lrs", type=float, nargs="+",
+                    default=[6e-6, 4e-6, 3e-6],
+                    help="mode-2 APR learning rates swept")
+    pa.add_argument("--opt_iter", type=int, default=50)
+    pa.add_argument("--n_test", type=int, default=32)
+    pa.add_argument("--per_pixel", type=int, default=1,
+                    help="per-pixel DFM loss for the main lr sweep")
+    pa.add_argument("--sweep_refine", action="store_true")
+    pa.add_argument("--sweep_small", action="store_true")
+    pa.add_argument("--feat_steps", type=int, default=600)
+    pa.add_argument("--feat_lr", type=float, default=5e-5)
+    pa.add_argument("--feat_margin", type=float, default=0.3)
+    pa.add_argument("--feat_train", choices=["all", "adapt"], default="all",
+                    help="finetune every DFNet group but fc_pose, or the "
+                         "adapt blocks only")
+    pa.add_argument("--neg_scales", type=float, nargs="+", default=[1.0, 0.5],
+                    help="pose-perturbation scales of the contrastive "
+                         "negatives")
+    pa.add_argument("--mode3_lr_r", type=float, nargs="+",
+                    default=[0.001, 0.002, 0.004])
+    pa.add_argument("--mode3_lr_t", type=float, nargs="+", default=[0.01])
+    pa.add_argument("--sweep_pp", action="store_true",
+                    help="also run the refine_lrs with the opposite "
+                         "per_pixel setting")
+    pa.add_argument("--redo_apr", action="store_true",
+                    help="retrain the APR even if the cache has one")
+    pa.add_argument("--cache", default="",
+                    help="torch.save path to keep and reuse the trained "
+                         "field, extractor and APR")
+    pa.add_argument("--texture_freq", type=float, default=1.0)
+    pa.add_argument("--calibrate_fusion", type=int, default=1,
+                    help="closed-form trailing-BN affine calibration after "
+                         "training")
+    pa.add_argument("--calib_views", type=int, default=6)
+    pa.add_argument("--refine_chunk", type=int, default=8,
+                    help="frames a refine_apr_batch call (mode 3: twice)")
+    pa.add_argument("--texture_amp", type=float, default=0.6)
+    pa.add_argument("--grad_clip", type=float, default=1.0,
+                    help="global-norm clip of field training (0 = off)")
+    pa.add_argument("--redo_stages", action="store_true",
+                    help="retrain stages 1-2 from the cache's stage-0 field "
+                         "and finetuned extractor")
+    pa.add_argument("--out", default="ACCURACY_torch.json")
+    return p
+
+
+def main(argv=None) -> int:
+    p = parser()
     args = p.parse_args(argv)
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         p.error("no CUDA device; --device cpu runs the plain versions")
     {"kernelmicro": cmd_kernelmicro, "kernel": cmd_kernel,
-     "perf": cmd_perf, "mode2": cmd_mode2}[args.cmd](args)
+     "perf": cmd_perf, "mode2": cmd_mode2,
+     "accuracy": cmd_accuracy}[args.cmd](args)
     return 0
 
 

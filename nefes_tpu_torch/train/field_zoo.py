@@ -39,6 +39,7 @@ from nefes_tpu_torch.fields.embedder import EmbedConfig
 from nefes_tpu_torch.fields.hashgrid import NeRFHTcnn
 from nefes_tpu_torch.fields.legacy import NeRFW, PlainNeRF
 from nefes_tpu_torch.render.renderer import RenderConfig
+from nefes_tpu_torch.utils.init import lecun_normal_
 
 IDENTITY = EmbedConfig(num_freqs=0, max_freq_log2=0)
 
@@ -150,14 +151,7 @@ class ZooFieldModel(nn.Module):
             elif name.endswith("embedding"):
                 p.copy_(torch.randn(p.shape, generator=generator)
                         * p.shape[0] ** -0.5)
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                # flax's lecun_normal: truncated at 2 std, the std
-                # corrected for the truncation
-                std = mod.in_features ** -0.5 / .87962566103423978
-                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
-                                      2 * std, generator=generator)
-                mod.bias.zero_()
+        lecun_normal_(self, generator)
 
     # --- the latents (run_network_NeRFH, nerfh.py:216-227) ---
 

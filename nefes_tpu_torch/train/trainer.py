@@ -178,7 +178,10 @@ class Adam:
             p.grad = None
 
     @torch.no_grad()
-    def step(self, lr: float) -> None:
+    def updates(self) -> list:
+        """Advance the moments by the parameters' gradients; returns each
+        parameter's bias-corrected Adam direction (before the learning
+        rate)."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         if self.grad_clip > 0:
@@ -186,10 +189,17 @@ class Adam:
         self.count += 1
         bc1 = 1.0 - self.b1 ** self.count
         bc2 = 1.0 - self.b2 ** self.count
-        for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
+        out = []
+        for g, m, v in zip(grads, self.mu, self.nu):
             m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            p.add_((m / bc1) / (torch.sqrt(v / bc2) + self.eps), alpha=-lr)
+            out.append((m / bc1) / (torch.sqrt(v / bc2) + self.eps))
+        return out
+
+    @torch.no_grad()
+    def step(self, lr: float) -> None:
+        for p, u in zip(self.params, self.updates()):
+            p.add_(u, alpha=-lr)
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": list(self.mu),
@@ -413,8 +423,11 @@ def train_step_patch(state: TrainState, cfg: RenderConfig, batch: dict,
     Returns (state, loss, metrics); the state is updated in place."""
     H, W, _ = hwf
     dev = batch["poses"].device
-    corners = [torch.randint(0, n - CROP_SIZE, (NUM_CROPS,), generator=gen,
-                             device=gen.device).to(dev) for n in (H, W)]
+    # jax.random.randint gives minval where maxval <= minval: an image
+    # one patch wide takes corner 0
+    corners = [torch.randint(0, max(n - CROP_SIZE, 1), (NUM_CROPS,),
+                             generator=gen, device=gen.device).to(dev)
+               for n in (H, W)]
     loss, metrics, new_stats = patch_loss(state.model, cfg, batch, *corners,
                                           gen, hwf, near, far, window)
     apply_gradients(state, loss, lr)

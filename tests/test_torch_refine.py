@@ -225,7 +225,8 @@ _SERVING_MODULES = (
     "features/convert.py", "refine/graph.py", "geometry/transforms.py",
     "refine/pose_opt.py", "features/backbones.py", "features/posenet.py",
     "features/mstransformer.py", "features/apr_loader.py",
-    "features/convert_backbones.py", "weights.py")
+    "features/convert_backbones.py", "weights.py", "runtime/probe.py",
+    "runtime/accuracy.py")
 
 
 def test_port_imports_no_jax():
