@@ -7,8 +7,10 @@ H100: the kernels build for sm_90a).
 Phases:
   build  compile the CUDA kernels from csrc/ (nvcc, one process per
          source, in parallel) into nefes_tpu_torch/_build/; with --parent
-         also DIR's fused_render.cu and fused_field.cu, in parallel; each
-         kernel's ptxas registers and stack frame; the render kernels'
+         also DIR's fused_render.cu, fused_field.cu and micro.cu, in
+         parallel; each kernel's ptxas registers and stack frame; the
+         micro chain kernels' shared memory a CTA and CTAs per SM, K11's
+         CTAs per SM and piece; the render kernels'
          shared memory a block, blocks per SM and the backward's global
          scratch a ray; K1/K5's shared memory a block and blocks per SM in
          sigma and full mode (coarse tower) and transient mode (fine
@@ -152,14 +154,18 @@ Phases:
          chunk
   micro  the probe's kernelmicro (nefes_tpu_torch/runtime/probe.py) at the
          fine-pass shape, N = 614,400 rows: K9 (bare bf16 8-layer chain)
-         at tiles 64 (micro.cu's sub-tile), 512, 2048, 8192, K10 (2 and
-         4 sub-tiles interleaved),
+         at tiles 64 (micro.cu's m-tile), 512, 2048, 8192, K10 (2 and
+         4 m-tiles in flight against each weight slice),
          K11 (the sin/cos embedding alone) at each tile, K12 (square
          chains of width 128 and 256), then K5, K1 and K1 + K2, each
          timed beside its bound, its plain version and a bf16
          torch.matmul chain; then K9-K12 against their plain versions at
-         every tile and width (relative L2; K11 bit for bit; K10 equal to
-         K9)
+         every tile and width (relative L2; K11 bit for bit; K10 at every
+         nb the kernel takes equal to K9 and to K12 at w128 and w256);
+         with --parent DIR also DIR's K9 at each tile, K10 x2 / x4, K11
+         at each tile and K12 at both widths, each checked against its
+         plain version first, and this tree's in turns (parent, this,
+         this, parent; the median of 10 each)
   probe  the probe's kernel (K5/K6 against the plain field in f32 and
          bf16, K7/K8 against the plain fine pass and compositor), perf
          (the pieces of a mode-3 iteration through K1, K3, K4; one timed
@@ -300,7 +306,20 @@ WIDE_S, WIDE_R = (256, 384, 1024), 64
 # which is not a multiple of the 128-sample block tile
 RAGGED = 37
 # the libraries of an earlier tree (--parent) that the time phase times
-PARENT_LIBS = ("fused_render", "fused_field")
+PARENT_LIBS = ("fused_render", "fused_field", "micro")
+# the micro phase: the probe's rows (H x W x 128), its tiles and 64 rows
+# (micro.cu's m-tile), the chain kernels the probe runs (nb, E, W), and
+# the first design's times (PERF.md, an H100 80GB HBM3 at 700 W), printed
+# beside the parent turns
+MICRO_N, MICRO_TILES = 614400, (64, 512, 2048, 8192)
+MICRO_CHAINS = ((1, 64, 128), (2, 64, 128), (4, 64, 128), (1, 128, 128),
+                (1, 256, 256))
+MICRO_EARLIER_MS = {"K9 tile 64": 5.808, "K9 tile 512": 6.584,
+                    "K9 tile 2048": 8.020, "K9 tile 8192": 15.062,
+                    "K10 x2": 7.899, "K10 x4": 9.272, "K11 tile 64": 0.179,
+                    "K11 tile 512": 0.235, "K11 tile 2048": 0.307,
+                    "K11 tile 8192": 1.056, "K12 w128": 8.615,
+                    "K12 w256": 15.404}
 # the field kernels' modes by number (csrc/tower.cuh Mode)
 MODES = ("sigma", "full", "transient")
 # kernel -> (the TPU kernel it replaces, its CUDA source)
@@ -417,6 +436,21 @@ def main() -> int:
                 elif "registers" in line or "spill" in line:
                     log(f"  ptxas {'parent ' if where else ''}{name} "
                         f"{entry}: {line.strip()}")
+        # the micro kernels at the probe's N: the chain's dynamic shared
+        # memory a CTA and CTAs an SM (its ptxas registers are the launch
+        # bound's 168; setmaxnreg gives the consumers 232, the producer
+        # 40), K11's CTAs an SM and the rows of its piece by tile
+        mlib = build.library("micro")
+        sms = mlib.nefes_micro_sms()
+        for nb, E, W_ in MICRO_CHAINS:
+            grid = mlib.nefes_micro_chain_grid(1, MICRO_N, 64, nb, E, W_)
+            log(f"micro chain E={E} W={W_} nb={nb}: "
+                f"{mlib.nefes_micro_chain_smem(nb, E, W_)} B of shared "
+                f"memory a CTA, {grid / sms:g} CTAs per SM ({sms} SMs)")
+        for tile in MICRO_TILES:
+            grid, rows = km.embed_grid(MICRO_N, tile)
+            log(f"micro embed tile {tile}: {grid} CTAs ({grid / sms:g} "
+                f"per SM), pieces of {rows} rows")
         # the render kernels at full width (D8/W128/F128), at the main
         # path's 128 samples and the check phase's: dynamic shared memory
         # of a block, blocks per SM, the backward's global scratch a ray
@@ -2343,8 +2377,7 @@ def main() -> int:
 
     def do_micro():
         from types import SimpleNamespace
-        # the JAX probe's tiles, and 64 rows (micro.cu's sub-tile, TR)
-        tiles = [64, 512, 2048, 8192]
+        tiles = list(MICRO_TILES)
         out, secs, counts = counted("micro", lambda: probe.cmd_kernelmicro(
             SimpleNamespace(device="cuda", tiles=tiles, out="")))
         log(f"micro: kernelmicro in {secs:.1f} s, launches {counts}")
@@ -2356,7 +2389,7 @@ def main() -> int:
                 launches=counts[name], path=f"probe kernelmicro ({key})")
         # each kernel against its plain version, at every tile and width
         # of the run (these launches are not the path's)
-        ins = probe.micro_inputs(dev, probe.H * probe.W * 128)
+        ins = probe.micro_inputs(dev, MICRO_N)
         cw, x, pts = ins["chain"], ins["x"], ins["pts"]
         bf = "bfloat16"
         with torch.no_grad():
@@ -2380,14 +2413,111 @@ def main() -> int:
                         (want,))
                 if not torch.equal(got, want):
                     raise AssertionError(f"K11 tile {tile}: not bit for bit")
-            log("K10 equals K9 at tile 2048; K11 equals its plain version "
-                "bit for bit at every tile")
+            del want, got
             for w_, tile in ((128, 2048), (256, 512)):
                 scw, sx = ins["sq"][w_]
-                compare("K12 chain_sq", f"w{w_} tile {tile}", bf,
-                        (km.chain_sq(scw, sx, tile),),
+                sq = km.chain_sq(scw, sx, tile)
+                compare("K12 chain_sq", f"w{w_} tile {tile}", bf, (sq,),
                         (km.chain_plain(scw, sx),))
+                # K10 on the square chain at every nb the kernel takes
+                for nb in ((2, 4) if w_ <= 128 else (2,)):
+                    if not torch.equal(km.chain_interleaved(scw, sx, tile,
+                                                            nb), sq):
+                        raise AssertionError(f"K10 x{nb} differs from K12 "
+                                             f"at w{w_}")
+            log("K10 equals K9 at tile 2048 (x2, x4) and K12 at w128 (x2, "
+                "x4) and w256 (x2); K11 equals its plain version bit for "
+                "bit at every tile")
+            if parent:
+                micro_turns(ins)
         torch.cuda.empty_cache()
+
+    @torch.no_grad()
+    def micro_turns(ins):
+        """The parent tree's micro kernels against this tree's, in turns:
+        K9 at each tile, K10 x2 / x4 at tile 2048, K11 at each tile, K12
+        at w128 (tile 2048) and w256 (tile 512). The parent's chain reads
+        the weights as its own pack_chain laid them out (the matrices
+        row-major, one after another); each of its kernels is checked
+        against the plain version first (relative L2; K11 bit for bit).
+        5 rounds of parent, this, this, parent, each time over
+        probe.MICRO_CALLS launches: the median of 10 each."""
+        plib = build.library("micro", **parent)
+        cw, x, pts = ins["chain"], ins["x"], ins["pts"]
+        stream = kf._stream
+        bf = torch.bfloat16
+
+        def parent_chain(c, xx, tile, nb):
+            flat = torch.cat([w.reshape(-1) for w in c.ws])
+            o = torch.empty((xx.shape[0], c.W), dtype=bf, device=dev)
+
+            def run():
+                kf.raise_on(plib.nefes_micro_chain(
+                    1, xx.shape[0], tile, nb, c.E, c.W, c.D, xx.data_ptr(),
+                    flat.data_ptr(), o.data_ptr(), stream()), "parent chain")
+                return o
+            return run
+
+        def parent_embed(tile):
+            o = torch.empty((pts.shape[0], km.EMBED_COLS), dtype=bf,
+                            device=dev)
+
+            def run():
+                kf.raise_on(plib.nefes_micro_embed(
+                    1, pts.shape[0], tile, pts.data_ptr(), o.data_ptr(),
+                    stream()), "parent embed")
+                return o
+            return run
+
+        cases = {}
+        for tile in MICRO_TILES:
+            cases[f"K9 tile {tile}"] = (
+                parent_chain(cw, x, tile, 1),
+                lambda tile=tile: km.chain(cw, x, tile),
+                lambda: km.chain_plain(cw, x), False)
+        for nb in (2, 4):
+            cases[f"K10 x{nb}"] = (
+                parent_chain(cw, x, 2048, nb),
+                lambda nb=nb: km.chain_interleaved(cw, x, 2048, nb),
+                lambda: km.chain_plain(cw, x), False)
+        for tile in MICRO_TILES:
+            cases[f"K11 tile {tile}"] = (
+                parent_embed(tile),
+                lambda tile=tile: km.embed_micro(pts, tile),
+                lambda: km.embed_micro_plain(pts), True)
+        for w_, tile in ((128, 2048), (256, 512)):
+            scw, sx = ins["sq"][w_]
+            cases[f"K12 w{w_}"] = (
+                parent_chain(scw, sx, tile, 1),
+                lambda scw=scw, sx=sx, tile=tile: km.chain_sq(scw, sx, tile),
+                lambda scw=scw, sx=sx: km.chain_plain(scw, sx), False)
+        saved = snapshot_counts()
+        for label, (par, this, plain, exact) in cases.items():
+            want = plain()
+            got = par()
+            l2 = float((got.float() - want.float()).norm()
+                       / want.float().norm())
+            if not l2 <= TOL["bfloat16"] or exact and not torch.equal(got,
+                                                                      want):
+                raise AssertionError(f"parent {label}: rel_l2 {l2:.3e}")
+            del got, want
+            fns = {"parent": par, "this": this}
+            times = {k: [] for k in fns}
+            for f in (par, this, this, par):     # warm
+                f()
+            calls = probe.MICRO_CALLS
+            for _ in range(5):
+                for k in ("parent", "this", "this", "parent"):
+                    times[k].append(event_ms(
+                        lambda f=fns[k]: [f() for _ in range(calls)]) / calls)
+            ms = {k: statistics.median(v) for k, v in times.items()}
+            log(f"micro {label} in turns (first design "
+                f"{MICRO_EARLIER_MS[label]} ms, PERF.md): parent {ms['parent']:.4f} ms (rel_l2 "
+                f"{l2:.2e} against plain), this tree {ms['this']:.4f} ms "
+                f"({ms['parent'] / ms['this']:.2f}x faster); times "
+                + "; ".join(f"{k} {[round(t, 4) for t in v]}"
+                            for k, v in times.items()))
+        restore_counts(saved)     # timing launches are not the path's
 
     phase("micro", do_micro)
 
@@ -2644,6 +2774,12 @@ def kernel_label(line: str) -> str:
                 f"{'raw' if flags[:1] == ['1'] else 'pre'},"
                 f"{MODES[int(mode[0])] if mode else '?'},"
                 f"{'dW' if flags[1:2] == ['1'] else 'frozen'}>")
+    if "chain_kernel" in name:
+        shape = re.findall(r"Li(\d+)E", name)   # E, W, MT (an earlier tree:
+        return (f"chain_kernel<E={shape[0]},W={shape[1]},MT={shape[2]}>"
+                if len(shape) == 3 else f"chain_kernel<{dt}>")   # none)
+    if "embed_kernel" in name:
+        return f"embed_kernel<{dt}>"
     for kern in ("render_bwd_kernel", "render_fwd_kernel"):
         if kern in name:
             flags = re.findall(r"Lb([01])", name)   # RAW, then GLOBAL

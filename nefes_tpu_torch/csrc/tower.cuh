@@ -1,10 +1,11 @@
 // Shared device code of the NeRFH-NFF tower kernels: the dims, layout,
 // rounding helpers and embedding every kernel reads, the dW operands' slot
-// layout that the field backward writes and field_dw.cuh reads, and
-// micro.cu's block product (block_mm). The tower itself, forward and
-// backward, runs on render_bwd.cuh's warp path in every kernel: the field
-// forward K1/K5 and backward K2/K6 in every mode and the render kernels
-// K3/K4/K7/K8.
+// layout that the field backward writes and field_dw.cuh reads, and the
+// warp path's bf16 pair and mma.sync product. The tower itself, forward
+// and backward, runs on render_bwd.cuh's warp path in every kernel: the
+// field forward K1/K5 and backward K2/K6 in every mode and the render
+// kernels K3/K4/K7/K8. micro.cu's chain (K9/K10/K12) has its own wgmma
+// path.
 //
 // Mirrors the Pallas kernels of nefes_tpu/kernels/fused_field.py
 // (_embed_block, _tower_tile, _mlp_backward, pre=True or False,
@@ -52,7 +53,7 @@ namespace nefes { constexpr bool HAS_BF16 = true; }
 namespace nefes {
 
 constexpr int NT = 256;       // threads per block
-constexpr int TR = 64;        // rows of a head bias sum tile (dW), of a micro.cu sub-tile
+constexpr int TR = 64;        // rows of a head bias sum tile (dW), of a micro.cu m-tile
 constexpr int MAX_DEPTH = 16;
 constexpr float LOG_EPS = 1e-10f;   // transmittance log floor
 constexpr float DELTA_INF = 1e2f;   // compositor tail delta
@@ -264,15 +265,9 @@ __device__ __forceinline__ void store8(T* p, const float (&v)[8]) {
 }
 
 #ifndef NEFES_EMULATE
-// Tensor-core product for bf16 (micro.cu's chains; pack_bf16x2 and
-// mma_bf16 are also the warp path's): mma.sync m16n8k16 (bf16 in, f32
-// accumulate). A warp owns a 16-row by (MMA_G x 8)-column block; the A
-// fragment is built from A(r, k) (values already bf16-representable, so
-// the conversion is exact) and reused across the block's n-tiles; B
-// fragments are read from the (K, N) matrix through L1. K and N need not
-// be multiples of 16 and 8: the ragged edge reads zeros.
-constexpr int MMA_G = 4;
-
+// The tensor-core pieces of the warp path (render_bwd.cuh, field_dw.cuh):
+// two f32 values as a bf16 pair, and mma.sync m16n8k16 (bf16 in, f32
+// accumulate).
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -286,94 +281,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-template <typename AFn, typename Epi>
-__device__ __forceinline__ void block_mm_mma(int K, int N,
-                                             const __nv_bfloat16* __restrict__ B, int ldb,
-                                             AFn A, Epi epi) {
-  const unsigned short* Bu = reinterpret_cast<const unsigned short*>(B);
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int n_tiles = (N + 7) >> 3;
-  const int items = (TR / 16) * ((n_tiles + MMA_G - 1) / MMA_G);
-  auto a_at = [&](int r, int k) { return k < K ? A(r, k) : 0.f; };
-  auto b_at = [&](int k, int n) -> uint32_t {
-    return (k < K && n < N) ? Bu[(size_t)k * ldb + n] : 0u;
-  };
-  for (int it = threadIdx.x >> 5; it < items; it += blockDim.x >> 5) {
-    const int r0 = (it % (TR / 16)) * 16 + g, r1 = r0 + 8;
-    const int nt0 = (it / (TR / 16)) * MMA_G;
-    float acc[MMA_G][4];
-#pragma unroll
-    for (int j = 0; j < MMA_G; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      const int ka = k0 + 2 * t, kb = ka + 8;
-      const uint32_t a[4] = {pack_bf16x2(a_at(r0, ka), a_at(r0, ka + 1)),
-                             pack_bf16x2(a_at(r1, ka), a_at(r1, ka + 1)),
-                             pack_bf16x2(a_at(r0, kb), a_at(r0, kb + 1)),
-                             pack_bf16x2(a_at(r1, kb), a_at(r1, kb + 1))};
-#pragma unroll
-      for (int j = 0; j < MMA_G; ++j) {
-        if (nt0 + j < n_tiles) {
-          const int n = (nt0 + j) * 8 + g;
-          mma_bf16(acc[j], a, b_at(ka, n) | (b_at(ka + 1, n) << 16),
-                   b_at(kb, n) | (b_at(kb + 1, n) << 16));
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < MMA_G; ++j) {
-      const int c = (nt0 + j) * 8 + 2 * t;
-      if (nt0 + j < n_tiles) {
-        if (c < N) { epi(r0, c, acc[j][0]); epi(r1, c, acc[j][2]); }
-        if (c + 1 < N) { epi(r0, c + 1, acc[j][1]); epi(r1, c + 1, acc[j][3]); }
-      }
-    }
-  }
-}
-
 #endif
-
-// out[r][c] = sum_k A(r, k) * B[k * ldb + c] for r < TR, c < N, handed to
-// epi(r, c, acc). bf16 runs on the tensor cores (block_mm_mma); f32 on
-// the CUDA cores, where each thread owns 4x4 micro-tiles.
-template <typename T, typename AFn, typename Epi>
-__device__ __forceinline__ void block_mm(int K, int N, const T* __restrict__ B, int ldb,
-                                         AFn A, Epi epi) {
-#ifndef NEFES_EMULATE
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    block_mm_mma(K, N, B, ldb, A, epi);
-    return;
-  }
-#endif
-  const int ncg = (N + 3) >> 2;
-  const int n_mt = (TR / 4) * ncg;
-  for (int mt = threadIdx.x; mt < n_mt; mt += blockDim.x) {
-    const int r0 = (mt / ncg) * 4, c0 = (mt % ncg) * 4;
-    const int nc = N - c0 < 4 ? N - c0 : 4;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    const T* bp = B + c0;
-    for (int k = 0; k < K; ++k, bp += ldb) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = A(r0 + i, k);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = j < nc ? to_f<T>(bp[j]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (j < nc) epi(r0 + i, c0 + j, acc[i][j]);
-  }
-}
 
 // The raw-input prologue (K5-K8; mirrors _embed_block): column c of the
 // frequency embedding of one point xr (3 f32), unrounded, in the

@@ -40,6 +40,9 @@ HOST_FLAGS = ["-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
               "-DNEFES_EMULATE"]
 
 _loaded: dict[Path, ctypes.CDLL] = {}
+# library()'s arguments as given -> the loaded library: a wrapper calls it
+# at every launch, and building and hashing its Paths took ~23 us a call
+_by_args: dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -141,7 +144,11 @@ _SIGNATURES = {
     "nefes_render_bwd_scratch_bytes": [_I] * 8,
     "nefes_render_blocks_per_sm": [_I] * 10,
     "nefes_micro_chain": [_I] * 7 + [_P] * 4,
+    "nefes_micro_chain_grid": [_I] * 6,
+    "nefes_micro_chain_smem": [_I] * 3,
     "nefes_micro_embed": [_I, _I, _I, _P, _P, _P],
+    "nefes_micro_embed_grid": [_I, _I, _I, _P],
+    "nefes_micro_sms": [],
 }
 # the raw-input entry points take the same arguments as their pre-embedded
 # counterparts (points and directions in place of the embeddings)
@@ -160,6 +167,9 @@ def library(name: str, emulate: bool = False, build_dir: Path | None = None,
     library of this tree; only `name` from another tree's `csrc`), with
     argtypes set: every pointer and the stream as c_void_p, so ctypes does
     not cut them to 32 bits."""
+    key = (name, emulate, build_dir, csrc)
+    if key in _by_args:
+        return _by_args[key]
     bdir = Path(build_dir or BUILD_DIR)
     path = _lib_path(name, emulate, bdir, Path(csrc or CSRC))
     if path not in _loaded:
@@ -185,4 +195,5 @@ def library(name: str, emulate: bool = False, build_dir: Path | None = None,
                 sig = _SIGNATURES[fn]
                 getattr(lib, fn).argtypes = sig[:6] + sig[7:-2] + [_P]
         _loaded[path] = lib
+    _by_args[key] = _loaded[path]
     return _loaded[path]

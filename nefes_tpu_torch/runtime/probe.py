@@ -186,6 +186,12 @@ def micro_inputs(dev, n: int) -> dict:
             "pts": _randn(dev, 10, n, 3), "sq": sq}
 
 
+# kernelmicro's launches between a timing's two CUDA events: the host
+# enqueues the next while the card runs one, so a sub-millisecond time is
+# the kernel's and not also its wrapper's host work
+MICRO_CALLS = 10
+
+
 def _matmul_chain(cw, x):
     """Yardstick: the chain as bf16 torch.matmul calls (cuBLAS)."""
     h = x
@@ -204,7 +210,9 @@ def cmd_kernelmicro(args) -> dict:
     """Returns {"results": the JAX command's keys (its full-kernel rows
     become the one full_kernel_tile64_ms: the port's field kernels have one
     tile of 64 rows), "kernels": per K9-K12 key its kernel, ms, plain_ms,
-    library_ms, bound_ms, bound_by, tflops and blocks}."""
+    library_ms, bound_ms, bound_by, tflops, units (N / tile) and blocks
+    (the CTAs the kernel's persistent grid launches on the card; None on
+    the CPU, which launches none)}."""
     from nefes_tpu_torch.fields.embedder import EmbedConfig, embed
     from nefes_tpu_torch.kernels import fused_field as kf
     from nefes_tpu_torch.kernels import micro as km
@@ -217,19 +225,30 @@ def cmd_kernelmicro(args) -> dict:
     x_in, cw, pts = ins["x"], ins["chain"], ins["pts"]
     results, kernels = {}, {}
 
-    def record(key, kernel, label, fn, plain, flops, nbytes, blocks,
+    cuda = dev.type == "cuda"
+    calls = MICRO_CALLS if cuda else 1
+
+    def per_call(label, f):
+        return timeit(f"{label} ({calls} calls a timing)",
+                      lambda: [f() for _ in range(calls)],
+                      device=dev) * 1e3 / calls
+
+    def record(key, kernel, label, fn, plain, flops, nbytes, units, grid,
                library=None, ew_ops=0):
         with torch.no_grad():
-            ms = timeit(label, fn, device=dev) * 1e3
-            plain_ms = timeit("  plain version", plain, device=dev) * 1e3
-            lib_ms = (timeit("  bf16 torch.matmul chain", library,
-                             device=dev) * 1e3 if library else None)
+            ms = per_call(label, fn)
+            plain_ms = per_call("  plain version", plain)
+            lib_ms = (per_call("  bf16 torch.matmul chain", library)
+                      if library else None)
         bound_ms, bound_by = bound(flops, ew_ops, nbytes)
+        blocks = grid() if cuda else None
         row = {"kernel": kernel, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "tflops": (flops + ew_ops) / ms / 1e9, "blocks": blocks}
+               "bound_by": bound_by, "tflops": (flops + ew_ops) / ms / 1e9,
+               "units": units, "blocks": blocks}
         results[key], kernels[key] = ms, row
-        print(f"  {kernel}: {ms:.3f} ms over {blocks} blocks, bound "
+        print(f"  {kernel}: {ms:.3f} ms, {units} units over {blocks} "
+              f"CTAs, bound "
               f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
               f"({(flops + ew_ops) / 1e9:.1f} G ops, {nbytes / 1e6:.1f} MB; "
               f"{row['tflops']:.2f} TFLOP/s), plain {plain_ms:.3f} ms, "
@@ -242,12 +261,14 @@ def cmd_kernelmicro(args) -> dict:
                f"bare 8-layer chain tile={tile}",
                lambda tile=tile: km.chain(cw, x_in, tile),
                lambda: km.chain_plain(cw, x_in), flops, nbytes, N // tile,
+               lambda tile=tile: km.chain_grid(cw, N, tile),
                lambda: _matmul_chain(cw, x_in))
     for nb in (2, 4):
         record(f"chain8_interleave{nb}_ms", "K10 chain_interleaved",
                f"interleaved x{nb} chain tile=2048",
                lambda nb=nb: km.chain_interleaved(cw, x_in, 2048, nb),
                lambda: km.chain_plain(cw, x_in), flops, nbytes, N // 2048,
+               lambda nb=nb: km.chain_grid(cw, N, 2048, nb),
                lambda: _matmul_chain(cw, x_in))
 
     # every tile: the JAX probe's cap at 2048 is a TPU VMEM limit
@@ -257,7 +278,8 @@ def cmd_kernelmicro(args) -> dict:
                f"embed-only kernel tile={tile}",
                lambda tile=tile: km.embed_micro(pts, tile),
                lambda: km.embed_micro_plain(pts), 0,
-               N * (3 * 4 + km.EMBED_COLS * 2), N // tile, ew_ops=emb_ops)
+               N * (3 * 4 + km.EMBED_COLS * 2), N // tile,
+               lambda tile=tile: km.embed_grid(N, tile)[0], ew_ops=emb_ops)
 
     times = {}
     for w_, label, tile in ((128, "square chain8 w=128 rows=N", 2048),
@@ -270,6 +292,8 @@ def cmd_kernelmicro(args) -> dict:
                lambda scw=scw, sx=sx, tile=tile: km.chain_sq(scw, sx, tile),
                lambda scw=scw, sx=sx: km.chain_plain(scw, sx),
                *_chain_work(scw, sx.shape[0]), sx.shape[0] // tile,
+               lambda scw=scw, sx=sx, tile=tile: km.chain_grid(
+                   scw, sx.shape[0], tile),
                lambda scw=scw, sx=sx: _matmul_chain(scw, sx))
         times[w_] = results[key] / 1e3
     fl128 = 2 * N * 128 * 128 * CHAIN_DEPTH

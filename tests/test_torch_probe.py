@@ -11,10 +11,15 @@ micro-benchmark kernels K9-K12 (kernels/micro.py, csrc/micro.cu).
    of 0 may land on the other side of a ReLU). The embedding: equal bit
    for bit (f32 phases x·2^k are exact, sin/cos agree to well inside
    one bf16 rounding).
-2. csrc/micro.cu built for the host (NEFES_EMULATE, one thread per block):
-   its f32 kernels against the plain versions, within 1e-6 relative, at
-   several tiles, both widths and both interleavings; shapes the kernels
-   do not take raise.
+2. The chain's packed weights (pack_chain) read back, by this file's own
+   statement of the layout (K-slices of 64 inputs, each output's row of
+   8 swizzled chunks of 8, the last layer's outputs permuted), to every
+   matrix. csrc/micro.cu built for the host (NEFES_EMULATE, one thread a
+   CTA, 3 resident CTAs): its f32 kernels, which walk the card's units and
+   passes and read the same blob, against the plain versions, within 1e-6
+   relative, at several tiles, both widths, both interleavings and
+   CTAs whose last pass is partial; shapes the kernels do not take
+   raise.
 3. The probe's commands on the CPU (--device cpu: the plain versions) at
    a cut H, W, with timeit calling each function once: kernelmicro's keys
    are the JAX command's, every number is finite.
@@ -22,6 +27,7 @@ micro-benchmark kernels K9-K12 (kernels/micro.py, csrc/micro.cu).
    its plain version.
 """
 
+import ctypes
 import inspect
 import json
 import math
@@ -137,11 +143,41 @@ def _chain_case(width_in, width, rows, seed=0):
     return cw, torch.randn((rows, width_in), generator=gen)
 
 
+@pytest.mark.parametrize("E,W", [(64, 128), (128, 128), (256, 256)],
+                         ids=["K9", "K12-w128", "K12-w256"])
+def test_pack_chain_layout(E, W):
+    """Element (k, p) of layer l's slice s = k // 64 sits at row p, chunk
+    (k % 64 // 8) ^ (p % 8), place k % 8; row p of the last layer holds
+    output column 32 (p // 32) + 8 (p // 2 % 4) + 2 (p // 8 % 4) + p % 2."""
+    cw, _ = _chain_case(E, W, 64)
+    blob = cw.w.numpy()
+    assert blob.size == E * W + 7 * W * W
+    off = 0
+    for layer, w in enumerate(cw.ws):
+        K, m = w.shape[0], np.empty((w.shape[0], W), np.float32)
+        for k in range(K):
+            for p in range(W):
+                col = p
+                if layer == cw.D - 1:
+                    col = ((p // 32) * 32 + (p // 2 % 4) * 8
+                           + (p // 8 % 4) * 2 + p % 2)
+                chunk = (k % 64 // 8) ^ (p % 8)
+                m[k, col] = blob[off + ((k // 64) * W + p) * 64 + chunk * 8
+                                 + k % 8]
+        np.testing.assert_array_equal(m, w.numpy())
+        off += K * W
+    assert sorted(km.chain_out_col(torch.arange(W)).tolist()) == list(range(W))
+
+
 # (chain input width, width, rows, tile, sub-tiles): one and several
-# blocks, several sub-tiles a block, both interleavings, both square
+# CTAs and units a CTA, passes across units (tile 64) and units across
+# passes, a CTA whose last pass holds fewer m-tiles than the pass (the
+# "ragged" cases: 5 units over 3 CTAs), both interleavings, both square
 # widths
 @pytest.mark.parametrize("E,W,rows,tile,nb", [
     pytest.param(64, 128, 512, 64, 1, id="K9-tile64"),
+    pytest.param(64, 128, 320, 64, 1, id="K9-ragged"),
+    pytest.param(64, 128, 320, 64, 2, id="K10-x2-ragged"),
     pytest.param(64, 128, 512, 256, 1, id="K9-tile256"),
     pytest.param(64, 128, 512, 256, 2, id="K10-x2"),
     pytest.param(64, 128, 512, 512, 4, id="K10-x4"),
@@ -172,25 +208,60 @@ def test_embed_source_matches_plain(micro_lib, tile):
 
 
 def test_shapes_the_kernels_refuse(micro_lib):
-    """A tile that does not divide N, or that is no multiple of the
-    sub-tiles a block issues together, raises in the wrapper and is
+    """A tile that does not divide N or is no multiple of a 64-row
+    m-tile, a width, input width or interleaving the chain kernel does
+    not take, raises in the wrapper (pack_chain for the weights) and is
     refused by the kernel's entry point (-4); the host build refuses bf16
     (-1), before any pointer is read."""
     cw, x = _chain_case(64, 128, 512)
     with pytest.raises(ValueError, match="tile 192"):
         km.chain(cw, x, 192)
-    with pytest.raises(ValueError, match="tile 128"):
-        km.chain_interleaved(cw, x, 128, 4)
+    with pytest.raises(ValueError, match="tile 96"):
+        km.chain_interleaved(cw, x, 96, 4)
+    with pytest.raises(ValueError, match="n_blocks = 3"):
+        km.chain_interleaved(cw, x, 128, 3)
     with pytest.raises(ValueError, match="tile 100"):
         km.embed_micro(torch.zeros(512, 3), 100)
     with pytest.raises(ValueError, match="square"):
         km.chain_sq(cw, x, 512)
+    sq, sx = _chain_case(256, 256, 128)
+    with pytest.raises(ValueError, match="n_blocks = 4"):
+        km.chain_interleaved(sq, sx, 128, 4)
+    for E, W in ((64, 120), (64, 320), (72, 128), (256, 128), (64, 256)):
+        with pytest.raises(ValueError, match=f"E = {E}, W = {W}"):
+            km.pack_chain([torch.zeros(E, W)] + [torch.zeros(W, W)] * 7)
     args = (8, None, None, None, None)
     assert micro_lib.nefes_micro_chain(0, 500, 128, 1, 64, 128, *args) == -4
-    assert micro_lib.nefes_micro_chain(0, 512, 128, 4, 64, 128, *args) == -4
+    assert micro_lib.nefes_micro_chain(0, 512, 96, 1, 64, 128, *args) == -4
+    assert micro_lib.nefes_micro_chain(0, 512, 128, 3, 64, 128, *args) == -4
+    assert micro_lib.nefes_micro_chain(0, 512, 128, 4, 256, 256, *args) == -4
+    for E, W in ((64, 120), (64, 320), (72, 128), (256, 128), (64, 192),
+                 (64, 256)):
+        assert micro_lib.nefes_micro_chain(0, 512, 128, 1, E, W, *args) == -4
+    assert micro_lib.nefes_micro_chain(0, 512, 128, 1, 64, 128, 0, None,
+                                       None, None, None) == -4
     assert micro_lib.nefes_micro_chain(1, 512, 128, 1, 64, 128, *args) == -1
     assert micro_lib.nefes_micro_embed(0, 500, 128, None, None, None) == -4
     assert micro_lib.nefes_micro_embed(1, 512, 128, None, None, None) == -1
+
+
+def test_grids(micro_lib):
+    """The persistent grids of the host build (3 resident CTAs): the chain
+    launches the lesser of the units and the resident CTAs; the
+    embedding halves a unit while there are fewer than 4 pieces a resident
+    CTA."""
+    assert micro_lib.nefes_micro_sms() == 3
+    assert micro_lib.nefes_micro_chain_grid(0, 512, 64, 1, 64, 128) == 3
+    assert micro_lib.nefes_micro_chain_grid(0, 512, 256, 1, 64, 128) == 2
+    assert micro_lib.nefes_micro_chain_smem(4, 64, 128) == (
+        1024 + 8 * 16384 + 4 * 64 * 64 * 2 + 18 * 8)
+    assert micro_lib.nefes_micro_chain_smem(4, 256, 256) == -4
+    rows = ctypes.c_int(0)
+    for n, tile, grid, piece in ((1024, 64, 3, 64), (1024, 512, 3, 64),
+                                 (1024, 1024, 3, 64), (768, 3, 3, 3)):
+        assert micro_lib.nefes_micro_embed_grid(0, n, tile,
+                                                ctypes.byref(rows)) == grid
+        assert rows.value == piece
 
 
 # --- the commands on the CPU ---
@@ -230,7 +301,10 @@ def test_kernelmicro_on_cpu(jax_micro, cpu_probe, tmp_path):
     kinds = {}
     for key, row in got["kernels"].items():
         assert key in got["results"] and _finite(row)
-        assert row["bound_ms"] > 0 and row["blocks"] >= 1
+        # no CTA is launched on the CPU; units: N / tile
+        assert row["bound_ms"] > 0 and row["blocks"] is None
+        assert row["units"] in (JAX_N // 512, JAX_N // 2048,
+                                JAX_N // 2 // 512)
         assert (row["library_ms"] is None) == (row["kernel"] == "K11 "
                                                "embed_micro")
         kinds[row["kernel"]] = kinds.get(row["kernel"], 0) + 1
@@ -274,18 +348,22 @@ def cuda():
 def test_micro_kernels_match_plain_on_card(cuda):
     """bf16 on the tensor cores against the plain versions: relative L2
     1e-2 (summation order; see test_torch_kernels), the embedding bit for
-    bit, the interleaved chain equal to the chain."""
+    bit, the interleaved chain equal to the chain at every nb the kernel
+    takes (2 and 4 at W = 128, 2 at W = 256)."""
     ins = probe.micro_inputs(cuda, 8192)
     cw, x, pts = ins["chain"], ins["x"], ins["pts"]
     want = km.chain_plain(cw, x)
-    for tile in (512, 8192):
+    for tile in (64, 512, 8192):
         assert _rel_l2(km.chain(cw, x, tile).cpu(), want.cpu()) <= 1e-2
     ref = km.chain(cw, x, 2048)
     for nb in (2, 4):
         assert torch.equal(km.chain_interleaved(cw, x, 2048, nb), ref)
-    for tile in (512, 8192):
-        assert torch.equal(km.embed_micro(pts, tile), km.embed_micro_plain(pts))
-    for scw, sx in ins["sq"].values():
-        assert _rel_l2(km.chain_sq(scw, sx, 512).cpu(),
-                       km.chain_plain(scw, sx).cpu()) <= 1e-2
+    for tile in (64, 512, 8192):
+        assert torch.equal(km.embed_micro(pts, tile),
+                           km.embed_micro_plain(pts))
+    for w_, (scw, sx) in ins["sq"].items():
+        got = km.chain_sq(scw, sx, 512)
+        assert _rel_l2(got.cpu(), km.chain_plain(scw, sx).cpu()) <= 1e-2
+        for nb in ((2, 4) if w_ == 128 else (2,)):
+            assert torch.equal(km.chain_interleaved(scw, sx, 512, nb), got)
     torch.cuda.synchronize()
