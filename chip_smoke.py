@@ -1,7 +1,7 @@
 """On-card smoke run of nefes_tpu_torch on one NVIDIA GPU (written for the
 H100: the kernels build for sm_90a).
 
-    python3 chip_smoke.py [--phases build,check,mode3,mode2,apr,paths,serve,train,traincli,zoo,accuracy,time,micro,probe,profile]
+    python3 chip_smoke.py [--phases build,check,mode3,mode2,apr,paths,serve,golden,train,traincli,zoo,accuracy,time,micro,probe,inscan_ab,profile]
         [--parent DIR]
 
 Phases:
@@ -14,7 +14,10 @@ Phases:
          shared memory a block, blocks per SM and the backward's global
          scratch a ray; K1/K5's shared memory a block and blocks per SM in
          sigma and full mode (coarse tower) and transient mode (fine
-         tower); K2/K6's likewise (the warp path in every mode)
+         tower); K2/K6's likewise (the warp path in every mode); then the
+         native image decoder (nefes_tpu_torch/native, g++ with libpng
+         and libjpeg): whether it built, why not, and which route the
+         7-Scenes loaders take (the decoder, or Pillow + OpenCV)
   check  K1-K8 against their plain PyTorch versions on the card, at the
          shapes of the refinement's main path, in bf16 and f32 (K1/K5 in
          sigma mode, without dirs, and in full mode, also at a sample
@@ -85,6 +88,16 @@ Phases:
          mode 3, every frame through the captured loop: s/frame,
          summary, peak memory, the kernels it ran and how often; the pose
          txt 8 x 12 finite and the evaluate CLI's medians the CLI's own
+  golden the probe's golden command (nefes_tpu_torch/runtime/probe.py)
+         on a reference-layout NeFeS .tar at full width (D8/W128/F128,
+         numpy draws, seed 0) and a reference-layout DFNet .pt (the port's
+         DFNet, seed 1, under the reference's keys), both written here, an
+         8-frame 480x640 7-Scenes fixture and a paper_result tree (the
+         "paper" poses the fixture's ground truth, the APR's 5 cm off):
+         mode 2 at its defaults (df 2, 50 iterations, the bf16 DFNet,
+         svd_reg, frozen BN), every frame through the captured loop (K5,
+         K7, K8). Loose tolerances must pass, tolerances of -1 must exit
+         non-zero; s/frame, the verdict, the launches
   train  field training at full width (NeFeS D8/W128/F128 in bf16, stage
          1, 4 images x 1536 random rays of a 60x80 render, 64+64 samples,
          perturbed, NeRF-W transient heads): 2 warm-up and 20 timed steps
@@ -98,7 +111,7 @@ Phases:
   traincli the training CLI (nefes_tpu_torch.cli.train) end to end at
          full width (NeFeS D8/W128/F128 in f32, the defaults: 4 images x
          1536 rays of 60x80 renders, 64+64 samples, seeded random weights
-         and DFNet) on 8 training frames added to the serve phase's
+         and DFNet) on 4 training frames added to the serve phase's
          fixture, seven runs: stage 1 for 3 epochs (its first epoch traced
          with --profile_dir), resumed for 2 more, stage 2 from its
          checkpoint (--ft_path: epoch and optimizer reset; 200 epochs of
@@ -171,9 +184,17 @@ Phases:
          (the pieces of a mode-3 iteration through K1, K3, K4; one timed
          50-iteration refine) and mode2 (DFNet in f32 against bf16 in
          turns through K5, K7, K8: s/frame, final loss) commands once
+  inscan_ab the probe's inscan_ab command: s/frame of the 50-iteration
+         refinement in mode 3 and mode 2 (bf16 DFNet) for each variant
+         (render_pre captured; unfused, fused_raw and fused_pre eager:
+         the plain compositor's backward cannot be captured), each
+         variant's launches exactly the kernels its flags name
   profile torch.profiler over 3 train_raw steps and 5 iterations of mode 3
          and mode 2, eager and captured: the device's busy share of the
-         wall time, device time per kernel
+         wall time, device time per kernel; then the probe's profile
+         command (--mode both): each leg's device time by framework phase
+         (runtime/xprof.py), host gap, bytes against the memory rate and
+         top 12 kernels, the phases summing to the busy time
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits with 1 and prints
@@ -185,6 +206,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -238,17 +260,19 @@ TRAIN_B, N_RAND, TRAIN_STEPS, PATH_STEPS, TRAIN_LR = 4, 1536, 20, 3, 5e-4
 PARAM_TOL = {"float32": 5e-6, "bfloat16": 1e-3}
 # The serve phase: test frames of its 7-Scenes fixture (480x640 PNGs)
 SERVE_FRAMES = 8
-# The traincli phase: training frames added to that fixture (2 steps an
-# epoch at the CLI's batch of 4), and the metrics.jsonl keys the JAX CLI
-# writes at each stage (nefes_tpu/cli/train.py:327-333: epoch, stage,
-# loss, wall_s and the step's metrics)
-TRAINCLI_FRAMES = 8
+# The traincli phase: training frames added to that fixture (1 step an
+# epoch at the CLI's batch of 4: stage 2 runs 200 epochs of ray steps
+# before its patch steps, so this sets most of the phase's time), and the
+# metrics.jsonl keys the JAX CLI writes at each stage
+# (nefes_tpu/cli/train.py:327-333: epoch, stage, loss, wall_s and the
+# step's metrics)
+TRAINCLI_FRAMES = 4
 CLI_METRIC_KEYS = {0: {"epoch", "stage", "loss", "wall_s", "loss_rgb",
                        "psnr"}}
 CLI_METRIC_KEYS[1] = CLI_METRIC_KEYS[0] | {"loss_feat"}
 CLI_METRIC_KEYS[2] = CLI_METRIC_KEYS[1] | {"loss_fusion"}
-# The zoo phase: epochs of each run (the training CLI's 8-frame fixture:
-# 2 steps an epoch), rays an image of the card-against-CPU first step (a
+# The zoo phase: training frames of its fixture (2 steps an epoch),
+# epochs of each run, rays an image of the card-against-CPU first step (a
 # third of the CLI's 1536: the CPU's step takes seconds a kind), and its
 # tolerance (zoo_step_compare): within ZOO_JITTER_X times how far the
 # CPU's own step moves when the poses move by one rounding, or the floor:
@@ -256,7 +280,7 @@ CLI_METRIC_KEYS[2] = CLI_METRIC_KEYS[1] | {"loss_fusion"}
 # ZOO_GRAD_TOL for each gradient (the hash tables' rows each sum up to
 # ~1e5 contributions in the card's unordered scatter: 2.3e-4 to 2.2e-3
 # relative L2 on an H100 80GB HBM3 at 700 W; PERF.md)
-ZOO_EPOCHS, ZOO_CHECK_RAYS, ZOO_JITTER_X = 3, 512, 10.0
+ZOO_FRAMES, ZOO_EPOCHS, ZOO_CHECK_RAYS, ZOO_JITTER_X = 8, 3, 512, 10.0
 ZOO_STEP_TOL, ZOO_GRAD_TOL = 1e-5, 1e-2
 # The accuracy phase: the probe's accuracy command at full width (192x256
 # images, NeFeS D8/W128/F128, 64+64 samples, 50 iterations) and reduced
@@ -366,7 +390,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="build,check,mode3,mode2,apr,paths,serve,"
-                    "train,traincli,zoo,accuracy,time,micro,probe,profile")
+                    "golden,train,traincli,zoo,accuracy,time,micro,probe,"
+                    "inscan_ab,profile")
     ap.add_argument("--parent", default=None,
                     help="an earlier tree whose K1, K5 and render kernels "
                     "the time phase times beside this tree's")
@@ -498,6 +523,18 @@ def main() -> int:
                     f"{flib.nefes_field_bwd_smem_bytes(code, mode, *bdims)} "
                     f"B of shared memory a block, blocks per SM {blocks[0]} "
                     f"/ {blocks[1]} (pre / raw)")
+        # the host image decoder: built with g++ here, or the fallback
+        from nefes_tpu_torch import native
+        t0 = time.perf_counter()
+        built = native.available()
+        route = (os.environ.get("NEFES_NATIVE_LOADER", "1") != "0" and built)
+        log(f"native image decoder: "
+            f"{'built' if built else 'not built'} in "
+            f"{time.perf_counter() - t0:.1f} s"
+            f"{'' if built else f' ({native.unavailable_reason()})'}; the "
+            f"7-Scenes loaders read through "
+            f"{'it' if route else 'Pillow + OpenCV'}, Cambridge through "
+            f"Pillow + OpenCV")
 
     phase("build", do_build)
     if "build" in failed:
@@ -1488,6 +1525,76 @@ def main() -> int:
 
     phase("serve", do_serve)
 
+    def do_golden():
+        """The probe's golden command on a reference-layout .tar and .pt
+        written here and an 8-frame 7-Scenes fixture: PASS at loose
+        tolerances, a non-zero exit at -1."""
+        from nefes_tpu_torch.data import load_7scenes_colmap
+        from nefes_tpu_torch.evaluation import save_pose_txt
+        root = Path("tmp") / "golden_fixture"
+        paths = write_7scenes_fixture(root, SERVE_FRAMES)
+        tar, apr = root / "nefes_600.tar", root / "dfnet_chess.pt"
+        write_reference_tar(tar, np.random.default_rng(0))
+        write_reference_dfnet(apr, model.cfg.feature_dim)
+        # the paper_result tree: the "paper" refined poses are the ground
+        # truth (medians 0), the APR's 5 cm off in each axis
+        test = load_7scenes_colmap("chess", str(root / "deepslam"),
+                                   str(root / "data"), train=False)
+        scene = root / "ref" / "paper_result" / \
+            "DFNet_NeFeS50_7Scenes_colmap" / "chess"
+        scene.mkdir(parents=True, exist_ok=True)
+        save_pose_txt(scene / "chess_test_gt.txt", test.poses)
+        save_pose_txt(scene / "DFNet_chess_NeFeS50_APR_pose_results.txt",
+                      test.poses)
+        off = np.array(test.poses, copy=True)
+        off[:, :3, 3] += 0.05
+        save_pose_txt(scene / "DFNet_chess_results.txt", off)
+        out = root / "GOLDEN_torch.json"
+        argv = ["golden", "--device", "cuda", "--tar", str(tar), "--apr",
+                str(apr), "--scene", "chess", "--datadir", paths["datadir"],
+                "--data_root", paths["data_root"], "--ref",
+                str(root / "ref"), "--out", str(out)]
+        for tol, want in (("1e9", True), ("-1", False)):
+            graph.clear()
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            code = 0
+            try:
+                probe.main(argv + ["--tol_t", tol, "--tol_r", tol])
+            except SystemExit as e:
+                code = e.code
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            verdict = json.loads(out.read_text())
+            (loop,) = graph.loops()
+            per_iter = {kernel_name_of[k]: c
+                        for k, c in loop.graph.launches.items()}
+            called = {n: k.launches for n, k in wrappers.items()
+                      if k.launches}
+            log(f"golden at tolerance {tol}: exit {code!r}, pass "
+                f"{verdict['pass']}, {wall:.3f} s for {SERVE_FRAMES} frames "
+                f"({wall / SERVE_FRAMES:.4f} s/frame with the conversion, "
+                f"the scene's loading and the first frame's capture); "
+                f"verdict {json.dumps(verdict)}")
+            log(f"  kernels: wrapper calls (the warm-up and the capture) "
+                f"{called}; captured launches {per_iter} an iteration x "
+                f"{loop.graph.replays} replays")
+            if verdict["pass"] is not want or (code not in (0, None)) is want:
+                raise AssertionError(f"golden at tolerance {tol}: exit "
+                                     f"{code!r}, pass {verdict['pass']}")
+            if per_iter != {k: 1 for k in path_kernels["render_raw"]} or \
+                    loop.graph.replays != SERVE_FRAMES * ITERS:
+                raise AssertionError(f"golden launched {per_iter} x "
+                                     f"{loop.graph.replays}")
+            if not all(np.isfinite(v) for v in verdict.values()
+                       if isinstance(v, float)):
+                raise AssertionError(f"golden: non-finite {verdict}")
+        graph.clear()
+        torch.cuda.empty_cache()
+
+    phase("golden", do_golden)
+
     def train_batch(F):
         """rgb targets uniform (seed 5), feature targets normal (seed 6),
         the TRAIN_B poses, the rgb targets' luminance histograms."""
@@ -1880,10 +1987,10 @@ def main() -> int:
         from nefes_tpu_torch.cli import train as tcli
         root = Path("tmp") / "serve_fixture"
         paths = write_7scenes_fixture(root, SERVE_FRAMES,
-                                      n_train=TRAINCLI_FRAMES)
+                                      n_train=ZOO_FRAMES)
         logs = root / "zoo"
         shutil.rmtree(logs, ignore_errors=True)
-        per_epoch = TRAINCLI_FRAMES // TRAIN_B
+        per_epoch = ZOO_FRAMES // TRAIN_B
         steps: list = []
         orig = tcli.train_step_rays
 
@@ -2101,57 +2208,55 @@ def main() -> int:
         fl = probe.tower_flops(sp, samples=z.shape[1])
         el = probe.embed_ops(sp.n_freqs_xyz, sp.n_freqs_dir)
         b2, b4 = 2, 4   # bytes of a bf16 and of an f32 value
-        ray_out = R * (sp.rgbfeat + 2) * b4
+        # each launch's bytes, the tower's weights included
+        kb = probe.refinement_kernel_bytes(ins["packed"], R,
+                                           n_c // R, n_f // R)
         # name: (call, wrapper, plain version, yardstick, bf16 matmul
-        # FLOPs, f32 elementwise operations, bytes besides the weights)
+        # FLOPs, f32 elementwise operations, bytes: K1-K8 with the
+        # weights, the training variants besides them)
         rows = {
             "K1 field_fwd_pre": (
                 lambda f: f(pc, False, emb_c, None), kf.field_fwd_pre,
                 kf.field_fwd_pre_plain,
                 lambda: chain(pc, False, emb_c, None, False),
-                n_c * fl["K1"], 0, n_c * (sp.emb_xyz + 1) * b2),
+                n_c * fl["K1"], 0, kb["field_fwd_pre"]),
             "K2 field_bwd_pre": (
                 lambda f: f(pf, True, emb, embd, *g_field),
                 kf.field_bwd_pre, kf.field_bwd_pre_plain,
                 lambda: chain(pf, True, emb, embd, True),
-                n_f * fl["K2"], 0,
-                n_f * (2 * (sp.emb_xyz + sp.emb_dir) + sp.rgbfeat + 1) * b2),
+                n_f * fl["K2"], 0, kb["field_bwd_pre"]),
             "K3 render_fwd_pre": (
                 lambda f: f(pf, emb, embd, z), kr.render_fwd_pre,
                 kr.render_fwd_pre_plain,
                 lambda: chain(pf, True, emb, embd, False),
-                n_f * fl["K3"], 0,
-                n_f * (sp.emb_xyz + sp.emb_dir) * b2 + n_f * b4 + ray_out),
+                n_f * fl["K3"], 0, kb["render_fwd_pre"]),
             "K4 render_bwd_pre": (
                 lambda f: f(pf, emb, embd, z, g_ray), kr.render_bwd_pre,
                 kr.render_bwd_pre_plain,
                 lambda: chain(pf, True, emb, embd, True),
-                n_f * fl["K4"], 0,
-                2 * n_f * (sp.emb_xyz + sp.emb_dir) * b2 + 2 * n_f * b4
-                + ray_out),
+                n_f * fl["K4"], 0, kb["render_bwd_pre"]),
             "K5 field_fwd": (
                 lambda f: f(pc, False, pts_c, None), kf.field_fwd,
                 kf.field_fwd_plain,
                 lambda: chain(pc, False, emb_c, None, False),
-                n_c * fl["K1"], n_c * el["xyz_fwd"], n_c * (3 + 1) * b4),
+                n_c * fl["K1"], n_c * el["xyz_fwd"], kb["field_fwd"]),
             "K6 field_bwd": (
                 lambda f: f(pf, True, pts, dirs, *g_raw), kf.field_bwd,
                 kf.field_bwd_plain,
                 lambda: chain(pf, True, emb, embd, True),
                 n_f * fl["K2"], n_f * (el["fwd"] + el["bwd"]),
-                n_f * (4 * 3 + sp.rgbfeat + 1) * b4),
+                kb["field_bwd"]),
             "K7 render_fwd": (
                 lambda f: f(pf, pts, dirs, z), kr.render_fwd,
                 kr.render_fwd_plain,
                 lambda: chain(pf, True, emb, embd, False),
-                n_f * fl["K3"], n_f * el["fwd"],
-                n_f * (2 * 3 + 1) * b4 + ray_out),
+                n_f * fl["K3"], n_f * el["fwd"], kb["render_fwd"]),
             "K8 render_bwd": (
                 lambda f: f(pf, pts, dirs, z, g_ray), kr.render_bwd,
                 kr.render_bwd_plain,
                 lambda: chain(pf, True, emb, embd, True),
                 n_f * fl["K4"], n_f * (el["fwd"] + el["bwd"]),
-                2 * n_f * (2 * 3 + 1) * b4 + ray_out),
+                kb["render_bwd"]),
         }
         # the training variants at the fine training shape (transient
         # mode), their gradients f32
@@ -2213,12 +2318,7 @@ def main() -> int:
             2 * drows * kn, 0,
             drows * row_elems * b2 + -(-drows // kf.TILE_ROWS) * head_b * b4
             + 2 * dpart.numel() * b4)
-        # the weights each function reads: the static tower, and with the
-        # transient heads for the training variants
-        static = replace_cfg(sp, transient=False)
-        static_bytes = (
-            sum(pf.weights[n].numel() for n in kf.matrix_names(static)) * b2
-            + sum(pf.weights[n].numel() for n in kf.bias_names(static)) * b4)
+        # the weights the training variants read, the transient heads'
         train_bytes = tpf.w.numel() * b2 + tpf.b.numel() * b4
         for name, (case, kern, plain, lib_fn, flops, ew, nbytes) in \
                 rows.items():
@@ -2227,8 +2327,8 @@ def main() -> int:
             restore_counts(saved)      # timing launches are not the path's
             plain_ms = time_ms(lambda: case(plain), reps=3)
             lib_ms = time_ms(lib_fn, reps=3)
-            if name != "K2/K6 field_dw":     # it reads no weights
-                nbytes += train_bytes if name in variants else static_bytes
+            if name in variants:
+                nbytes += train_bytes
             bound_ms, bound_by = probe.bound(flops, ew, nbytes)
             kernels[name].update(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -2551,6 +2651,51 @@ def main() -> int:
 
     phase("probe", do_probe)
 
+    def do_inscan_ab():
+        """The probe's inscan_ab command at its defaults; each variant's
+        timing launches the kernels its flags name and no other."""
+        expect = {"unfused": "unfused", "fused_raw": "fused_raw",
+                  "fused_pre": "field_pre", "render_pre": "render_pre"}
+        timeit, seen = probe.timeit, {}
+
+        def counted_timeit(name, fn, **kw):
+            reset_counts()
+            dt = timeit(name, fn, **kw)
+            seen[name] = {n: k.launches for n, k in wrappers.items()
+                          if k.launches}
+            return dt
+        probe.timeit = counted_timeit
+        Path("tmp").mkdir(exist_ok=True)
+        try:
+            t0 = time.perf_counter()
+            res = probe.main(["inscan_ab", "--device", "cuda", "--out",
+                              str(Path("tmp") / "INSCAN_torch.json")])
+            secs = time.perf_counter() - t0
+        finally:
+            probe.timeit = timeit
+        if res != 0:
+            raise AssertionError(f"inscan_ab returned {res}")
+        table = json.loads((Path("tmp") / "INSCAN_torch.json").read_text())
+        log(f"inscan_ab in {secs:.1f} s: "
+            f"{json.dumps(table['in_scan_ab_s_per_frame'])}")
+        for name, counts in seen.items():
+            variant = name.split("[")[1].split(",")[0]
+            want = set(path_kernels[expect[variant]])
+            log(f"  {name}: launches outside the replays {counts}")
+            if set(counts) != want:
+                raise AssertionError(f"inscan_ab {name} launched "
+                                     f"{sorted(counts)}, expected "
+                                     f"{sorted(want)}")
+        rows = table["in_scan_ab_s_per_frame"]
+        if set(rows) != {"mode3", "mode2_bf16"} or not all(
+                set(r) == set(expect) and all(
+                    np.isfinite(v) and v > 0 for v in r.values())
+                for r in rows.values()):
+            raise AssertionError(f"inscan_ab table {rows}")
+        torch.cuda.empty_cache()
+
+    phase("inscan_ab", do_inscan_ab)
+
     def profiled(what, fn):
         """Run fn under torch.profiler; log the wall time, the device's
         busy share (the union of the kernels' spans) and the device time
@@ -2606,6 +2751,56 @@ def main() -> int:
                  lambda: captured3("render_pre", 5))
         profiled("mode2 render_raw captured, 5 iterations",
                  lambda: captured2("render_raw", 5))
+        # the probe's profile command: device time by framework phase
+        reset_counts()
+        prof_out = Path("tmp") / "PROFILE_torch.json"
+        prof_out.parent.mkdir(exist_ok=True)
+        t0 = time.perf_counter()
+        if probe.main(["profile", "--device", "cuda", "--mode", "both",
+                       "--out", str(prof_out)]) != 0:
+            raise AssertionError("profile command failed")
+        launched = {n for n, k in wrappers.items() if k.launches}
+        report = json.loads(prof_out.read_text())
+        log(f"profile command in {time.perf_counter() - t0:.1f} s, "
+            f"launches (warm-up, capture, the eager reference step) "
+            f"{sorted(launched)}")
+        if launched != set(path_kernels["render_pre"]) | set(
+                path_kernels["render_raw"]):
+            raise AssertionError(f"profile launched {sorted(launched)}")
+        for leg in ("mode3", "mode2_bf16"):
+            r = report[leg]
+            phases = r["phases_ms_per_frame"]
+            log(f"profile {leg}: wall {r['wall_s_per_frame']} s/frame, busy "
+                f"{r['device_busy_ms_per_frame']} ms, span "
+                f"{r['device_span_ms_per_frame']} ms, host gap "
+                f"{r['host_gap_ms_per_frame']} ms; attributed by "
+                f"{r['ops_attributed_by']}")
+            log(f"  phases (ms a frame): {json.dumps(phases)}")
+            log(f"  bandwidth floors: "
+                f"{json.dumps(r['phase_bandwidth_floors'])}; bytes not "
+                f"reckoned (ms a frame): "
+                f"{json.dumps(r['bytes_not_reckoned_ms_per_frame'])}")
+            for t in r["top_ops"][:12]:
+                log(f"  {t['ms_per_frame']:8.3f} ms x{t['count']:>4} "
+                    f"[{t['phase']}] {t['op'][:60]} | {t['opcode'][:100]}")
+            total = sum(phases.values())
+            if not abs(total - r["device_busy_ms_per_frame"]) <= 0.05 + \
+                    1e-3 * total:
+                raise AssertionError(f"profile {leg}: phases sum to "
+                                     f"{total}, busy "
+                                     f"{r['device_busy_ms_per_frame']}")
+            ours = {t["phase"] for t in r["top_ops"] if "nefes::" in t["op"]}
+            if phases.get("cuda_kernel", 0.0) <= 0 or ours != {"cuda_kernel"}:
+                raise AssertionError(f"profile {leg}: the port's kernels in "
+                                     f"{ours}")
+            # the replayed kernels lined up with the eager step's launches
+            by = r["ops_attributed_by"]
+            replayed = sum(by.get(k, 0) for k in ("order", "name", "none"))
+            if not by.get("order", 0) >= 0.95 * replayed:
+                raise AssertionError(f"profile {leg}: replays matched {by}")
+            if nonfinite(r):
+                raise AssertionError(f"profile {leg}: {nonfinite(r)}")
+        torch.cuda.empty_cache()
 
     phase("profile", do_profile)
     return finish(failed, kernels, smi)
@@ -3104,8 +3299,9 @@ def write_7scenes_fixture(root: Path, n_test: int, n_train: int = 2,
     """A 7-Scenes scene "chess" at the real layout and image size, as
     tests/fixture_datasets.py writes it: seq-01 (train) and seq-02 (test)
     of smooth random colour PNGs and c2w pose txts, the split files, the
-    COLMAP tables, world_setup.json and the centring stats. Returns the
-    CLI's datadir and data_root."""
+    COLMAP tables, world_setup.json and the centring stats (frames an
+    earlier call left in the sequences are removed). Returns the CLI's
+    datadir and data_root."""
     from PIL import Image
     rng = np.random.default_rng(0)
     base = root / "deepslam" / "chess"
@@ -3117,6 +3313,8 @@ def write_7scenes_fixture(root: Path, n_test: int, n_train: int = 2,
     for seq, split, count in ((1, "train", n_train), (2, "test", n_test)):
         seq_dir = base / f"seq-{seq:02d}"
         seq_dir.mkdir(exist_ok=True)
+        for old in seq_dir.glob("frame-*"):     # an earlier call's count
+            old.unlink()
         rows = []
         for i in range(count):
             small = rng.uniform(0, 255, (6, 8, 3))
@@ -3142,6 +3340,81 @@ def write_7scenes_fixture(root: Path, n_test: int, n_train: int = 2,
     for name in ("pose_avg_stats.txt", "pose_avg_stats_colmap.txt"):
         np.savetxt(data / name, np.eye(4)[:3])
     return {"datadir": str(base), "data_root": str(root / "data")}
+
+
+def write_reference_tar(path: Path, rng, depth: int = 8, width: int = 128,
+                        fdim: int = 128) -> None:
+    """torch.save a NeFeS checkpoint at the reference's layout
+    (run_nefes.py:375-385: the towers' Sequential keys, fusion_net.net.
+    {0,2,4,6,7}, the tcnn exposure MLP's packed buffer), every weight and
+    bias N(0, 0.1) from rng (the convs N(0, 0.05), the BN's running
+    statistics drawn), as tests/test_nefes_tar.py writes it."""
+    def lin(n_in, n_out):
+        return (torch.tensor(rng.normal(0, 0.1, (n_out, n_in)),
+                             dtype=torch.float32),
+                torch.tensor(rng.normal(0, 0.1, n_out), dtype=torch.float32))
+
+    def tower(transient):
+        layers = [(f"xyz_encoding_{i}.0", 63 if i == 1 else
+                   width + 63 if i == 5 else width, width)
+                  for i in range(1, depth + 1)]
+        layers += [("xyz_encoding_final", width, width),
+                   ("dir_encoding.0", width + 27, width // 2),
+                   ("static_sigma.0", width, 1),
+                   ("static_rgb.0", width // 2, 3 + fdim)]
+        if transient:
+            layers += [(f"transient_encoding.{t}",
+                        width + 27 if t == 0 else width // 2, width // 2)
+                       for t in (0, 2, 4)]
+            layers += [(f"transient_{n}.0", width // 2, k)
+                       for n, k in (("sigma", 1), ("rgb", 3), ("beta", 1))]
+        sd = {}
+        for name, n_in, n_out in layers:
+            sd[f"{name}.weight"], sd[f"{name}.bias"] = lin(n_in, n_out)
+        return sd
+
+    coarse = tower(False)
+    chans = [(3 + fdim, 64, 3), (64, 64, 3), (64, 64, 3), (64, fdim, 5)]
+    for idx, (ci, co, k) in zip((0, 2, 4, 6), chans):
+        coarse[f"fusion_net.net.{idx}.weight"] = torch.tensor(
+            rng.normal(0, 0.05, (co, ci, k, k)), dtype=torch.float32)
+        coarse[f"fusion_net.net.{idx}.bias"] = torch.zeros(co)
+    coarse["fusion_net.net.7.weight"] = torch.ones(fdim)
+    coarse["fusion_net.net.7.bias"] = torch.zeros(fdim)
+    coarse["fusion_net.net.7.running_mean"] = torch.tensor(
+        rng.normal(0, 0.1, fdim), dtype=torch.float32)
+    coarse["fusion_net.net.7.running_var"] = torch.tensor(
+        rng.uniform(0.5, 1.5, fdim), dtype=torch.float32)
+    # tcnn's exposure MLP: 10 -> 32 x 3 -> 12, widths padded to 16
+    coarse["exposure_embedding.params"] = torch.tensor(
+        rng.normal(0, 0.1, 32 * 16 + 32 * 32 * 2 + 16 * 32),
+        dtype=torch.float32)
+    torch.save({"global_step": 600, "network_fn_state_dict": coarse,
+                "network_fine_state_dict": tower(True),
+                "optimizer_state_dict": {}}, path)
+
+
+def write_reference_dfnet(path: Path, feature_dim: int) -> None:
+    """torch.save the port's DFNet (seed 1) under the reference DFNet's
+    state-dict keys (feature/dfnet.py: VGG16 at encoder.{idx}, the adapt
+    layers at adaptation_layers.adapt_layer_{l}.{0,2,3}, fc_pose):
+    features/convert.py's convert_dfnet read backwards."""
+    from nefes_tpu_torch.features.convert import VGG16_TORCH_IDX
+    from nefes_tpu_torch.features.dfnet import DFNet
+    port = DFNet(output_dim=feature_dim, device="cpu",
+                 generator=torch.Generator().manual_seed(1)).state_dict()
+    names = {name: f"encoder.{idx}" for idx, name in VGG16_TORCH_IDX.items()}
+    for lv in range(3):
+        base = f"adaptation_layers.adapt_layer_{lv}"
+        names.update({f"adapt_{lv}.conv1": f"{base}.0",
+                      f"adapt_{lv}.conv2": f"{base}.2",
+                      f"adapt_{lv}.bn": f"{base}.3"})
+    names["fc_pose"] = "fc_pose"
+    sd = {}
+    for key, v in port.items():
+        mod, leaf = key.rsplit(".", 1)
+        sd[f"{names[mod]}.{leaf}"] = v.detach().cpu().clone()
+    torch.save(sd, path)
 
 
 def replace_cfg(cfg, **kw):

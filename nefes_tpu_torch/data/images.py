@@ -1,9 +1,10 @@
 """Image reading for the dataset loaders, as the JAX loaders' PIL route
 reads (nefes_tpu/data/seven_scenes.py:42-62, cambridge.py:30-55): Pillow
 decodes, OpenCV resizes (INTER_AREA for images and masks, INTER_NEAREST
-for Kinect depth) and erodes. Both are on the machine with the card; the
-JAX package's native libpng reader is not ported (ROADMAP Queue A item
-8c). Imported when called, not with the module."""
+for Kinect depth) and erodes. Cambridge reads through it; the 7-Scenes
+colour images go through the native decoder (nefes_tpu_torch/native)
+first and fall back to it (data/seven_scenes.py). Imported when called,
+not with the module."""
 
 from __future__ import annotations
 

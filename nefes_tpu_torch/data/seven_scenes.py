@@ -50,6 +50,22 @@ def _pose_avg(data_dir: str, stats_name: str, load_pose_avg_stats: bool,
     return None
 
 
+def _load_images(paths: list[str], df: float, H: int, W: int) -> np.ndarray:
+    """Colour images -> (N, H, W, 3) float32 in [0, 1], as the JAX loader
+    reads them (nefes_tpu/data/seven_scenes.py:42-62): the native C++
+    decoder (nefes_tpu_torch/native: libpng/libjpeg on threads, a box
+    downsample equal to cv2.INTER_AREA at integer ratios), which resizes
+    to (H, W) whatever df is, unless NEFES_NATIVE_LOADER=0 or it is
+    unavailable; Pillow + OpenCV otherwise."""
+    if os.environ.get("NEFES_NATIVE_LOADER", "1") != "0":
+        try:
+            from nefes_tpu_torch.native import load_images_native
+            return load_images_native(paths, H, W)
+        except Exception as e:
+            print(f"[data] native loader unavailable ({e}); PIL fallback")
+    return read_images(paths, df, H, W)
+
+
 def quat_poses_to_w2c(qtf: np.ndarray) -> np.ndarray:
     """(N, 7) [qw qx qy qz tx ty tz] -> (N, 3, 4) w2c in float64
     (seven_scenes_colmap.py:55-79, transforms3d's quat2mat)."""
@@ -112,7 +128,7 @@ def load_7scenes_colmap(scene: str, deepslam_root: str, data_root: str,
         H, W, focal = int(H // df), int(W // df), focal / df
     images = hists = None
     if load_images:
-        images = read_images(paths, df, H, W)
+        images = _load_images(paths, df, H, W)
         hists = compute_histograms(images, hist_bin)
     return SceneData(images=images, poses=poses, hists=hists,
                      hwf=(H, W, focal), near=ws.near, far=ws.far, world=ws,
@@ -165,7 +181,7 @@ def load_7scenes_dslam(scene: str, deepslam_root: str, data_root: str,
         H, W, focal = int(H // df), int(W // df), focal / df
     images = hists = depths = None
     if load_images:
-        images = read_images(paths, df, H, W)
+        images = _load_images(paths, df, H, W)
         hists = compute_histograms(images, hist_bin)
         if load_depth:
             depths = np.stack([

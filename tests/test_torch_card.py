@@ -29,6 +29,10 @@ own, with seeded random weights.
    H100). The hash field starts from a visible density (sigma_out's bias
    5): at its near-zero initial density 1 - exp(-delta sigma) keeps few
    bits, which the card's exp and the CPU's round differently.
+3. The probe's golden command at its defaults on a 7-Scenes fixture and
+   reference-layout checkpoints (chip_smoke.py's writers), the images
+   read through the native decoder where it built: PASS at loose
+   tolerances, through K5, K7, K8.
 """
 
 import copy
@@ -242,3 +246,67 @@ def test_zoo_first_step_card_matches_cpu(cuda, kind):
     assert got["params"] <= tol(own["params"])
     for k, v in got["grads"].items():
         assert v <= tol(own["grads"][k], 1e-2), (k, v, own["grads"][k])
+
+
+@pytest.mark.cuda
+def test_golden_on_card(cuda, tmp_path, monkeypatch):
+    """The probe's golden command on the card at its defaults (mode 2 on
+    60x80 renders of 240x320 queries, 50 iterations, the bf16 DFNet) on a
+    4-frame 480x640 7-Scenes fixture and reference-layout checkpoints
+    written as chip_smoke.py writes them: the scene's images through the
+    native decoder where it built (NEFES_NATIVE_LOADER unset), else
+    through Pillow + OpenCV; PASS at loose tolerances, the verdict finite,
+    the kernels K5, K7, K8 replayed 50 times a frame."""
+    import json
+
+    import chip_smoke
+    from nefes_tpu_torch import native
+    from nefes_tpu_torch.data import load_7scenes_colmap
+    from nefes_tpu_torch.evaluation import save_pose_txt
+    from nefes_tpu_torch.refine import graph
+    from nefes_tpu_torch.runtime import probe
+    monkeypatch.delenv("NEFES_NATIVE_LOADER", raising=False)
+    monkeypatch.chdir(tmp_path)     # the CLI writes its pose txt under tmp/
+    calls = []
+    real = native.load_images_native
+
+    def counted(paths, H, W, n_threads=0):
+        out = real(paths, H, W, n_threads)     # raises if it did not build
+        calls.append((len(paths), H, W))
+        return out
+    monkeypatch.setattr(native, "load_images_native", counted)
+    paths = chip_smoke.write_7scenes_fixture(tmp_path, 4)
+    chip_smoke.write_reference_tar(tmp_path / "nefes.tar",
+                                   np.random.default_rng(0))
+    chip_smoke.write_reference_dfnet(tmp_path / "dfnet.pt", 128)
+    test = load_7scenes_colmap("chess", str(tmp_path / "deepslam"),
+                               str(tmp_path / "data"), train=False)
+    scene = tmp_path / "ref" / "paper_result" / \
+        "DFNet_NeFeS50_7Scenes_colmap" / "chess"
+    scene.mkdir(parents=True)
+    for name in ("chess_test_gt.txt", "DFNet_chess_results.txt",
+                 "DFNet_chess_NeFeS50_APR_pose_results.txt"):
+        save_pose_txt(scene / name, test.poses)
+    calls.clear()
+    graph.clear()
+    out = tmp_path / "GOLDEN_torch.json"
+    assert probe.main([
+        "golden", "--device", "cuda", "--tar", str(tmp_path / "nefes.tar"),
+        "--apr", str(tmp_path / "dfnet.pt"), "--scene", "chess",
+        "--datadir", paths["datadir"], "--data_root", paths["data_root"],
+        "--ref", str(tmp_path / "ref"), "--tol_t", "1e9", "--tol_r", "1e9",
+        "--out", str(out)]) == 0
+    verdict = json.loads(out.read_text())
+    assert verdict["pass"] is True
+    assert all(np.isfinite(v) for v in verdict.values()
+               if isinstance(v, float))
+    # the scene's images at 240x320 (df 2) through the decoder, the test
+    # split's 4 last
+    assert bool(calls) == native.available()
+    assert all(c[1:] == (240, 320) for c in calls)
+    assert not calls or calls[-1][0] == 4
+    (loop,) = graph.loops()
+    assert loop.graph.launches == {"field_fwd": 1, "render_fwd": 1,
+                                   "render_bwd": 1}
+    assert loop.graph.replays == 4 * 50
+    graph.clear()

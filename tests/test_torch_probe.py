@@ -22,7 +22,10 @@ micro-benchmark kernels K9-K12 (kernels/micro.py, csrc/micro.cu).
    raise.
 3. The probe's commands on the CPU (--device cpu: the plain versions) at
    a cut H, W, with timeit calling each function once: kernelmicro's keys
-   are the JAX command's, every number is finite.
+   are the JAX command's, every number is finite. inscan_ab and profile
+   at H, W = 8, 8 and 2 iterations a frame: the JAX commands' keys (the
+   dicts of its inscan_ab's source; PROFILE_r05.json, its profile's
+   record), every number finite, the phases summing to the busy time.
 4. On a card (marked cuda; skipped without one): each bf16 kernel against
    its plain version.
 """
@@ -33,6 +36,7 @@ import json
 import math
 import os
 import shutil
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -367,3 +371,97 @@ def test_micro_kernels_match_plain_on_card(cuda):
         for nb in ((2, 4) if w_ == 128 else (2,)):
             assert torch.equal(km.chain_interleaved(scw, sx, 512, nb), got)
     torch.cuda.synchronize()
+
+
+# --- inscan_ab and profile on the CPU ---
+
+def _jax_dict_keys(fn_name: str, var: str) -> set:
+    """The keys of the dict literal assigned to `var` in the JAX probe's
+    function fn_name (runtime/probe.py)."""
+    import ast
+    from pathlib import Path
+    src = (Path(__file__).resolve().parents[1] / "runtime" / "probe.py")
+    fn = next(n for n in ast.walk(ast.parse(src.read_text()))
+              if isinstance(n, ast.FunctionDef) and n.name == fn_name)
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict) \
+                and any(getattr(t, "id", None) == var for t in node.targets):
+            return {k.value for k in node.value.keys}
+    raise LookupError(f"{fn_name}: no dict assigned to {var}")
+
+
+@pytest.fixture
+def small_refine(monkeypatch):
+    """probe at H, W = 8, 8 (mode 2's query 32 x 32), 2 iterations a
+    frame, timeit calling fn once; the names timeit was given."""
+    names = []
+
+    def once(name, fn, n=10, device="cuda", warm=2):
+        t0 = probe.time.perf_counter()
+        fn()
+        names.append(name)
+        return probe.time.perf_counter() - t0
+    monkeypatch.setattr(probe, "timeit", once)
+    monkeypatch.setattr(probe, "H", 8)
+    monkeypatch.setattr(probe, "W", 8)
+    monkeypatch.setattr(probe, "ITERS", 2)
+    return names
+
+
+def test_inscan_ab_on_cpu(small_refine, tmp_path, capsys):
+    out = tmp_path / "inscan.json"
+    assert probe.main(["inscan_ab", "--device", "cpu", "--out",
+                       str(out)]) == 0
+    got = json.loads(out.read_text())
+    assert set(got) == _jax_dict_keys("cmd_inscan_ab", "out")
+    variants = _jax_dict_keys("cmd_inscan_ab", "variants")
+    assert set(got["in_scan_ab_s_per_frame"]) == _jax_dict_keys(
+        "cmd_inscan_ab", "results") == {"mode3", "mode2_bf16"}
+    for row in got["in_scan_ab_s_per_frame"].values():
+        assert set(row) == variants
+        assert all(math.isfinite(v) and v > 0 for v in row.values())
+    assert len(small_refine) == 8 and all(
+        "eager" in n for n in small_refine)
+    assert ("inscan_ab: unfused eager, fused_raw eager, fused_pre eager, "
+            "render_pre eager") in capsys.readouterr().out
+
+
+def test_profile_on_cpu(small_refine, tmp_path):
+    """The JAX record's keys (PROFILE_r05.json: the report, each leg, a
+    top op, a bandwidth floor) and the phases summing to the busy time;
+    the field's kernel wrappers in cuda_kernel."""
+    out = tmp_path / "profile.json"
+    assert probe.main(["profile", "--device", "cpu", "--frames", "1",
+                       "--top", "5", "--out", str(out)]) == 0
+    got = json.loads(out.read_text())
+    with open(Path(__file__).resolve().parents[1] / "PROFILE_r05.json") as f:
+        want = json.load(f)
+    assert set(got) == set(want)
+    extra = {"bytes_not_reckoned_ms_per_frame", "ops_attributed_by"}
+    for leg in ("mode3", "mode2_bf16"):
+        g, w = got[leg], want[leg]
+        assert set(g) == set(w) | extra
+        assert len(g["top_ops"]) == 5
+        assert all(set(t) == set(w["top_ops"][0]) for t in g["top_ops"])
+        floor = next(iter(w["phase_bandwidth_floors"].values()))
+        assert all(set(f) == set(floor)
+                   for f in g["phase_bandwidth_floors"].values())
+        assert g["phase_bandwidth_floors"]
+        assert _finite_tree(g)
+        phases = g["phases_ms_per_frame"]
+        assert {"cuda_kernel", "embed", "fusion_net", "sampling+sort",
+                "composite"} <= set(phases)
+        assert abs(sum(phases.values()) - g["device_busy_ms_per_frame"]) \
+            <= 0.05 + 1e-3 * g["device_busy_ms_per_frame"]
+        assert set(g["ops_attributed_by"]) <= {"stack", "backward", "none"}
+    assert "apr_tower" in got["mode2_bf16"]["phases_ms_per_frame"]
+
+
+def _finite_tree(x) -> bool:
+    if isinstance(x, dict):
+        return all(_finite_tree(v) for v in x.values())
+    if isinstance(x, list):
+        return all(_finite_tree(v) for v in x)
+    if isinstance(x, float):
+        return math.isfinite(x)
+    return True

@@ -226,7 +226,7 @@ _SERVING_MODULES = (
     "refine/pose_opt.py", "features/backbones.py", "features/posenet.py",
     "features/mstransformer.py", "features/apr_loader.py",
     "features/convert_backbones.py", "weights.py", "runtime/probe.py",
-    "runtime/accuracy.py")
+    "runtime/accuracy.py", "runtime/xprof.py", "native/__init__.py")
 
 
 def test_port_imports_no_jax():
@@ -245,8 +245,8 @@ def test_port_imports_no_jax():
     assert not hits, hits
     # importing every serving module (and chip_smoke) loads neither JAX
     # nor the JAX package, in a process that had neither
-    mods = ["nefes_tpu_torch." + m[:-3].replace("/", ".")
-            for m in _SERVING_MODULES] + ["chip_smoke"]
+    mods = ["nefes_tpu_torch." + m[:-3].replace("/", ".").removesuffix(
+        ".__init__") for m in _SERVING_MODULES] + ["chip_smoke"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'nefes_tpu'))\n"
