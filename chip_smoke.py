@@ -1,7 +1,7 @@
 """On-card smoke run of nefes_tpu_torch on one NVIDIA GPU (written for the
 H100: the kernels build for sm_90a).
 
-    python3 chip_smoke.py [--phases build,check,mode3,mode2,apr,paths,serve,golden,train,traincli,zoo,accuracy,time,micro,probe,inscan_ab,profile]
+    python3 chip_smoke.py [--phases build,check,mode3,mode2,apr,paths,serve,golden,train,traincli,zoo,accuracy,time,micro,probe,inscan_ab,profile,multichip,legacy]
         [--parent DIR]
 
 Phases:
@@ -195,6 +195,23 @@ Phases:
          command (--mode both): each leg's device time by framework phase
          (runtime/xprof.py), host gap, bytes against the memory rate and
          top 12 kernels, the phases summing to the busy time
+  multichip parallel/ on an NCCL group of one rank at full width: the
+         sharded train step (MULTI_WARM warm-up steps, then MULTI_STEPS
+         timed, of train_raw in bf16, the train phase's batch and seeds:
+         K5, K6 +dW, dW), mode 3 on 2
+         frames (K1, K3, K4), mode 2 on 1 frame (the bf16 DFNet, no
+         svd_reg, cuDNN's deterministic algorithms: K5, K7, K8) and one
+         60x80 image's render (K5 + K7), each bit for bit its unsharded
+         function; s/step or s/frame, peak memory, launches; then 2 gloo
+         ranks spawned on cuda:0, the f32 train step with 2 images a
+         rank, against one rank's at JAX's tolerances (loss 2e-5
+         relative, parameters 1e-5 absolute)
+  legacy the legacy DFM toolbox: render_nerfw_imgs of 4 poses at 60x80
+         through K5 + K7 against the plain path (relative L2 within
+         PATHS_RTOL), the triplet family and masked_mse_loss with their
+         gradients on the card against the CPU, create_warped_img of a
+         batch of 8 480x640 images on the card against the CPU; the time
+         of each
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits with 1 and prints
@@ -329,6 +346,15 @@ WIDE_S, WIDE_R = (256, 384, 1024), 64
 # The check phase's K1/K5 also at the main path's sample counts less this,
 # which is not a multiple of the 128-sample block tile
 RAGGED = 37
+# the multichip phase: warm-up and timed sharded train steps, the one
+# deadline of both gloo ranks' joins (they take 12-18 s on an H100),
+# JAX's multi-device tolerances (tests/test_sharding.py)
+MULTI_WARM, MULTI_STEPS, GLOO_JOIN_S = 2, 2, 60
+GLOO_LOSS_RTOL, GLOO_PARAM_ATOL = 2e-5, 1e-5
+# the legacy phase: the features the losses take (L, B, H, W, C), the
+# warp's batch, card-against-CPU tolerances (f32, summation order)
+LEGACY_FEAT, WARP_B = (2, 4, 60, 80, 64), 8
+LEGACY_TOL, LEGACY_WARP_ATOL = 1e-5, 1e-5
 # the libraries of an earlier tree (--parent) that the time phase times
 PARENT_LIBS = ("fused_render", "fused_field", "micro")
 # the micro phase: the probe's rows (H x W x 128), its tiles and 64 rows
@@ -391,7 +417,7 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="build,check,mode3,mode2,apr,paths,serve,"
                     "golden,train,traincli,zoo,accuracy,time,micro,probe,"
-                    "inscan_ab,profile")
+                    "inscan_ab,profile,multichip,legacy")
     ap.add_argument("--parent", default=None,
                     help="an earlier tree whose K1, K5 and render kernels "
                     "the time phase times beside this tree's")
@@ -1595,37 +1621,13 @@ def main() -> int:
 
     phase("golden", do_golden)
 
-    def train_batch(F):
-        """rgb targets uniform (seed 5), feature targets normal (seed 6),
-        the TRAIN_B poses, the rgb targets' luminance histograms."""
-        from nefes_tpu_torch.data.scene import compute_histograms
-        rgb = torch.rand((TRAIN_B, H, W, 3),
-                         generator=torch.Generator().manual_seed(5))
-        feat = torch.randn((TRAIN_B, H, W, F),
-                           generator=torch.Generator().manual_seed(6))
-        hists = torch.from_numpy(compute_histograms(rgb.numpy()))
-        return {"rgb": rgb.to(dev), "feat": feat.to(dev),
-                "poses": train_poses(dev), "hists": hists.to(dev)}
-
-    def train_model(dt):
-        return NeFeSModel(ModelConfig(dtype=kf._DTYPES[dt]), device=dev,
-                          generator=torch.Generator().manual_seed(0))
-
-    def train_cfg(model, path):
-        cfg = model.cfg.render_config(n_samples=N_C, n_importance=N_F,
-                                      perturb=True, output_transient=True,
-                                      remat=False)
-        flags = {"train_raw": dict(fused=True, fused_pre=False),
-                 "train_pre": dict(fused=True, fused_pre=True),
-                 "train_unfused": {}}[path]
-        return replace_cfg(cfg, fused_need_dw=True, **flags)
 
     def train_run(path, st, batch, steps, gen, stage=1, lr=TRAIN_LR,
                   scene=None):
         """`steps` steps of `path` on the train state st; (losses, seconds,
         launch counts). stage 2 runs the patch step."""
         from nefes_tpu_torch.train import train_step_patch, train_step_rays
-        cfg = train_cfg(st.model, path)
+        cfg = train_render_cfg(st.model, path)
         hwf, near, far = scene or ((H, W, FOCAL), NEAR, FAR)
 
         def steps_():
@@ -1650,10 +1652,10 @@ def main() -> int:
     def do_train():
         from nefes_tpu_torch.train import create_train_state, lr_for_epoch
         F = ModelConfig().feature_dim
-        batch = train_batch(F)
+        batch = make_train_batch(F, dev)
         rays = TRAIN_B * N_RAND
         # the main path: K5 and K6 with dW, bf16
-        st = create_train_state(train_model("bfloat16"))
+        st = create_train_state(make_train_model("bfloat16", dev))
         gen = torch.Generator(device=dev).manual_seed(7)
         train_run("train_raw", st, batch, 2, gen)          # warm-up
         torch.cuda.reset_peak_memory_stats()
@@ -1716,7 +1718,7 @@ def main() -> int:
         for dt in ("bfloat16", "float32"):
             runs = {}
             for path in ("train_raw", "train_pre", "train_unfused"):
-                m = train_model(dt)
+                m = make_train_model(dt, dev)
                 p0 = flat_params(m)
                 st_p = create_train_state(m)
                 gen_p = torch.Generator(device=dev).manual_seed(8)
@@ -1762,7 +1764,7 @@ def main() -> int:
         sb = {"rgb": torch.from_numpy(scene.images[:TRAIN_B]).to(dev),
               "poses": torch.from_numpy(scene.poses[:TRAIN_B]).to(dev),
               "hists": torch.from_numpy(scene.hists[:TRAIN_B]).to(dev)}
-        st_s = create_train_state(train_model("bfloat16"))
+        st_s = create_train_state(make_train_model("bfloat16", dev))
         losses, secs, _ = train_run(
             "train_raw", st_s, sb, 30, torch.Generator(device=dev)
             .manual_seed(9), stage=0, lr=lambda i: lr_for_epoch(i, 5e-3),
@@ -2734,8 +2736,8 @@ def main() -> int:
         3 train_raw steps, 5 iterations of mode 3 (render_pre) and of mode
         2 (render_raw), eager and through the captured loop."""
         from nefes_tpu_torch.train import create_train_state
-        batch = train_batch(ModelConfig().feature_dim)
-        st = create_train_state(train_model("bfloat16"))
+        batch = make_train_batch(ModelConfig().feature_dim, dev)
+        st = create_train_state(make_train_model("bfloat16", dev))
         gen = torch.Generator(device=dev).manual_seed(7)
         train_run("train_raw", st, batch, 2, gen)          # warm-up
         profiled("train train_raw, 3 steps",
@@ -2803,6 +2805,282 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     phase("profile", do_profile)
+
+    def by_path(counts: dict, path: str) -> None:
+        """Keep a path's launch counts beside each kernel's main-path
+        launches."""
+        for name, c in counts.items():
+            kernels[name].setdefault("launches_by_path", {})[path] = c
+
+    path_kernels["render_fwd_raw"] = ("K5 field_fwd", "K7 render_fwd")
+
+    def do_multichip():
+        """parallel/ on the card: the sharded train step, mode 3, mode 2
+        and render on an NCCL group of one rank, each bit for bit its
+        unsharded path; then 2 gloo ranks on cuda:0 against one rank."""
+        import multiprocessing
+        import torch.distributed as dist
+        from nefes_tpu_torch.geometry.rays import get_rays
+        from nefes_tpu_torch.geometry.transforms import WorldSetup
+        from nefes_tpu_torch.parallel import (
+            init_distributed, make_mesh, make_sharded_train_step,
+            refine_apr_sharded, refine_poses_sharded, render_rays_sharded,
+            shard_batch,
+        )
+        from nefes_tpu_torch.refine import (
+            refine_apr_batch, refine_poses_batch,
+        )
+        from nefes_tpu_torch.render.renderer import render_rays
+        from nefes_tpu_torch.train import create_train_state, train_step_rays
+        batch = make_train_batch(ModelConfig().feature_dim, dev)
+        hwf = (H, W, FOCAL)
+
+        def train_steps(step, st, b, n=MULTI_STEPS, gen=None):
+            gen = gen or torch.Generator(device=dev).manual_seed(7)
+            return torch.stack([step(st, b, gen)[1] for _ in
+                                range(n)]).float().cpu()
+
+        def plain_step(st, b, gen):
+            return train_step_rays(st, train_render_cfg(st.model,
+                                                        "train_raw"),
+                                   b, gen, TRAIN_LR, hwf, NEAR, FAR,
+                                   n_rand=N_RAND, stage=1)
+
+        def same(a, b):
+            return torch.equal(a.cpu(), b.cpu())
+
+        init_distributed(0, 1, f"tcp://localhost:{free_port()}", device=dev,
+                         timeout_s=60.0)
+        try:
+            mesh = make_mesh()
+            # the train step (train_raw, bf16, stage 1, transient heads):
+            # MULTI_WARM steps (the NCCL group's first all-reduces among
+            # them), then MULTI_STEPS timed, as the train phase times
+            st_ref = create_train_state(make_train_model("bfloat16", dev))
+            ref_losses = train_steps(plain_step, st_ref, batch,
+                                     MULTI_WARM + MULTI_STEPS)
+            st = create_train_state(make_train_model("bfloat16", dev))
+            sharded = make_sharded_train_step(
+                train_render_cfg(st.model, "train_raw"), mesh, hwf, NEAR, FAR,
+                n_rand=N_RAND, stage=1)
+            local = shard_batch(mesh, batch)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            one = lambda s_, b_, g_: sharded(s_, b_, g_, TRAIN_LR)
+            warm = train_steps(one, st, local, MULTI_WARM, gen)
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            timed, secs, counts = counted("train_raw", lambda: train_steps(
+                one, st, local, MULTI_STEPS, gen))
+            losses = torch.cat([warm, timed])
+            equal = same(losses, ref_losses) and all(
+                torch.equal(a, b) for a, b in zip(st.model.parameters(),
+                                                  st_ref.model.parameters()))
+            log(f"multichip train (NCCL, 1 rank, train_raw bf16, "
+                f"{TRAIN_B}x{N_RAND} rays, stage 1): {secs / MULTI_STEPS:.4f}"
+                f" s/step over {MULTI_STEPS} steps after {MULTI_WARM} "
+                f"warm-up steps, losses "
+                f"{losses.tolist()}, loss and every parameter "
+                f"{'bit for bit' if equal else 'NOT'} train_step_rays'")
+            log(f"  peak memory {peak_mib(held, 'the steps')}; launches "
+                f"{counts}")
+            if not equal:
+                raise AssertionError("sharded train step != train_step_rays")
+            by_path(counts, "multichip train")
+            del st, st_ref
+
+            # mode 3 of 2 frames (K1, K3, K4)
+            init2 = torch.stack([init, learn_pose(
+                torch.tensor([-0.01, 0.02, 0.0], device=dev),
+                torch.tensor([0.0, 0.03, -0.02], device=dev), gt)[:3, :4]])
+            feats = target[None].expand(2, *target.shape).contiguous()
+            hists2 = torch.zeros((2, 10), device=dev)
+            ws = WorldSetup(NEAR, FAR, 1.0, 1.0, (0.0, 0.0, 0.0))
+            want3 = refine_poses_batch(model, init2, feats, hists2, ws, hwf,
+                                       cfgs["render_pre"], rcfg)
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            got3, secs, counts = counted("render_pre", lambda:
+                                         refine_poses_sharded(
+                model, init2, feats, hists2, ws, hwf, cfgs["render_pre"],
+                rcfg, mesh))
+            equal = all(same(a, b) for a, b in zip(got3, want3))
+            log(f"multichip mode 3 (NCCL, 1 rank, render_pre, 2 frames x "
+                f"{ITERS} iterations): {secs / 2:.4f} s/frame, refined poses"
+                f" and losses {'bit for bit' if equal else 'NOT'} "
+                f"refine_poses_batch'; peak memory "
+                f"{peak_mib(held, 'the frames')}; launches {counts}")
+            if not equal:
+                raise AssertionError("refine_poses_sharded != "
+                                     "refine_poses_batch")
+            by_path(counts, "multichip mode 3")
+
+            # mode 2 of 1 frame, the bf16 DFNet (K5, K7, K8)
+            dfnet, kw = apr_of(BF16_DFNET)
+            _, image, target2 = mode2_inputs("bfloat16")
+            args2 = (image[None], target2[None], hist[None], ws_vec, hwf,
+                     (IMG_H, IMG_W, FOCAL_FULL), NEAR, FAR,
+                     cfgs["render_raw"], rcfg2)
+            torch.backends.cudnn.deterministic = True
+            try:
+                want2 = refine_apr_batch(model, dfnet, *args2, **kw)
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                got2, secs, counts = counted("render_raw", lambda:
+                                             refine_apr_sharded(
+                    model, dfnet, *args2, mesh, **kw))
+            finally:
+                torch.backends.cudnn.deterministic = False
+            equal = all(same(got2[k], want2[k]) for k in want2)
+            log(f"multichip mode 2 (NCCL, 1 rank, render_raw, bf16 DFNet, "
+                f"1 frame x {ITERS} iterations): {secs:.4f} s/frame, every "
+                f"output {'bit for bit' if equal else 'NOT'} "
+                f"refine_apr_batch's; peak memory "
+                f"{peak_mib(held, 'the frame')}; launches {counts}")
+            if not equal:
+                raise AssertionError("refine_apr_sharded != "
+                                     "refine_apr_batch")
+            by_path(counts, "multichip mode 2")
+
+            # one 60x80 image's rays (K5 + K7)
+            ro, rd = (x.reshape(-1, 3) for x in get_rays(H, W, FOCAL, gt))
+            cfg_r = cfgs["render_raw"]
+            with torch.no_grad():
+                want_rgb = render_rays(*model.field_fns(cfg_r), ro, rd, NEAR,
+                                       FAR, None, cfg_r)["rgb"]
+            rgb, secs, counts = counted("render_fwd_raw", lambda:
+                                        render_rays_sharded(
+                model, ro, rd, NEAR, FAR, cfg_r, mesh))
+            equal = same(rgb, want_rgb)
+            log(f"multichip render (NCCL, 1 rank, {H}x{W} rays, K5 + K7): "
+                f"{secs * 1e3:.2f} ms, rgb {'bit for bit' if equal else 'NOT'}"
+                f" render_rays'; launches {counts}")
+            if not equal:
+                raise AssertionError("render_rays_sharded != render_rays")
+            by_path(counts, "multichip render")
+        finally:
+            dist.destroy_process_group()
+
+        # 2 gloo ranks on cuda:0, f32, images over "data", against one
+        # rank: JAX's tolerances (tests/test_sharding.py)
+        out = Path("tmp") / "multichip_gloo.pt"
+        out.parent.mkdir(exist_ok=True)
+        out.unlink(missing_ok=True)
+        address = f"tcp://localhost:{free_port()}"
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=gloo_rank, args=(r, address, str(out)))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:                      # one deadline for both
+                p.join(max(0.0, t0 + GLOO_JOIN_S - time.perf_counter()))
+        finally:
+            hung = [p for p in procs if p.is_alive()]
+            for p in hung:
+                p.kill()
+                p.join()
+        secs = time.perf_counter() - t0
+        if hung or any(p.exitcode for p in procs):
+            raise AssertionError(f"gloo ranks: exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+        res = torch.load(out)
+        st1 = create_train_state(make_train_model("float32", dev))
+        ref = train_steps(plain_step, st1, batch)
+        p1 = flat_params(st1.model).cpu()
+        loss_rel = ((res["losses"] - ref).abs() / ref.abs()).max().item()
+        param_abs = (res["params"] - p1).abs().max().item()
+        log(f"multichip 2 gloo ranks on cuda:0 (f32 train_raw, {MULTI_STEPS}"
+            f" steps, 2 images a rank): {secs:.1f} s for both processes "
+            f"from their start; against one rank: loss rel "
+            f"{loss_rel:.3e} (tolerance {GLOO_LOSS_RTOL:g}), parameters max "
+            f"abs {param_abs:.3e} (tolerance {GLOO_PARAM_ATOL:g})")
+        if not (loss_rel <= GLOO_LOSS_RTOL and param_abs <= GLOO_PARAM_ATOL):
+            raise AssertionError("2 gloo ranks disagree with one rank")
+
+    phase("multichip", do_multichip)
+
+    def do_legacy():
+        """refine/legacy_train.py and utils/homography.py on the card."""
+        from nefes_tpu_torch.refine import legacy_train as lt
+        from nefes_tpu_torch.utils.homography import create_warped_img
+        poses = train_poses(dev).cpu().numpy()
+        hists4 = np.zeros((len(poses), 10), np.float32)
+        got, secs, counts = counted("render_fwd_raw", lambda:
+                                    lt.render_nerfw_imgs(
+            model, poses, hists4, (H, W, FOCAL), NEAR, FAR,
+            cfgs["render_raw"]))
+        want, secs_plain, _ = counted("unfused", lambda: lt.render_nerfw_imgs(
+            model, poses, hists4, (H, W, FOCAL), NEAR, FAR,
+            cfgs["unfused"]))
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        log(f"legacy render_nerfw_imgs ({len(poses)} poses at {H}x{W}, "
+            f"K5 + K7): {secs / len(poses) * 1e3:.2f} ms a pose, plain "
+            f"{secs_plain / len(poses) * 1e3:.2f} ms; rel L2 against plain "
+            f"{rel:.3e} (tolerance {PATHS_RTOL:g}), max abs "
+            f"{np.abs(got - want).max():.3e}; launches {counts}")
+        if not (np.isfinite(got).all() and rel <= PATHS_RTOL):
+            raise AssertionError("render_nerfw_imgs disagrees with plain")
+        by_path(counts, "legacy render_nerfw_imgs")
+
+        # the losses and their gradients, card against CPU
+        rng = np.random.default_rng(0)
+        f1, f2 = (rng.normal(size=LEGACY_FEAT).astype(np.float32)
+                  for _ in range(2))
+        mask = torch.from_numpy(
+            (rng.uniform(size=LEGACY_FEAT[1:4]) > 0.3).astype(np.float32))
+        losses = {
+            "triplet_loss": lt.triplet_loss,
+            "hard_negative_mining": lt.triplet_loss_hard_negative_mining,
+            "hard_negative_mining_plus":
+                lt.triplet_loss_hard_negative_mining_plus,
+            "hard_negative_mining_plus (B, ...)": lambda a, b:
+                lt.triplet_loss_hard_negative_mining_plus(a[0], b[0]),
+            "masked_mse_loss": lambda a, b: lt.masked_mse_loss(
+                a[0], b[0], mask.to(a.device)),
+        }
+        for name, fn in losses.items():
+            res = {}
+            for d in ("cpu", dev):
+                a = torch.from_numpy(f1).to(d).requires_grad_(True)
+                b = torch.from_numpy(f2).to(d).requires_grad_(True)
+                ms = time_ms(lambda: fn(a, b).backward(), reps=3) \
+                    if d == dev else 0.0
+                a.grad = b.grad = None
+                v = fn(a, b)
+                v.backward()
+                res[str(d)] = (float(v.detach()), a.grad.cpu(), b.grad.cpu(),
+                               ms)
+            (vc, ac, bc, _), (vg, ag, bg, ms) = res["cpu"], res[str(dev)]
+            rel = abs(vg - vc) / abs(vc)
+            grel = max(float((x - y).norm() / y.norm())
+                       for x, y in ((ag, ac), (bg, bc)))
+            log(f"legacy {name} {tuple(f1.shape)}: {ms:.3f} ms forward + "
+                f"backward on the card; card against CPU: value rel "
+                f"{rel:.3e}, gradients rel L2 {grel:.3e} (tolerance "
+                f"{LEGACY_TOL:g})")
+            if not (rel <= LEGACY_TOL and grel <= LEGACY_TOL):
+                raise AssertionError(f"legacy {name}: card != CPU")
+
+        # the homography warp of a batch, card against CPU
+        imgs = torch.rand((WARP_B, IMG_H * 2, IMG_W * 2, 3),
+                          generator=torch.Generator().manual_seed(11))
+        imgs_d = imgs.to(dev)
+        ms = time_ms(lambda: create_warped_img(imgs_d, WARP_B,
+                                               np.random.default_rng(3)))
+        got, gh = create_warped_img(imgs_d, WARP_B, np.random.default_rng(3))
+        t0 = time.perf_counter()
+        want, wh = create_warped_img(imgs, WARP_B, np.random.default_rng(3))
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        err = (got.cpu() - want).abs().max().item()
+        log(f"legacy create_warped_img {tuple(imgs.shape)}: {ms:.3f} ms on "
+            f"the card, {cpu_ms:.1f} ms on the host's CPU; homographies "
+            f"{'equal' if torch.equal(gh.cpu(), wh) else 'DIFFERENT'}, "
+            f"images max abs {err:.3e} (tolerance {LEGACY_WARP_ATOL:g})")
+        if not (torch.equal(gh.cpu(), wh) and err <= LEGACY_WARP_ATOL):
+            raise AssertionError("create_warped_img: card != CPU")
+
+    phase("legacy", do_legacy)
     return finish(failed, kernels, smi)
 
 
@@ -2916,7 +3194,9 @@ def finish(failed, kernels, smi) -> int:
     log(f"card: {smi}")       # again, beside the results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    rows = [{k: v.get(k) for k in keys} | {"path": v.get("path")}
+    rows = [{k: v.get(k) for k in keys}
+            | {"path": v.get("path"),
+               "launches_by_path": v.get("launches_by_path", {})}
             for v in kernels.values()]
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -3473,6 +3753,78 @@ def train_poses(dev) -> torch.Tensor:
             for a in np.linspace(0.0, 1.2, TRAIN_B)]
     return torch.from_numpy(np.stack([look_at_pose(np.array(e, np.float32))
                                       for e in eyes])).to(dev)
+
+
+def make_train_batch(F: int, dev) -> dict:
+    """rgb targets uniform (seed 5), feature targets normal (seed 6), the
+    TRAIN_B poses, the rgb targets' luminance histograms."""
+    from nefes_tpu_torch.data.scene import compute_histograms
+    rgb = torch.rand((TRAIN_B, H, W, 3),
+                     generator=torch.Generator().manual_seed(5))
+    feat = torch.randn((TRAIN_B, H, W, F),
+                       generator=torch.Generator().manual_seed(6))
+    hists = torch.from_numpy(compute_histograms(rgb.numpy()))
+    return {"rgb": rgb.to(dev), "feat": feat.to(dev),
+            "poses": train_poses(dev), "hists": hists.to(dev)}
+
+
+def make_train_model(dt: str, dev):
+    """The training phases' field at full width in dt, seeded weights."""
+    from nefes_tpu_torch.kernels import fused_field as kf
+    from nefes_tpu_torch.train.model import ModelConfig, NeFeSModel
+    return NeFeSModel(ModelConfig(dtype=kf._DTYPES[dt]), device=dev,
+                      generator=torch.Generator().manual_seed(0))
+
+
+def train_render_cfg(model, path: str):
+    """The training render config of a path (train_raw: K5 / K6 +dW;
+    train_pre: K1 / K2 +dW; train_unfused)."""
+    cfg = model.cfg.render_config(n_samples=N_C, n_importance=N_F,
+                                  perturb=True, output_transient=True,
+                                  remat=False)
+    flags = {"train_raw": dict(fused=True, fused_pre=False),
+             "train_pre": dict(fused=True, fused_pre=True),
+             "train_unfused": {}}[path]
+    return replace_cfg(cfg, fused_need_dw=True, **flags)
+
+
+def gloo_rank(rank: int, address: str, out: str) -> None:
+    """One of the multichip phase's 2 gloo ranks on cuda:0: MULTI_STEPS
+    sharded f32 train steps (train_raw, images over "data") from the
+    train phase's weights, batch and generator seed; rank 0 saves the
+    losses and the parameters to out."""
+    import torch.distributed as dist
+    from nefes_tpu_torch.parallel import (
+        init_distributed, make_mesh, make_sharded_train_step, shard_batch,
+    )
+    from nefes_tpu_torch.train import create_train_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed(rank, 2, address, device="cuda:0",
+                           backend="gloo", timeout_s=60.0)
+    state = create_train_state(make_train_model("float32", dev))
+    mesh = make_mesh()
+    step = make_sharded_train_step(
+        train_render_cfg(state.model, "train_raw"), mesh, (H, W, FOCAL),
+        NEAR, FAR, n_rand=N_RAND, stage=1)
+    batch = shard_batch(mesh, make_train_batch(
+        state.model.cfg.feature_dim, dev))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    losses = [step(state, batch, gen, TRAIN_LR)[1]
+              for _ in range(MULTI_STEPS)]
+    if rank == 0:
+        torch.save({"losses": torch.stack(losses).cpu(),
+                    "params": torch.cat([p.detach().reshape(-1) for p in
+                                         state.model.parameters()]).cpu()},
+                   out)
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def train_path_inputs(model, dev) -> dict:

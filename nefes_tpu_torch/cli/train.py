@@ -55,6 +55,7 @@ from nefes_tpu_torch.train.trainer import (
     stage_for_epoch, train_step_patch, train_step_rays,
 )
 from nefes_tpu_torch.utils.image import resize_bilinear
+from nefes_tpu_torch.utils.init import lecun_normal_
 from nefes_tpu_torch.utils.profiling import trace
 
 # the field kernels of each render (RenderConfig's fused flags). Training
@@ -130,6 +131,20 @@ def build_model(opts, dtype: torch.dtype = torch.float32, device="cuda",
     return cfg, NeFeSModel(cfg, device=device, generator=generator)
 
 
+def init_train_model(opts, device):
+    """(config, model) that training starts from, f32, before any
+    checkpoint is loaded: flax's initialisers (lecun_normal weights, zero
+    biases) drawn from a seeded generator, as the JAX CLI's
+    create_train_state(model, key(0)) draws them; a zoo field draws its
+    own (train/field_zoo.py)."""
+    gen = torch.Generator().manual_seed(0)
+    if is_zoo_field(opts):
+        return build_model(opts, device=device, generator=gen)
+    cfg, model = build_model(opts, device=device)
+    lecun_normal_(model, gen)
+    return cfg, model
+
+
 def load_dfnet(path: str, opts, dev, seed: int,
                dtype: torch.dtype = torch.float32) -> DFNet:
     """DFNet computing in dtype (parameters f32) from a reference
@@ -192,8 +207,7 @@ def main(argv=None):
             "outside the run_nefes feature schedule)")
 
     scene = build_scene(opts, train=True)
-    cfg, model = build_model(opts, dtype=torch.float32, device=dev,
-                             generator=torch.Generator().manual_seed(0))
+    cfg, model = init_train_model(opts, dev)
     state = create_train_state(
         model, make_optimizer(model.parameters(), grad_clip=opts.grad_clip))
 

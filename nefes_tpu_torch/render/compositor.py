@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from nefes_tpu_torch.render.sampling import draw
+
 DELTA_INF = 1e2
 
 
@@ -60,9 +62,8 @@ def composite(raw: dict, z_vals: torch.Tensor, raw_noise_std: float = 0.0,
     else:
         noise = 0.0
         if raw_noise_std > 0.0 and noise_rng is not None:
-            noise = torch.randn(static_sigmas.shape, generator=noise_rng,
-                                device=noise_rng.device).to(
-                static_sigmas.device) * raw_noise_std
+            noise = draw(noise_rng, static_sigmas.shape,
+                         static_sigmas.device, normal=True) * raw_noise_std
         alphas = 1.0 - torch.exp(-deltas * (static_sigmas + noise))
         transient_sigmas = None
 

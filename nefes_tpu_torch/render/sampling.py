@@ -9,6 +9,41 @@ from __future__ import annotations
 import torch
 
 
+class RowShard:
+    """A generator for one shard of a batch of rays (parallel/train_dp.py):
+    a draw of shape (R, ...) is the rows `rows` (R,) of the same draw for
+    the batch's n_rows rays, so that a rank's rays take the values the
+    unsharded render draws for them, and every rank's gen stays in one
+    state."""
+
+    def __init__(self, gen: torch.Generator, rows: torch.Tensor,
+                 n_rows: int):
+        self.gen, self.rows, self.n_rows = gen, rows, n_rows
+
+    @property
+    def device(self) -> torch.device:
+        return self.gen.device
+
+
+def base_generator(rng):
+    """The torch.Generator behind rng (a RowShard's own), or None."""
+    return rng.gen if isinstance(rng, RowShard) else rng
+
+
+def draw(rng, shape, device, normal: bool = False) -> torch.Tensor:
+    """torch.rand (torch.randn when normal) of shape from rng, on device;
+    from a RowShard, its rows of the whole batch's draw."""
+    fn = torch.randn if normal else torch.rand
+    if isinstance(rng, RowShard):
+        if shape[0] != rng.rows.shape[0]:
+            raise ValueError(f"a draw of {shape[0]} rows from a shard of "
+                             f"{rng.rows.shape[0]}")
+        full = fn((rng.n_rows, *shape[1:]), generator=rng.gen,
+                  device=rng.gen.device)
+        return full.index_select(0, rng.rows).to(device)
+    return fn(shape, generator=rng, device=rng.device).to(device)
+
+
 def _bound(v, n_rays: int, device) -> torch.Tensor:
     """A near or far bound as (n_rays, 1) f32; a Python number is filled
     on the device (no host copy, so the render can be captured as a CUDA
@@ -34,7 +69,7 @@ def stratified_samples(rng: torch.Generator | None, n_rays: int,
         mids = 0.5 * (z[..., 1:] + z[..., :-1])
         upper = torch.cat([mids, z[..., -1:]], dim=-1)
         lower = torch.cat([z[..., :1], mids], dim=-1)
-        u = torch.rand(z.shape, generator=rng, device=rng.device).to(device)
+        u = draw(rng, z.shape, device)
         z = lower + (upper - lower) * u
     return z
 
@@ -59,7 +94,7 @@ def sample_pdf(rng: torch.Generator | None, bins: torch.Tensor,
         u = torch.linspace(0.0, 1.0, n_samples,
                            device=cdf.device).expand(shape)
     else:
-        u = torch.rand(shape, generator=rng, device=rng.device).to(cdf.device)
+        u = draw(rng, shape, cdf.device)
     u = u.contiguous()
 
     inds = torch.searchsorted(cdf.detach().contiguous(), u, right=True)

@@ -72,6 +72,9 @@ H, W, FOCAL = 60, 80, 525.505 / 2 / 4      # 7-Scenes refinement geometry
 NEAR, FAR = 0.0, 4.0
 ITERS = 50          # refinement iterations a frame (inscan_ab, profile)
 CHAIN_DEPTH, CHAIN_WIDTH, CHAIN_IN = 8, 128, 64
+# the paper architecture, which perf and accuracy build (ModelConfig's
+# fields; the CPU tests swap in a smaller one)
+ARCH = dict(depth=8, width=128, feature_dim=128)
 
 # --------------------------------------------------------------------------
 # bounds: the least time an H100 could take for a function's work (the
@@ -520,7 +523,7 @@ def cmd_perf(args) -> dict:
 
     dev = torch.device(args.device)
     print(_device_line(dev), flush=True)
-    cfg = ModelConfig(dtype=torch.bfloat16)
+    cfg = ModelConfig(**ARCH, dtype=torch.bfloat16)
     model = NeFeSModel(cfg, device=dev,
                        generator=torch.Generator().manual_seed(0))
     model.requires_grad_(False)
@@ -739,8 +742,7 @@ def cmd_accuracy(args) -> dict:
     poses = torch.from_numpy(np.asarray(scene.poses, np.float32)).to(dev)
     hists = torch.from_numpy(np.asarray(scene.hists, np.float32)).to(dev)
 
-    cfg = ModelConfig(depth=8, width=128, feature_dim=128,
-                      dtype=torch.bfloat16)      # the paper architecture
+    cfg = ModelConfig(**ARCH, dtype=torch.bfloat16)
     model = NeFeSModel(cfg, device=dev)
     lecun_normal_(model, torch.Generator().manual_seed(0))
     state = create_train_state(model, make_optimizer(

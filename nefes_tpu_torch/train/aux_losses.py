@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from nefes_tpu_torch.render.sampling import base_generator
+
 TV_DELTAS = 9.5238e-02   # reference magic number (losses.py:231)
 
 
@@ -29,7 +31,9 @@ def _tv3d(vol: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
 def tv_corners(gen: torch.Generator | None,
                sample_resolution=(512, 256, 512)) -> torch.Tensor:
     """The TV cube's three corner indices, (3,) int64 on gen's device
-    (the CPU without a generator): each uniform in [0, res - res // 10)."""
+    (the CPU without a generator): each uniform in [0, res - res // 10);
+    a RowShard draws from its generator."""
+    gen = base_generator(gen)
     dev = gen.device if gen is not None else "cpu"
     return torch.stack([
         torch.randint(0, s - s // 10, (), generator=gen, device=dev)

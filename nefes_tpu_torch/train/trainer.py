@@ -242,8 +242,15 @@ def _select_ray_pixels(gen: torch.Generator, n_rand: int, H: int, W: int,
     device: uniform without replacement among the pixels with mask > 0
     (mask (B, H, W)), as the top n_rand of uniform keys (the JAX package's
     Gumbel top-k); masked pixels only when fewer than n_rand are valid."""
+    keys = torch.rand((mask.shape[0], H * W), generator=gen,
+                      device=gen.device)
+    return top_pixels(keys, mask, n_rand)
+
+
+def top_pixels(keys: torch.Tensor, mask: torch.Tensor,
+               n_rand: int) -> torch.Tensor:
+    """_select_ray_pixels' choice from its keys (B, H·W)."""
     B = mask.shape[0]
-    keys = torch.rand((B, H * W), generator=gen, device=gen.device)
     keys = keys.to(mask.device).masked_fill(mask.reshape(B, -1) <= 0, -1.0)
     return keys.topk(n_rand, dim=1).indices
 

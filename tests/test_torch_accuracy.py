@@ -430,6 +430,7 @@ JAX_NESTED = {
 }
 MODE3_RUN_KEYS = {"lr_r", "lr_t", "median_t_m", "median_r_deg",
                   "improved_t_frac", "improved_r_frac"}
+TINY_ARCH = dict(depth=2, width=32, feature_dim=8, skips=(1,))
 SMALL = ["accuracy", "--device", "cpu", "--image_h", "64", "--image_w",
          "64", "--n_train", "4", "--n_test", "2", "--epochs_color", "1",
          "--epochs_feat", "1", "--epochs_fusion", "1", "--feat_steps", "1",
@@ -457,7 +458,11 @@ def whole_run(tmp_path_factory):
     n = torch.get_num_threads()
     torch.set_num_threads(4)
     try:
-        assert probe.main(SMALL + ["--cache", cache, "--out", out]) == 0
+        # a small tower: the keys, finiteness and the cache do not depend
+        # on the width (the card runs the paper architecture)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(probe, "ARCH", TINY_ARCH)
+            assert probe.main(SMALL + ["--cache", cache, "--out", out]) == 0
     finally:
         torch.set_num_threads(n)
     with open(out) as f:
@@ -497,6 +502,7 @@ def test_accuracy_command_from_cache(whole_run, monkeypatch):
                  "render_contrastive_set"):
         monkeypatch.setattr(acc, name, refuse)
     out2 = out.replace("out.json", "out2.json")
+    monkeypatch.setattr(probe, "ARCH", TINY_ARCH)
     assert probe.main(SMALL + ["--cache", cache, "--out", out2]) == 0
     with open(out2) as f:
         res2 = json.load(f)

@@ -270,6 +270,9 @@ def test_grids(micro_lib):
 
 # --- the commands on the CPU ---
 
+TINY_ARCH = dict(depth=2, width=32, feature_dim=8, skips=(1,))
+
+
 @pytest.fixture
 def cpu_probe(monkeypatch):
     """probe at H, W = 1, 16 (N = 2048) with timeit calling fn once; the
@@ -334,6 +337,9 @@ def test_kernel_on_cpu(cpu_probe):
 def test_perf_on_cpu(cpu_probe, monkeypatch):
     monkeypatch.setattr(probe, "H", 2)
     monkeypatch.setattr(probe, "W", 4)
+    # a small tower: the command's keys and finiteness do not depend on
+    # the width (the card runs the paper architecture)
+    monkeypatch.setattr(probe, "ARCH", TINY_ARCH)
     res = probe.cmd_perf(SimpleNamespace(device="cpu", refine_n=1))
     assert len(res) == 7 and _finite(res)
     assert cpu_probe[3] == "50-iter refine"

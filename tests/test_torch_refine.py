@@ -226,7 +226,12 @@ _SERVING_MODULES = (
     "refine/pose_opt.py", "features/backbones.py", "features/posenet.py",
     "features/mstransformer.py", "features/apr_loader.py",
     "features/convert_backbones.py", "weights.py", "runtime/probe.py",
-    "runtime/accuracy.py", "runtime/xprof.py", "native/__init__.py")
+    "runtime/accuracy.py", "runtime/xprof.py", "native/__init__.py",
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/train_dp.py",
+    "refine/legacy_train.py", "utils/homography.py", "utils/colmap.py",
+    "utils/kalman.py", "data/llff_blender.py", "data/augment.py",
+    "data/multiframe.py", "data/setup_7scenes.py",
+    "data/setup_cambridge.py")
 
 
 def test_port_imports_no_jax():

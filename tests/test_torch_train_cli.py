@@ -183,3 +183,42 @@ def test_main_needs_the_card_by_default(fx):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         main(_argv(paths, os.path.join(root, "nocard"), "x", {}, None))
+
+
+def test_fresh_model_draws_flax_initialisers():
+    """The model the training CLI starts from (no checkpoint) has the
+    JAX CLI's initial distribution (create_train_state(model, key(0)):
+    flax's lecun_normal kernels, zero biases), at the CLI's default
+    architecture: every bias exactly 0; each Linear / Conv2d weight's std
+    within 10 % of the JAX init's at the same parameter (or within 4
+    standard errors of the two samples' difference, 4 * 0.59 * sqrt(2 /
+    n), where a weight has too few elements n for 10 %); no weight beyond
+    2 std of the untruncated normal (flax truncates there)."""
+    from nefes_tpu.cli.options import options_from_cli as jax_options
+    from nefes_tpu.cli.train import build_model as jax_build_model
+    from nefes_tpu_torch.cli.options import options_from_cli
+    from nefes_tpu_torch.cli.train import init_train_model
+    from nefes_tpu_torch.weights import from_jax_variables
+
+    cfg, model = init_train_model(options_from_cli([]), "cpu")
+    jcfg, jmodel = jax_build_model(jax_options([]))
+    want = from_jax_variables(
+        jax.tree.map(np.asarray, jmodel.init_variables(jax.random.key(0))),
+        cfg)
+    n_weights = 0
+    for name, mod in model.named_modules():
+        if not isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d)):
+            continue
+        n_weights += 1
+        assert torch.count_nonzero(mod.bias) == 0, name
+        w, jw = mod.weight.detach(), want[f"{name}.weight"]
+        assert w.shape == jw.shape, name
+        n = w.numel()
+        tol = max(0.10, 4 * 0.59 * (2.0 / n) ** 0.5)
+        rel = abs(float(w.std()) / float(jw.std()) - 1.0)
+        assert rel <= tol, (name, rel, tol)
+        bound = 2 * w[0].numel() ** -0.5 / .87962566103423978
+        assert float(w.abs().max()) <= bound * (1 + 1e-6), name
+        assert float(jw.abs().max()) <= bound * (1 + 1e-6), name
+    assert n_weights == sum(1 for k in want if k.endswith(".weight")
+                            and "bn" not in k)
